@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of sml_tpu: the deformpathomic serving path on an NVIDIA H100.
+
+The JAX package ``sml_tpu`` is the reference; this package imports none of it
+(nor JAX, yaml, sklearn, h5py or pandas) and keeps its own copies of what it
+needs.  Every Pallas kernel on the ported path is a hand-written CUDA C++
+kernel for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and bound
+with ``ctypes`` (``ops/kernels/``).  Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""

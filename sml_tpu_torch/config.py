@@ -1,0 +1,115 @@
+"""Typed config with the keys and defaults of ``config/config_mine.yaml``, and an
+argparse parser built from its fields (counterpart of ``sml_tpu/config.py``).
+
+No YAML dependency: the defaults live in the dataclass.  Every field becomes a
+``--field`` flag whose type follows its default; booleans parse leniently.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+MODES = ("path", "omic", "pathomic", "pathomic_original", "mcat", "cmta",
+         "deformpathomic")
+TASKS = ("diag2021", "survival", "grade", "subtype")
+
+
+@dataclasses.dataclass
+class Config:
+    # --- dataset ---
+    fixdim: int = 2500
+    label_path: str = "./data"
+    dataDir: str = "./data/"
+    dataset: str = "synthetic"
+    checkpoints: str = "./checkpoints"
+    novalset: bool = False
+    synthetic_size: int = 256
+    bucket_sizes: str = ""
+    variable_bags: bool = False
+
+    # --- distributed / host ---
+    workers: int = 0
+    data_axis: str = "data"
+    num_devices: int = 0
+
+    # --- modality fusion ---
+    fusion_type: str = "concat"
+    coattn_fusion: str = "concat"
+    skip: int = 0
+    use_bilinear: int = 1
+    input_size_omic: int = 431
+    input_size_omic_tumor: int = 59
+    input_size_omic_immune: int = 361
+    input_path_dim: int = 1024
+    path_gate: int = 1
+    omic_gate: int = 1
+    path_dim: int = 128
+    omic_dim: int = 128
+    path_scale: int = 1
+    omic_scale: int = 1
+    mmhid: int = 128
+    cut_fuse_grad: bool = False
+
+    # --- training ---
+    reload: bool = False
+    seed: int = 42
+    batch_size: int = 8
+    start_epoch: int = 0
+    epochs: int = 20
+    lr: float = 1.0e-3
+    lr_policy: str = "cosine"
+    dropout_rate: float = 0.1
+    return_grad: bool = False
+    optimizer: str = "adam"
+    weight_decay: float = 0.1
+    init_type: str = "max"
+    init_gain: float = 0.02
+    compute_dtype: str = "float32"      # float32 | bfloat16
+    feature_dtype: str = "auto"         # x_path transfer dtype; auto = compute_dtype
+    use_pallas: bool = True             # kept for key parity; the port always
+                                        # launches its kernels on cuda tensors
+    eval_every_iters: int = 0
+    remat: bool = False
+
+    # --- losses ---
+    gradient_modulate: bool = True
+    modulation_style: str = "reference"
+    return_vgrid: bool = True
+    batchloss_grad_scale: str = "exact"
+    survival_loss: str = "nll_surv"
+    batchloss_layout: str = "group"     # group | reference
+
+    # --- model ---
+    mode: str = "deformpathomic"
+    attn_dim: int = 2
+
+    # --- task ---
+    task_type: str = "diag2021"
+    label_dim: int = 4
+    survival_interval: str = "all"
+    act_type: str = "Sigmoid"
+
+    def __post_init__(self) -> None:
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.task_type not in TASKS:
+            raise ValueError(f"unknown task_type {self.task_type!r}")
+        if self.attn_dim not in (1, 2):
+            raise ValueError("attn_dim must be 1 or 2")
+        if self.attn_dim == 1 and self.return_vgrid:
+            raise ValueError("attn_dim=1 has no vgrid (1-D deformable attention): "
+                             "set return_vgrid=false")
+
+
+def _parse_bool(s: str) -> bool:
+    return str(s).lower() in ("1", "true", "yes", "y", "on")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """``--field`` flags for every Config field (type from the default)."""
+    parser = argparse.ArgumentParser()
+    for f in dataclasses.fields(Config):
+        kind = _parse_bool if isinstance(f.default, bool) else type(f.default)
+        parser.add_argument(f"--{f.name}", default=f.default, type=kind)
+    return parser

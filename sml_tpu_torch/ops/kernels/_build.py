@@ -1,0 +1,98 @@
+"""Build the CUDA sources in ``sml_tpu_torch/csrc`` with ``nvcc`` and load them
+with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``build/sml_tpu_torch/lib<name>-<hash>.so`` at
+the root of the checkout, keyed by a hash of the source and the flags, so a
+changed source rebuilds and an unchanged one loads at once.  ``build()``
+starts one ``nvcc`` per missing library, all together, and waits for every
+one.  Nothing here runs at import: the CPU tests import every module and have
+no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sml_tpu_torch"
+SOURCES = ("cpb_bias", "deform_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                           "or set CUDA_HOME")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every missing library in parallel; returns seconds per build.
+
+    The compiler's ``-Xptxas -v`` report (registers, shared memory, spills)
+    is kept beside each library as ``<lib>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target, time.perf_counter())
+    seconds, failed = {}, []
+    for name, (proc, tmp, target, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        target.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (its ``cudaGetLastError()``)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

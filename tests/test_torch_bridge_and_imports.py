@@ -1,0 +1,150 @@
+"""The PyTorch port's weight bridge, import hygiene, config defaults and data
+pipeline, held against the JAX package."""
+
+import dataclasses
+import functools
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import yaml
+
+import jax
+
+import sml_tpu_torch
+from sml_tpu.config import Config as JConfig
+from sml_tpu.data.loader import Loader as JLoader
+from sml_tpu.data.loader import build_datasets as j_build_datasets
+from sml_tpu.models.factory import define_net as j_define_net
+from sml_tpu.models.factory import init_model as j_init_model
+from sml_tpu_torch.bridge import (export_flax_params, flatten_params, load_flax_params,
+                                  unflatten_params)
+from sml_tpu_torch.config import Config
+from sml_tpu_torch.data.loader import Loader, build_datasets
+from sml_tpu_torch.models.factory import define_net
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(dataset="synthetic", fixdim=64, synthetic_size=16, input_path_dim=64,
+             path_dim=32, batch_size=3)
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_params():
+    cfg = JConfig(**SMALL)
+    model = j_define_net(cfg)
+    batch = next(iter(JLoader(j_build_datasets(cfg, "Test"), cfg.batch_size)))
+    batch.pop("sample_mask")
+    variables = j_init_model(cfg, model, jax.random.PRNGKey(3), batch)
+    return jax.tree_util.tree_map(np.asarray, variables["params"])
+
+
+def test_bridge_round_trips_the_flax_tree():
+    params = _jax_params()
+    flat = flatten_params(params)
+    assert all("/" in k for k in flat)
+    back = flatten_params(unflatten_params(flat))
+    assert back.keys() == flat.keys()
+    model = define_net(Config(**SMALL), "cpu", seed=0)
+    load_flax_params(model, params)
+    exported = flatten_params(export_flax_params(model))
+    assert exported.keys() == flat.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(exported[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("change", ["missing", "extra"])
+def test_bridge_raises_on_missing_or_extra_leaf(change):
+    flat = dict(flatten_params(_jax_params()))
+    if change == "missing":
+        flat.pop("pathomic_net_tumor/layer3/attn2d/rel_pos_bias/w1")
+    else:
+        flat["pathomic_net_tumor/layer3/attn2d/extra"] = np.zeros(3, np.float32)
+    model = define_net(Config(**SMALL), "cpu", seed=0)
+    with pytest.raises(ValueError, match="missing|unused"):
+        load_flax_params(model, unflatten_params(flat))
+
+
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sml_tpu", "yaml", "sklearn",
+            "h5py", "pandas")
+
+_IMPORT_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = set(sys.argv[1].split(","))
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+import sml_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sml_tpu_torch.__path__, "sml_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_no_sml_tpu_no_host_only_libraries():
+    """Every module of sml_tpu_torch imports with the JAX stack, sml_tpu and
+    yaml / sklearn / h5py / pandas blocked by exact top-level name."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE, ",".join(_BLOCKED)],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules = len(list(pkgutil.walk_packages(sml_tpu_torch.__path__, "sml_tpu_torch.")))
+    assert int(proc.stdout.split()[-1]) == n_modules >= 20
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    for name in _BLOCKED:
+        assert f"import {name}" not in src and f"from {name} " not in src
+        assert f"from {name}." not in src
+
+
+def test_config_defaults_equal_config_mine_yaml():
+    with open(os.path.join(REPO, "config", "config_mine.yaml")) as f:
+        yaml_cfg = yaml.safe_load(f)
+    defaults = dataclasses.asdict(Config())
+    for key, value in yaml_cfg.items():
+        assert key in defaults, key
+        assert defaults[key] == value and type(defaults[key]) is type(value), key
+
+
+def test_config_parser_builds_from_fields():
+    from sml_tpu_torch.config import build_parser
+
+    args = vars(build_parser().parse_args(["--fixdim", "4096", "--return_vgrid", "false",
+                                           "--compute_dtype", "bfloat16"]))
+    cfg = Config(**args)
+    assert (cfg.fixdim, cfg.return_vgrid, cfg.compute_dtype) == (4096, False, "bfloat16")
+    assert set(args) == {f.name for f in dataclasses.fields(Config)}
+    with pytest.raises(ValueError):
+        Config(mode="nonsense")
+
+
+@pytest.mark.parametrize("phase", ["Train", "Test"])
+def test_synthetic_dataset_and_loader_match_jax(phase):
+    jcfg, cfg = JConfig(**SMALL), Config(**SMALL)
+    jds, ds = j_build_datasets(jcfg, phase), build_datasets(cfg, phase)
+    assert len(ds) == len(jds)
+    for i in (0, len(ds) - 1):
+        a, b = ds[i], jds[i]
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    jbatches = list(JLoader(jds, 3))
+    batches = list(Loader(ds, 3))
+    assert len(batches) == len(jbatches) == len(Loader(ds, 3))
+    for a, b in zip(batches, jbatches):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert batches[-1]["sample_mask"].min() == (0.0 if len(ds) % 3 else 1.0)
