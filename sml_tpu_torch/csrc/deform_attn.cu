@@ -1,11 +1,17 @@
-// Deformable-attention forward (eval form) for sm_90a:
+// Deformable-attention forward for sm_90a:
 //
 //   out[bg, i] = softmax_j(q[bg, i] . k[bg, j] + bias[bg, i, j]) @ v[bg]
 //
 // q (BG, N, DH) is already scaled; k, v (BG, J, DH); bias (BG, N, J) in float
 // or bfloat16, upcast to f32; out (BG, N, DH) in q's dtype.  Replaces the
 // Pallas kernel _fused_attn_fwd_call (sml_tpu/ops/pallas/deform_attn.py, body
-// _attn_fwd_kernel) with no dropout and no span mask.
+// _attn_fwd_kernel and its dropout _dropout_mult) with no span mask.
+//
+// Dropout (keep_prob < 1, the DROP instantiation): the multiplier {0, 1/keep}
+// of each probability comes from Philox4x32-10 on (seed, bg, row, col)
+// (philox.cuh), applied after the normalisation and before @ v; no mask
+// reaches device memory.  keep_prob == 1 runs the eval instantiation, whose
+// arithmetic is unchanged.
 //
 // One block per (bg, tile of kRows query rows).  K and V of the sample sit in
 // dynamic shared memory in the input dtype, rows padded by 16 bytes so that
@@ -17,7 +23,8 @@
 // in the last tile are skipped, so no input is padded.
 //
 // C entry: deform_attn_fwd(dtype, bias_dtype, q, k, v, bias, out, BG, N, J, DH,
-//                          device, stream) -> cudaGetLastError().
+//                          keep_prob, inv_keep, seed, device, stream)
+//          -> cudaGetLastError().
 // dtype / bias_dtype: 0 = float, 1 = bfloat16.  DH must be 64.  The library
 // carries its own CUDA runtime, so the entry selects `device` itself.
 
@@ -25,78 +32,23 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_common.cuh"
+#include "philox.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// one 16-byte vector of T, converted to floats
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__host__ __device__ constexpr int row_stride(int dh) {
-  return dh + Vec16<T>::N;  // one extra 16-byte unit: an odd count of units per row
-}
-
-template <typename T, typename TB, int DH>
+template <typename T, typename TB, int DH, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const TB* __restrict__ bias,
-                       T* __restrict__ out, int N, int J) {
+                       T* __restrict__ out, int N, int J, float keep_prob,
+                       float inv_keep, unsigned long long seed) {
   static_assert(DH == 64, "each lane owns DH / 32 = 2 output columns");
   constexpr int VN = Vec16<T>::N;
   constexpr int LD = row_stride<T>(DH);
@@ -148,10 +100,27 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < J; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
+    if (DROP) {
+      __syncwarp();  // lanes read p[j] that other lanes wrote
+      // each lane takes groups of 4 keys: one Philox call gives their 4 words
+      for (int g = lane; 4 * g < J; g += 32) {
+        const uint4 bits = philox::bits4(seed, g, row0 + r, bg);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * g + jj;
+          if (j < J) {
+            const float e = expf(p[j] - mx);
+            sum += e;
+            p[j] = philox::keep(philox::word(bits, jj), keep_prob) ? e * inv_keep : 0.f;
+          }
+        }
+      }
+    } else {
+      for (int j = lane; j < J; j += 32) {
+        const float e = expf(p[j] - mx);
+        p[j] = e;
+        sum += e;
+      }
     }
     sum = warp_sum(sum);
     __syncwarp();
@@ -173,28 +142,35 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, typename TB>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   void* out, int BG, int N, int J, cudaStream_t stream) {
+                   void* out, int BG, int N, int J, float keep_prob, float inv_keep,
+                   unsigned long long seed, cudaStream_t stream) {
   constexpr int DH = 64;
   const size_t smem = 2 * (size_t)J * row_stride<T>(DH) * sizeof(T) +
                       (size_t)kWarps * J * sizeof(float);
-  auto kernel = deform_attn_fwd_kernel<T, TB, DH>;
+  auto kernel = keep_prob < 1.f ? deform_attn_fwd_kernel<T, TB, DH, true>
+                                : deform_attn_fwd_kernel<T, TB, DH, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kRows - 1) / kRows, BG);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const TB*>(bias), static_cast<T*>(out), N, J);
+      static_cast<const TB*>(bias), static_cast<T*>(out), N, J, keep_prob, inv_keep,
+      seed);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_bias(int bias_dtype, const void* q, const void* k, const void* v,
                           const void* bias, void* out, int BG, int N, int J,
+                          float keep_prob, float inv_keep, unsigned long long seed,
                           cudaStream_t stream) {
-  if (bias_dtype == 0) return launch<T, float>(q, k, v, bias, out, BG, N, J, stream);
+  if (bias_dtype == 0)
+    return launch<T, float>(q, k, v, bias, out, BG, N, J, keep_prob, inv_keep, seed,
+                            stream);
   if (bias_dtype == 1)
-    return launch<T, __nv_bfloat16>(q, k, v, bias, out, BG, N, J, stream);
+    return launch<T, __nv_bfloat16>(q, k, v, bias, out, BG, N, J, keep_prob, inv_keep,
+                                    seed, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -202,13 +178,17 @@ cudaError_t dispatch_bias(int bias_dtype, const void* q, const void* k, const vo
 
 extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const void* k,
                                const void* v, const void* bias, void* out, int BG, int N,
-                               int J, int DH, int device, void* stream) {
+                               int J, int DH, float keep_prob, float inv_keep,
+                               unsigned long long seed, int device, void* stream) {
   if (DH != 64) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_bias<float>(bias_dtype, q, k, v, bias, out, BG, N, J, s);
+  if (dtype == 0)
+    return dispatch_bias<float>(bias_dtype, q, k, v, bias, out, BG, N, J, keep_prob,
+                                inv_keep, seed, s);
   if (dtype == 1)
-    return dispatch_bias<__nv_bfloat16>(bias_dtype, q, k, v, bias, out, BG, N, J, s);
+    return dispatch_bias<__nv_bfloat16>(bias_dtype, q, k, v, bias, out, BG, N, J,
+                                        keep_prob, inv_keep, seed, s);
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,17 @@
-"""Eval-mode batching (counterpart of ``sml_tpu/data/loader.py``).
+"""Batching (counterpart of ``sml_tpu/data/loader.py``, single host).
 
-Sequential order; the final batch is padded to ``batch_size`` by repeating its
-last sample, and ``sample_mask`` (1 = real, 0 = pad) marks the pad rows so the
-metrics and the loss count exactly the real samples.
+Eval mode: sequential order; the final batch is padded to ``batch_size`` by
+repeating its last sample, and ``sample_mask`` (1 = real, 0 = pad) marks the
+pad rows so the metrics and the loss count exactly the real samples.
+Train mode (``shuffle=True, drop_last=True``): each epoch's order is the
+permutation of ``np.random.default_rng(seed * 100003 + epoch)``, set by
+``set_epoch``, and the last partial batch is dropped; the batches are the JAX
+Loader's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 
@@ -25,14 +29,33 @@ def build_datasets(config: Config, phase: str):
 
 
 class Loader:
-    """Yields dict batches of stacked numpy arrays, in dataset order."""
+    """Yields dict batches of stacked numpy arrays."""
 
-    def __init__(self, dataset, batch_size: int):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return -(-len(self.dataset) // self.batch_size)
+
+    def _index_batches(self) -> List[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed * 100_003 + self.epoch).shuffle(idx)
+        chunks = [idx[s:s + self.batch_size] for s in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            chunks = [c for c in chunks if len(c) == self.batch_size]
+        return chunks
 
     def _collate(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
         samples = [self.dataset[int(i)] for i in chunk]
@@ -47,6 +70,5 @@ class Loader:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = np.arange(len(self.dataset))
-        for start in range(0, len(idx), self.batch_size):
-            yield self._collate(idx[start:start + self.batch_size])
+        for chunk in self._index_batches():
+            yield self._collate(chunk)

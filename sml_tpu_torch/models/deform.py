@@ -9,13 +9,13 @@ Submodules carry the flax tree's names so the weight bridge maps leaf by leaf.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from sml_tpu_torch.models.maxnet import MaxNet
-from sml_tpu_torch.ops.common import Dense
+from sml_tpu_torch.ops.common import Dense, DropoutRNG
 from sml_tpu_torch.ops.deformable import DeformCrossAttention2D
 from sml_tpu_torch.ops.fusion import FusionNet
 from sml_tpu_torch.ops.pooling import Pooler
@@ -34,17 +34,19 @@ class DeformCrossTransLayer(nn.Module):
     """Pre-norm deformable cross-attention residual block; ONE LayerNorm shared by
     both streams."""
 
-    def __init__(self, dim: int = 128, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int = 128, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = _layer_norm(dim)
-        self.attn2d = DeformCrossAttention2D(dim, dim_head=64, heads=8,
+        self.attn2d = DeformCrossAttention2D(dim, dim_head=64, heads=8, dropout=dropout,
                                              downsample_factor=4, offset_scale=4.0,
                                              offset_groups=8, offset_kernel_size=6,
                                              dtype=dtype)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor,
+                rng: Optional[DropoutRNG] = None):
         out, vgrid = self.attn2d(_norm_f32(self.norm, x1), _norm_f32(self.norm, x2),
-                                 return_vgrid=True)
+                                 return_vgrid=True, rng=rng)
         return x1 + out, vgrid
 
 
@@ -52,23 +54,24 @@ class DeformCrossTransMIL(nn.Module):
     """Pathomic fusion MIL block of one branch."""
 
     def __init__(self, input_path_dim: int, omic_dim: int, n_classes: int = 4,
-                 path_dim: int = 128, return_vgrid: bool = True,
+                 path_dim: int = 128, return_vgrid: bool = True, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_vgrid = return_vgrid
         self.fc1 = Dense(input_path_dim, path_dim, dtype=dtype)
         self.fusion_layer = FusionNet(path_dim, omic_dim, path_dim, dtype=dtype)
-        self.layer3 = DeformCrossTransLayer(path_dim, dtype=dtype)
+        self.layer3 = DeformCrossTransLayer(path_dim, dropout, dtype=dtype)
         self.norm = _layer_norm(path_dim)
         self.pooler = Pooler(path_dim, dtype=dtype)
         self.fc2 = Dense(path_dim, n_classes, dtype=dtype)
         self.multimodal_projection = Dense(path_dim, path_dim, dtype=dtype)
 
-    def forward(self, path: torch.Tensor, omic: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, path: torch.Tensor, omic: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
         # a non-square bag raises in layer3 (the masked bag path is not ported yet)
         path = torch.relu(self.fc1(path))                          # (B, N, path_dim)
         h = self.fusion_layer(path, omic)
-        h, vgrid = self.layer3(h, path)
+        h, vgrid = self.layer3(h, path, rng)
         h = self.pooler(_norm_f32(self.norm, h))
         out = {"features": self.multimodal_projection(h), "logits": self.fc2(h)}
         if self.return_vgrid:
@@ -96,17 +99,20 @@ class DeformPathomicNet(nn.Module):
                                    init_max=init_max, dtype=dtype))
             self.add_module(f"pathomic_net_{name}",
                             DeformCrossTransMIL(input_path_dim, omic_dim, label_dim,
-                                                path_dim, return_vgrid, dtype=dtype))
+                                                path_dim, return_vgrid, dropout_rate,
+                                                dtype=dtype))
         self.classifier = Dense(2 * path_dim, label_dim, dtype=dtype)
         self.classifier_tumor = Dense(path_dim, label_dim, dtype=dtype)
         self.classifier_immune = Dense(path_dim, label_dim, dtype=dtype)
 
     def forward(self, x_path: torch.Tensor, x_omic_tumor: torch.Tensor,
-                x_omic_immune: torch.Tensor) -> Dict[str, torch.Tensor]:
+                x_omic_immune: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
+        """``rng`` (training mode with dropout_rate > 0) feeds every dropout."""
         tumor = self.pathomic_net_tumor(
-            x_path, self.omic_net_tumor(x_omic_tumor)["features"])
+            x_path, self.omic_net_tumor(x_omic_tumor, rng)["features"], rng)
         immune = self.pathomic_net_immune(
-            x_path, self.omic_net_immune(x_omic_immune)["features"])
+            x_path, self.omic_net_immune(x_omic_immune, rng)["features"], rng)
 
         features = torch.cat([tumor["features"], immune["features"]], dim=1)
         hazard = self.classifier(features)

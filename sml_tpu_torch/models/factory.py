@@ -1,5 +1,6 @@
-"""Model factory for ``mode=deformpathomic`` (counterpart of
-``sml_tpu/models/factory.py:define_net`` / ``model_inputs``).
+"""Model and optimizer factory for ``mode=deformpathomic`` (counterpart of
+``sml_tpu/models/factory.py``: ``define_net``, ``model_inputs``,
+``make_lr_schedule``, ``define_optimizer``).
 
 The JAX factory turns its kernels off unless the backend is a TPU; the port
 has no such switch: its kernel wrappers launch their CUDA kernels whenever the
@@ -8,7 +9,8 @@ tensors are on ``cuda``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -40,9 +42,10 @@ def feature_dtype(config: Config) -> torch.dtype:
 
 
 def define_net(config: Config, device: str | torch.device = "cuda",
-               seed: int | None = None) -> nn.Module:
-    """The eval-mode model on ``device``, seeded-initialized from ``seed``
-    (default ``config.seed``); parameters stay float32."""
+               seed: int | None = None, train: bool = False) -> nn.Module:
+    """The model on ``device`` in eval mode (``train=True``: training mode),
+    seeded-initialized from ``seed`` (default ``config.seed``); parameters stay
+    float32."""
     if config.mode != "deformpathomic":
         raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
     if config.attn_dim != 2 or config.fusion_type != "concat":
@@ -59,8 +62,43 @@ def define_net(config: Config, device: str | torch.device = "cuda",
         return_vgrid=config.return_vgrid, task_type=config.task_type,
         init_max=config.init_type == "max", dtype=compute_dtype(config))
     init_params(model, config.seed if seed is None else seed)
-    return model.to(device).eval()
+    return model.to(device).train(train)
 
 
 def model_inputs(config: Config, batch: Dict[str, Any]) -> Dict[str, Any]:
     return {k: batch[k] for k in MODE_INPUTS[config.mode]}
+
+
+def make_lr_schedule(config: Config, steps_per_epoch: int) -> Callable[[int], float]:
+    """Learning rate of update ``k`` (from 0): torch's per-epoch schedulers as a
+    function of the step count, ``lr * mult(k // steps_per_epoch)``."""
+    lr0, policy, epochs = config.lr, config.lr_policy, config.epochs
+    if policy == "cosine":
+        def mult(epoch: int) -> float:
+            return 0.5 * (1.0 + math.cos(math.pi * epoch / epochs))
+    elif policy == "none":
+        def mult(epoch: int) -> float:
+            return 1.0
+    else:
+        raise NotImplementedError(f"lr_policy {policy!r} is not ported yet")
+
+    def schedule(k: int) -> float:
+        return lr0 * mult(k // max(steps_per_epoch, 1))
+
+    return schedule
+
+
+def define_optimizer(config: Config, model: nn.Module, steps_per_epoch: int = 1
+                     ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
+    """Adam with coupled L2 (``weight_decay`` added to the gradient before the
+    moments, as ``optax.add_decayed_weights`` before ``scale_by_adam``) and the
+    per-step ``make_lr_schedule``; call ``scheduler.step()`` after every
+    ``optimizer.step()``."""
+    if config.optimizer != "adam":
+        raise NotImplementedError(f"optimizer {config.optimizer!r} is not ported yet")
+    optimizer = torch.optim.Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=config.weight_decay)
+    schedule = make_lr_schedule(config, steps_per_epoch)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda k: schedule(k) / config.lr)
+    return optimizer, scheduler

@@ -8,13 +8,13 @@ kernels from ``max_kernel_init`` (N(0, 1/fan_in), truncated), else from
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sml_tpu_torch.ops.common import Dense
+from sml_tpu_torch.ops.common import Dense, DropoutRNG
 from sml_tpu_torch.ops.snn import AlphaDropout
 
 _HIDDEN = (64, 48, 32)
@@ -33,9 +33,12 @@ class MaxNet(nn.Module):
         self.dropout = AlphaDropout(dropout_rate)
         self.classifier = Dense(omic_dim, label_dim, dtype=dtype, kernel_init=init)
 
-    def forward(self, x_omic: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x_omic: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
+        """``rng`` is needed in training mode with a dropout rate above 0."""
+        gen = None if rng is None else rng.device
         h = x_omic
         for i in range(4):
-            h = self.dropout(F.elu(getattr(self, f"encoder{i + 1}")(h)))
+            h = self.dropout(F.elu(getattr(self, f"encoder{i + 1}")(h)), gen)
         features = torch.relu(h)
         return {"features": features, "logits": self.classifier(features)}

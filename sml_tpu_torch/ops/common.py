@@ -7,6 +7,8 @@ returns bf16.  Both keep torch's parameter layout (``weight`` (out, in) and
 kernels into it.  ``Conv`` takes and returns channels-last (N, H, W, C)
 tensors, the JAX package's layout.
 
+``DropoutRNG`` carries the two generators of training-mode dropout.
+
 Initializers (``init_params``) draw from an explicit ``torch.Generator`` with
 the JAX initializers' distributions: ``torch_kernel_init`` is
 U(+-1/sqrt(fan_in)); ``max_kernel_init`` is a normal truncated at two standard
@@ -16,6 +18,7 @@ deviations with variance 1/fan_in (JAX's ``variance_scaling(1, fan_in,
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -24,6 +27,25 @@ from torch import nn
 
 # JAX's truncated_normal(-2, 2) has std 0.8796...; variance_scaling divides it out
 _TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass
+class DropoutRNG:
+    """The explicit generators of training-mode dropout (the counterpart of
+    flax's ``'dropout'`` rng stream): ``device`` draws AlphaDropout's noise on
+    the model's device; ``host``, a CPU generator, draws the 64-bit Philox
+    seeds of the attention kernels without waiting on the device."""
+    device: torch.Generator
+    host: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "DropoutRNG":
+        device = torch.device(device)
+        return cls(torch.Generator(device=device).manual_seed(seed),
+                   torch.Generator().manual_seed(seed + 1))
+
+    def philox_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.host))
 
 
 def dtype_of(name: str) -> torch.dtype:

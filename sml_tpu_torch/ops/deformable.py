@@ -4,10 +4,14 @@ bias (counterpart of ``sml_tpu/ops/deformable.py``: ``CPB2D`` and
 
 Queries come from the fused stream x1; keys and values are bilinearly sampled
 from the path stream x2 at learned offset locations on a downsampled grid.
-The bias MLP runs in the CPB kernel (``ops/kernels/cpb_bias.py``) and the
-bias + softmax + @v chain in the attention kernel
-(``ops/kernels/deform_attn.py``): on CUDA tensors both launch their CUDA
-kernels at every bag size.  Tensors are channels-last, as in the JAX package.
+The bias MLP runs in the CPB kernels (``ops/kernels/cpb_bias.py``) and the
+bias + softmax (+ dropout) + @v chain in the attention kernels
+(``ops/kernels/deform_attn.py``), each through its ``torch.autograd.Function``
+(forward kernel, recompute backward kernel): on CUDA tensors they launch their
+CUDA kernels at every bag size, in eval and in training.  In training mode
+with ``dropout > 0`` the attention probabilities are dropped inside the
+kernels by Philox on a seed drawn per call from the caller's ``DropoutRNG``.
+Tensors are channels-last, as in the JAX package.
 
 Semantics kept from the JAX module:
 * the query axes are normalized by ``w - 1`` / ``h - 1`` of the query grid, the
@@ -29,10 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sml_tpu_torch.ops.common import Conv, torch_kernel_init_
+from typing import Optional
+
+from sml_tpu_torch.ops.common import Conv, DropoutRNG, torch_kernel_init_
 from sml_tpu_torch.ops.grid_sample import grid_sample_2d
-from sml_tpu_torch.ops.kernels.cpb_bias import cpb_bias
-from sml_tpu_torch.ops.kernels.deform_attn import deform_attention_fwd
+from sml_tpu_torch.ops.kernels.cpb_bias import cpb_bias_trainable
+from sml_tpu_torch.ops.kernels.deform_attn import deform_attention_trainable
 
 
 def make_grid_2d(h: int, w: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -133,7 +139,7 @@ class DeformCrossAttention2D(nn.Module):
     """2-D deformable cross-attention over (B, N, C) tokens, N a perfect square."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8,
-                 downsample_factor: int = 4, offset_scale: float = 4.0,
+                 dropout: float = 0.0, downsample_factor: int = 4, offset_scale: float = 4.0,
                  offset_groups: int = 8, offset_kernel_size: int = 6,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -146,6 +152,7 @@ class DeformCrossAttention2D(nn.Module):
         g = offset_groups
         self.dim, self.dim_head, self.heads, self.groups = dim, dim_head, heads, g
         self.offset_scale = offset_scale
+        self.dropout = dropout
         self.compute_dtype = dtype
         pad = (offset_kernel_size - downsample_factor) // 2
         self.to_q = Conv(dim, inner, groups=g, bias=False, dtype=dtype)
@@ -158,7 +165,9 @@ class DeformCrossAttention2D(nn.Module):
         self.to_out = Conv(inner, dim, dtype=dtype)
         self.rel_pos_bias = CPB2D(dim // 4, heads, g, dtype=dtype)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor, return_vgrid: bool = False):
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, return_vgrid: bool = False,
+                rng: Optional[DropoutRNG] = None):
+        """``rng`` draws the dropout seed; needed in training mode with dropout > 0."""
         b, n, c = x1.shape
         h = w = math.isqrt(n)
         if h * w != n:
@@ -191,9 +200,15 @@ class DeformCrossAttention2D(nn.Module):
         x_axis = 2.0 * torch.arange(w, dtype=torch.float32, device=dev) / max(w - 1, 1) - 1.0
         y_axis = 2.0 * torch.arange(h, dtype=torch.float32, device=dev) / max(h - 1, 1) - 1.0
         grid_kv = vgrid_scaled.reshape(b * g, j, 2)
-        bias = cpb_bias(*self.rel_pos_bias.factors(x_axis, y_axis, grid_kv))
-        out = deform_attention_fwd(flat_heads(q, n), flat_heads(k, j), flat_heads(v, j),
-                                   bias.reshape(b * g, n, j))      # (B*heads, N, dh)
+        bias = cpb_bias_trainable(*self.rel_pos_bias.factors(x_axis, y_axis, grid_kv))
+        keep_prob, seed = 1.0, 0
+        if self.training and self.dropout > 0.0:
+            if rng is None:
+                raise ValueError("training-mode attention dropout needs a DropoutRNG")
+            keep_prob, seed = 1.0 - self.dropout, rng.philox_seed()
+        out = deform_attention_trainable(flat_heads(q, n), flat_heads(k, j),
+                                         flat_heads(v, j), bias.reshape(b * g, n, j),
+                                         keep_prob, seed)           # (B*heads, N, dh)
         out = out.reshape(b, heads, n, dh).transpose(1, 2).reshape(b, h, w, inner)
         out = self.to_out(out).reshape(b, n, self.dim)
         if return_vgrid:

@@ -2,7 +2,8 @@
 with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/sml_tpu_torch/lib<name>-<hash>.so`` at
-the root of the checkout, keyed by a hash of the source and the flags, so a
+the root of the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a
 changed source rebuilds and an unchanged one loads at once.  ``build()``
 starts one ``nvcc`` per missing library, all together, and waits for every
 one.  Nothing here runs at import: the CPU tests import every module and have
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sml_tpu_torch"
-SOURCES = ("cpb_bias", "deform_attn")
+SOURCES = ("cpb_bias", "cpb_bias_bwd", "deform_attn", "deform_attn_bwd")
+SMEM_LIMIT = 232448          # bytes of shared memory one block may use on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +43,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Keyed by the source, every header of ``csrc`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -22,6 +22,8 @@ def alpha_dropout(x: torch.Tensor, rate: float, training: bool = False,
     """Functional AlphaDropout; identity at eval or when rate == 0."""
     if not training or rate == 0.0:
         return x
+    if generator is None:
+        raise ValueError("training-mode AlphaDropout needs an explicit generator")
     keep_prob = 1.0 - rate
     a = (keep_prob + _ALPHA_PRIME ** 2 * keep_prob * (1.0 - keep_prob)) ** -0.5
     b = -a * _ALPHA_PRIME * (1.0 - keep_prob)

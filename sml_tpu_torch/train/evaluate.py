@@ -16,7 +16,7 @@ import torch
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.models.factory import feature_dtype
 from sml_tpu_torch.train.losses import TASK_LABEL_SLOT
-from sml_tpu_torch.train.metrics import accuracy, cindex
+from sml_tpu_torch.train.metrics import cindex, compute_avg_metrics
 
 
 def batch_to_device(config: Config, batch: Dict[str, np.ndarray],
@@ -34,7 +34,8 @@ def batch_to_device(config: Config, batch: Dict[str, np.ndarray],
 
 def evaluate(config: Config, eval_step: Callable, loader,
              device: torch.device) -> Dict[str, float]:
-    """One pass; returns {'loss', 'cindex'} (survival) or {'loss', 'acc'}."""
+    """One pass; returns {'loss', 'cindex'} (survival) or the loss and the seven
+    classification metrics (acc, f1, auc, bac, sens, spec, prec)."""
     outs, host_labels, host_masks = [], [], []
     for batch in loader:
         outs.append(eval_step(batch_to_device(config, batch, device)))
@@ -59,5 +60,7 @@ def evaluate(config: Config, eval_step: Callable, loader,
         result["cindex"] = float(cindex(risk, labels[:, 9], labels[:, 11]))
         return result
     gt = labels[:, TASK_LABEL_SLOT[config.task_type]]
-    result["acc"] = accuracy(gt, np.concatenate(probs, axis=0))
+    names = ("acc", "f1", "auc", "bac", "sens", "spec", "prec")
+    values = compute_avg_metrics(gt, np.concatenate(probs, axis=0))
+    result.update({k: float(v) for k, v in zip(names, values)})
     return result

@@ -99,7 +99,7 @@ def test_inference_cli_matches_jax_evaluate(task_type, tmp_path, capsys):
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("test metrics: ")][-1]
     got = ast.literal_eval(line[len("test metrics: "):])
-    assert set(got) == ({"loss", "cindex"} if task_type == "survival" else {"loss", "acc"})
+    assert set(got) == set(want)      # survival: loss, cindex; else the 7 metrics + loss
     for k in got:
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
 
