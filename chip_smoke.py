@@ -32,6 +32,30 @@ Phases, one line each; any failure raises and the script exits non-zero:
             every parameter gradient through the kernels against the plain
             versions; then the train step's time, bags/s and peak memory.
 
+TransMIL (``--mode path --path_arch transmil``: hidden 512, two TransLayers of
+8 heads x 64 with 256 landmarks, PPEG, B = 8, bf16, seeded weights), whose two
+Nystrom chains per layer run the attention kernels without a bias (with a span
+on masked bags):
+
+6. chains   the bias-less and the span forms, forward and backward, at chain 1
+            (n_pad rows x 256 landmark keys) and chain 3 (256 landmark rows x
+            n_pad keys) of 2500- and 4096-patch bags (n_pad 2560 / 4352,
+            BG = 64), f32 and bf16, against their plain versions and timed as
+            in phase 3; the spans come from bucketed masks, with an all-invalid
+            bag, invalid landmark rows and a column start past the first key
+            tile.  (Phase 3 also holds the span form with a bias and dropout.)
+7. tm-slice ``inference.main`` at 2500 and 4096 patches: exactly 4 bias-less
+            forward launches per batch and no backward, finite metrics, one
+            batch through the kernels against the plain versions, the eval
+            step's time, bags/s and peak memory;
+8. tm-train ``main.main`` for one epoch at 2500 patches: 4 bias-less forward
+            and 4 backward launches per train step, finite loss, one train
+            step's loss and every gradient through the kernels against the
+            plain versions, the train step's time, bags/s and peak memory;
+9. bucketed ``main.main`` with ``--variable_bags true --bucket_sizes
+            1024,2500`` for one epoch and its Val / Test: span launches in both
+            directions, every batch's loss and outputs finite.
+
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs no network, imports nothing of JAX, and exits non-zero without a
@@ -78,6 +102,11 @@ CPB_GRAD_L2 = 1e-2
 # gradients under 1e-3 of the largest norm relative to that floor
 TRAIN_LOSS_TOL, TRAIN_GRAD_L2 = 2e-2, 5e-2
 KEEP_PROB, SEED = 0.9, 20240611       # the attention dropout of the training path
+# TransMIL's Nystrom chains: 256 landmarks; bag + cls token front-padded to a
+# multiple of them
+NYSTROM_M = 256
+N_PAD = {2500: 2560, 4096: 4352}
+TM_FLAGS = {"mode": "path", "path_arch": "transmil"}
 
 
 def _line(phase: str, **fields) -> None:
@@ -164,26 +193,31 @@ def _compare_grads(got, want, rtol: float, l2: bool = False) -> dict:
             "metric": "l2" if l2 else "of_scale", "ok": ok}
 
 
-def _sdpa_bwd_ms(q, k, v, bias, dout):
-    """Backward of F.scaled_dot_product_attention with a bias that needs a
-    gradient, or None when PyTorch does not run it."""
+def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
+    """(forward ms, backward ms) of F.scaled_dot_product_attention(q, k, v,
+    attn_mask=mask, scale=1.0), its backward with respect to q, k, v (and the
+    mask with ``mask_grad``); the backward's is None when PyTorch does not run
+    that form."""
     import torch.nn.functional as F
 
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+    fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                             scale=1.0))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if mask_grad:
+        mask = mask.detach().requires_grad_(True)
+        leaves.append(mask)
     try:
-        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=mask, scale=1.0)
         torch.autograd.grad(out, leaves, dout, retain_graph=True)
-    except RuntimeError:
-        return None
-    return _time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
-                    iters=5)
+    except RuntimeError:          # a yardstick only: PyTorch may not run this form
+        return fwd_ms, None
+    return fwd_ms, _time_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                                        retain_graph=True), iters=5)
 
 
 def phase_kernels() -> dict:
     """Every kernel vs its plain version at the main path's shapes; returns
     the JSON entries of the main shape (S2500, bf16) by name."""
-    import torch.nn.functional as F
-
     from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                            cpb_bias_plain, deform_attention_bwd,
                                            deform_attention_bwd_plain,
@@ -233,6 +267,7 @@ def phase_kernels() -> dict:
             fbias = bias.reshape(BG, n, j)
             qkv_bytes = size * (2 * BG * n * DH + 2 * BG * j * DH)
             bound_ms, bound_by = _bound(qkv_bytes + size * pairs, pairs * (4 * DH + 7), dtype)
+            lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, fbias, mask_grad=True)
             out = deform_attention_fwd(q, k, v, fbias)
             torch.cuda.synchronize()
             rows.append({"name": "deform_attention_fwd",
@@ -241,9 +276,7 @@ def phase_kernels() -> dict:
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias)),
                          "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(q, k, v, fbias),
                                               iters=5),
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-                             q, k, v, attn_mask=fbias, scale=1.0))})
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd})
 
             keep = philox_keep_mask(SEED, BG, n, j, KEEP_PROB, device="cuda")
             share = keep.float().mean().item()
@@ -279,9 +312,27 @@ def phase_kernels() -> dict:
                     "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
                         q, k, v, fbias, dout, mask, keep_prob), iters=5),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": (_sdpa_bwd_ms(q, k, v, fbias, dout) if keep_prob == 1.0
-                                   else None)})
+                    "library_ms": lib_bwd if keep_prob == 1.0 else None})
                 del got
+
+            # the span form with a bias and dropout (the 1-D deformable path and
+            # sequence-parallel chain 1 of later slices), on random intervals
+            span = _interval_spans(n, j)
+            out = deform_attention_fwd(q, k, v, fbias, KEEP_PROB, SEED, span)
+            torch.cuda.synchronize()
+            rows.append({"name": "deform_attention_fwd_span_bias_dropout",
+                         **_compare(out, deform_attention_fwd_plain(
+                             q, k, v, fbias, keep, KEEP_PROB, span), KERNEL_TOL[dtype]),
+                         "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias,
+                                                                     KEEP_PROB, SEED, span))})
+            got = deform_attention_bwd(q, k, v, fbias, dout, KEEP_PROB, SEED, span)
+            torch.cuda.synchronize()
+            rows.append({"name": "deform_attention_bwd_span_bias_dropout",
+                         **_compare_grads(got, deform_attention_bwd_plain(
+                             q, k, v, fbias, dout, keep, KEEP_PROB, span), GRAD_RTOL[dtype]),
+                         "ms": _time_ms(lambda: deform_attention_bwd(
+                             q, k, v, fbias, dout, KEEP_PROB, SEED, span))})
+            del got
             for e in rows:
                 e.update(fixdim=fixdim, dtype=str(dtype).split(".")[-1], bg=BG, n=n, j=j)
                 _line("kernels", **e)
@@ -290,8 +341,128 @@ def phase_kernels() -> dict:
                 main = fixdim == MAIN_FIXDIM and dtype == torch.bfloat16
                 if main and e.get("keep_prob", KEEP_PROB) == KEEP_PROB:
                     entries[e["name"]] = e
-            del args, bias, q, k, v, dout, out, keep, fbias
+            del args, bias, q, k, v, dout, out, keep, fbias, span
             torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+    return entries
+
+
+def _interval_spans(n: int, j: int) -> torch.Tensor:
+    """(BG, 4) int32 random [row_start, row_end, col_start, col_end) intervals,
+    the last bag with no valid row."""
+    g = torch.Generator().manual_seed(n + j)
+    r0 = torch.randint(0, n // 2, (BG,), generator=g)
+    r1 = r0 + torch.randint(1, n // 2, (BG,), generator=g)
+    c0 = torch.randint(0, j // 2, (BG,), generator=g)
+    c1 = c0 + torch.randint(1, j // 2, (BG,), generator=g)
+    span = torch.stack([r0, r1, c0, c1], dim=1)
+    span[-1, :2] = n
+    return span.to(torch.int32).cuda()
+
+
+def _span_work(span: torch.Tensor, n: int, j: int):
+    """(valid pairs, uniform rows) of a span batch: what this data needs."""
+    s = span.long().cpu()
+    rows = (s[:, 1].clamp(max=n) - s[:, 0].clamp(min=0)).clamp(min=0)
+    cols = (s[:, 3].clamp(max=j) - s[:, 2].clamp(min=0)).clamp(min=0)
+    rows = torch.where(cols > 0, rows, 0)
+    return int((rows * cols).sum()), int((n - rows).sum())
+
+
+def _bucketed_spans(fixdim: int, n_pad: int):
+    """(span3, span1) of 8 bags' token masks laid out as TransMIL lays them out
+    (front pad, cls, bucketed patches), with an all-invalid bag (3), a short
+    bag with invalid landmark rows (2), and an interval whose start lies past
+    the first key tile of both chains (4)."""
+    from sml_tpu_torch.ops.nystrom import landmark_spans
+
+    pad = n_pad - (fixdim + 1)
+    mask = torch.zeros(8, n_pad, dtype=torch.bool, device="cuda")
+    for b, frac in enumerate((1.0, 0.75, 0.4, None, None, 0.55, 0.5, 0.9)):
+        if frac is not None:
+            mask[b, pad:pad + 1 + int(frac * fixdim)] = True
+    start = n_pad // 2 + 100
+    mask[4, start:start + n_pad // 4] = True
+    span3, span1 = landmark_spans(mask, n_pad // NYSTROM_M, 8)
+    heads = 8
+    assert span3[3 * heads, :2].tolist() == [0, 0] and span1[3 * heads, 0] == 0
+    assert span3[2 * heads, 0] > 0 and span3[2 * heads, 1] < NYSTROM_M
+    assert span1[4 * heads, 2] >= 128 and span3[4 * heads, 2] >= 128
+    return span3, span1
+
+
+def phase_chains() -> dict:
+    """The bias-less and span forms at the Nystrom chains of TransMIL; returns
+    the entries of S2500 bf16 by (name, chain)."""
+    from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
+                                           deform_attention_fwd, deform_attention_fwd_plain)
+    from sml_tpu_torch.ops.kernels.deform_attn import _span_valid
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    entries, failures = {}, []
+    for fixdim, n_pad in N_PAD.items():
+        spans = dict(zip(("chain3", "chain1"), _bucketed_spans(fixdim, n_pad)))
+        for dtype in (torch.float32, torch.bfloat16):
+            size = torch.finfo(dtype).bits // 8
+            for chain, (n, j) in (("chain1", (n_pad, NYSTROM_M)),
+                                  ("chain3", (NYSTROM_M, n_pad))):
+                q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5
+                     ).to(dtype)
+                k = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
+                v = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
+                dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
+                io_bytes = size * (2 * BG * n * DH + 2 * BG * j * DH)
+                rows = []
+                for form in ("nobias", "span"):
+                    span = spans[chain] if form == "span" else None
+                    pairs, uniform = ((BG * n * j, 0) if span is None
+                                      else _span_work(span, n, j))
+                    mask = None
+                    if span is not None:
+                        rv, cv = _span_valid(span, n, j)
+                        mask = torch.zeros(BG, n, j, dtype=dtype, device="cuda"
+                                           ).masked_fill_(~(rv & cv), float("-inf"))
+                    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, mask)
+                    out = deform_attention_fwd(q, k, v, span=span)
+                    torch.cuda.synchronize()
+                    bound_ms, bound_by = _bound(io_bytes, 4 * DH * pairs + 2 * DH * j * uniform,
+                                                dtype)
+                    rows.append({"name": f"deform_attention_fwd_{form}",
+                                 **_compare(out, deform_attention_fwd_plain(q, k, v, span=span),
+                                            KERNEL_TOL[dtype]),
+                                 "ms": _time_ms(lambda: deform_attention_fwd(q, k, v,
+                                                                             span=span)),
+                                 "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(
+                                     q, k, v, span=span), iters=5),
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": lib_fwd})
+                    got = deform_attention_bwd(q, k, v, None, dout, span=span)
+                    torch.cuda.synchronize()
+                    want = deform_attention_bwd_plain(q, k, v, None, dout, span=span)
+                    bound_ms, bound_by = _bound(2 * io_bytes,
+                                                10 * DH * pairs + 2 * DH * j * uniform, dtype)
+                    rows.append({"name": f"deform_attention_bwd_{form}",
+                                 **_compare_grads(got[:3], want[:3], GRAD_RTOL[dtype]),
+                                 "ms": _time_ms(lambda: deform_attention_bwd(
+                                     q, k, v, None, dout, span=span)),
+                                 "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
+                                     q, k, v, None, dout, span=span), iters=5),
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": lib_bwd})
+                    if got[3] is not None:
+                        failures.append("bias-less backward returned a bias gradient")
+                    del out, got, want, mask
+                for e in rows:
+                    e.update(chain=chain, fixdim=fixdim, dtype=str(dtype).split(".")[-1],
+                             bg=BG, n=n, j=j)
+                    _line("chains", **e)
+                    if not e["ok"]:
+                        failures.append(f"{e['name']} {chain} fixdim={fixdim} {dtype}")
+                    if fixdim == MAIN_FIXDIM and dtype == torch.bfloat16:
+                        entries[(e["name"], chain)] = e
+                del q, k, v, dout
+                torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     return entries
@@ -318,13 +489,13 @@ def _plain_kernels():
         return philox_keep_mask(seed, q.shape[0], q.shape[1], k.shape[1], keep_prob,
                                 device=q.device)
 
-    def fwd(q, k, v, bias, keep_prob=1.0, seed=0):
+    def fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
         return attn.deform_attention_fwd_plain(q, k, v, bias, keep(q, k, keep_prob, seed),
-                                               keep_prob)
+                                               keep_prob, span)
 
-    def bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0):
+    def bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
         return attn.deform_attention_bwd_plain(q, k, v, bias, dout,
-                                               keep(q, k, keep_prob, seed), keep_prob)
+                                               keep(q, k, keep_prob, seed), keep_prob, span)
 
     with mock.patch.object(cpb, "cpb_bias", cpb.cpb_bias_plain), \
             mock.patch.object(cpb, "cpb_bias_bwd", cpb.cpb_bias_bwd_plain), \
@@ -333,8 +504,30 @@ def _plain_kernels():
         yield
 
 
-def phase_slice(fixdim: int, card: dict) -> dict:
-    """The serving path at ``fixdim``; returns the kernels' launch counts."""
+# the launches of each wrapper (and form) per batch of the serving path and per
+# train step of the training path; every other count must stay 0
+SERVE_LAUNCHES = {
+    "deformpathomic": {"cpb_bias": 2, "deform_attention_fwd": 2},
+    "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4}}
+TRAIN_LAUNCHES = {
+    "deformpathomic": {"cpb_bias": 2, "cpb_bias_bwd": 2, "deform_attention_fwd": 2,
+                       "deform_attention_bwd": 2, "deform_attention_fwd_dropout": 2},
+    "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4,
+                 "deform_attention_bwd": 4, "deform_attention_bwd_nobias": 4}}
+OUTPUTS = {"deformpathomic": ("logits", "logits_tumor", "logits_immune", "features"),
+           "transmil": ("logits", "features")}
+TRAIN_METRICS = {"deformpathomic": {"loss", "loss3", "batch_sim_loss"},
+                 "transmil": {"loss", "loss3"}}
+
+
+def _flags(path: str, **extra) -> dict:
+    base = {"dataset": "synthetic", "batch_size": 8, "compute_dtype": "bfloat16"}
+    return {**base, **(TM_FLAGS if path == "transmil" else {}), **extra}
+
+
+def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic") -> dict:
+    """The serving path of ``path`` at ``fixdim``; returns the kernels' launch
+    counts."""
     from sml_tpu_torch import inference
     from sml_tpu_torch.config import Config
     from sml_tpu_torch.data.loader import Loader, build_datasets
@@ -343,8 +536,7 @@ def phase_slice(fixdim: int, card: dict) -> dict:
     from sml_tpu_torch.train.evaluate import batch_to_device
     from sml_tpu_torch.train.steps import make_eval_step
 
-    flags = {"dataset": "synthetic", "synthetic_size": 64, "batch_size": 8,
-             "compute_dtype": "bfloat16", "fixdim": fixdim}
+    flags = _flags(path, synthetic_size=64, fixdim=fixdim)
     argv = [f"--{k}={v}" for k, v in flags.items()] + ["--device=cuda"]
 
     # 1) the entry point a user calls, with the launch counts around it
@@ -361,9 +553,7 @@ def phase_slice(fixdim: int, card: dict) -> dict:
     metrics = ast.literal_eval(printed.split("test metrics: ")[-1])
     config = Config(**flags)
     loader = Loader(build_datasets(config, "Test"), config.batch_size)
-    expected = 2 * len(loader)                     # one launch per branch and batch
-    want = {"cpb_bias": expected, "deform_attention_fwd": expected, "cpb_bias_bwd": 0,
-            "deform_attention_bwd": 0, "deform_attention_fwd_dropout": 0}
+    want = {k: SERVE_LAUNCHES[path].get(k, 0) * len(loader) for k in launches}
     if rc != 0 or launches != want:
         raise AssertionError(f"launches {launches}, expected {want} (rc={rc})")
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -382,8 +572,7 @@ def phase_slice(fixdim: int, card: dict) -> dict:
         res_plain = step(batch)
     if not (_finite(out) and _finite(res)):
         raise AssertionError("non-finite model outputs")
-    checks = {k: _compare(out[k], out_plain[k], SLICE_TOL)
-              for k in ("logits", "logits_tumor", "logits_immune", "features")}
+    checks = {k: _compare(out[k], out_plain[k], SLICE_TOL) for k in OUTPUTS[path]}
     checks.update({f"step_{k}": _compare(res[k], res_plain[k], SLICE_TOL) for k in res})
     bad = [k for k, c in checks.items() if not c["ok"]]
     if bad:
@@ -396,9 +585,9 @@ def phase_slice(fixdim: int, card: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_ms = statistics.median(_host_ms(lambda: step(batch)) for _ in range(10))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _line("slice", fixdim=fixdim, batch=config.batch_size, dtype="bfloat16",
-          metrics=metrics, launches=launches, expected_launches=expected,
-          entry_point_wall_s=round(wall_s, 2),
+    _line("tm-slice" if path == "transmil" else "slice", fixdim=fixdim,
+          batch=config.batch_size, dtype="bfloat16", metrics=metrics, launches=launches,
+          expected_launches=want, entry_point_wall_s=round(wall_s, 2),
           max_abs_err={k: c["max_abs_err"] for k, c in checks.items()},
           tol=SLICE_TOL, eval_step_ms=step_ms,
           bags_per_s=config.batch_size / (step_ms / 1e3), h2d_ms=h2d_ms,
@@ -415,28 +604,15 @@ def _grad_snapshot(grad_step, model, batch, seed: int):
             {n: p.grad.detach().clone() for n, p in model.named_parameters()})
 
 
-def phase_train(card: dict) -> dict:
-    """The training path at S2500 through ``sml_tpu_torch.main``; returns the
-    kernels' launch counts of that run."""
-    import tempfile
-
-    import numpy as np
-
-    from sml_tpu_torch import inference
+def _train_entry(flags: dict, ckpt: str):
+    """``sml_tpu_torch.main.main`` on ``flags``: (rc, printed, launches of the
+    whole run, launches of its Val / Test passes, wall seconds)."""
     from sml_tpu_torch import main as train_main
-    from sml_tpu_torch.config import Config
-    from sml_tpu_torch.data.loader import Loader, build_datasets
-    from sml_tpu_torch.models.factory import define_net
     from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from sml_tpu_torch.train import loop
-    from sml_tpu_torch.train.evaluate import batch_to_device
-    from sml_tpu_torch.train.steps import make_grad_step, make_train_step
 
-    flags = {"dataset": "synthetic", "synthetic_size": 64, "fixdim": MAIN_FIXDIM,
-             "batch_size": 8, "compute_dtype": "bfloat16", "epochs": 1}
-    config = Config(**flags)
-    steps = len(Loader(build_datasets(config, "Train"), config.batch_size, drop_last=True))
     eval_counts = []
+    evaluate = loop.evaluate
 
     def counted_evaluate(*args, **kwargs):
         before = launch_counts()
@@ -445,33 +621,52 @@ def phase_train(card: dict) -> dict:
         eval_counts.append({k: after[k] - before[k] for k in after})
         return result
 
-    evaluate = loop.evaluate
+    argv = [f"--{k}={v}" for k, v in flags.items()] + [f"--checkpoints={ckpt}",
+                                                      "--device=cuda"]
+    reset_launch_counts()
+    captured = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured), \
+            mock.patch.object(loop, "evaluate", counted_evaluate):
+        rc = train_main.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    total = launch_counts()
+    printed = captured.getvalue()
+    print(printed.strip(), flush=True)
+    eval_l = {k: sum(c[k] for c in eval_counts) for k in total}
+    return rc, printed, total, eval_l, wall_s
+
+
+def phase_train(card: dict, path: str = "deformpathomic") -> dict:
+    """The training path of ``path`` at S2500 through ``sml_tpu_torch.main``;
+    returns the kernels' launch counts of that run."""
+    import tempfile
+
+    import numpy as np
+
+    from sml_tpu_torch import inference
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import Loader, build_datasets
+    from sml_tpu_torch.models.factory import define_net
+    from sml_tpu_torch.train.evaluate import batch_to_device
+    from sml_tpu_torch.train.steps import make_grad_step, make_train_step
+
+    flags = _flags(path, synthetic_size=32 if path == "transmil" else 64,
+                   fixdim=MAIN_FIXDIM, epochs=1)
+    config = Config(**flags)
+    steps = len(Loader(build_datasets(config, "Train"), config.batch_size, drop_last=True))
     with tempfile.TemporaryDirectory() as ckpt:
-        argv = ([f"--{k}={v}" for k, v in flags.items()]
-                + [f"--checkpoints={ckpt}", "--device=cuda"])
-        reset_launch_counts()
-        captured = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(captured), \
-                mock.patch.object(loop, "evaluate", counted_evaluate):
-            rc = train_main.main(argv)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        total = launch_counts()
-        printed = captured.getvalue()
-        print(printed.strip(), flush=True)
+        rc, printed, total, eval_l, wall_s = _train_entry(flags, ckpt)
         train_m = ast.literal_eval(printed.split(" train=")[1].splitlines()[0])
-        eval_l = {k: sum(c[k] for c in eval_counts) for k in total}
         train_l = {k: total[k] - eval_l[k] for k in total}
-        want = {k: 2 * steps for k in ("cpb_bias", "cpb_bias_bwd", "deform_attention_fwd",
-                                       "deform_attention_bwd",
-                                       "deform_attention_fwd_dropout")}
+        want = {k: TRAIN_LAUNCHES[path].get(k, 0) * steps for k in total}
         if rc != 0 or train_l != want:
             raise AssertionError(f"train-step launches {train_l}, expected {want} (rc={rc})")
         if eval_l["cpb_bias_bwd"] or eval_l["deform_attention_bwd"] or \
                 eval_l["deform_attention_fwd_dropout"]:
             raise AssertionError(f"eval launched a training kernel: {eval_l}")
-        if set(train_m) != {"loss", "loss3", "batch_sim_loss"} or \
+        if set(train_m) != TRAIN_METRICS[path] or \
                 not all(math.isfinite(v) for v in train_m.values()):
             raise AssertionError(f"train metrics {train_m}")
         weights = f"{ckpt}/best_modal.npz"
@@ -521,7 +716,8 @@ def phase_train(card: dict) -> dict:
     step_ms = statistics.median(_host_ms(lambda: train_step(state, batch))
                                 for _ in range(10))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _line("train", fixdim=MAIN_FIXDIM, batch=config.batch_size, dtype="bfloat16",
+    _line("tm-train" if path == "transmil" else "train", fixdim=MAIN_FIXDIM,
+          batch=config.batch_size, dtype="bfloat16",
           steps=steps, train_metrics=train_m, served_metrics=served, weight_leaves=n_leaves,
           launches_total=total, launches_train_steps=train_l, launches_eval=eval_l,
           entry_point_wall_s=round(wall_s, 2), loss_kernel=m_k, loss_plain=m_p,
@@ -533,6 +729,82 @@ def phase_train(card: dict) -> dict:
     if not ok:
         raise AssertionError(f"train step through kernels vs plain versions: loss "
                              f"{loss_err}, worst gradient {worst} {rel[worst]}")
+    return total
+
+
+def phase_bucketed(card: dict) -> dict:
+    """TransMIL trained for one epoch on bucketed masked bags, then Val and Test;
+    returns the kernels' launch counts of that run."""
+    import tempfile
+    import warnings
+
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import BucketedLoader, build_datasets
+    from sml_tpu_torch.train import loop
+
+    flags = _flags("transmil", synthetic_size=48, fixdim=MAIN_FIXDIM, epochs=1,
+                   variable_bags=True, bucket_sizes="1024,2500")
+    config = Config(**flags)
+    train_ds = build_datasets(config, "Train")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # a bucket smaller than a batch never trains
+        loader = BucketedLoader(train_ds, config.batch_size, shuffle=True, drop_last=True,
+                                seed=config.seed)
+        steps = len(loader)
+        per_bucket = {}
+        for chunk in loader._index_batches():
+            b = train_ds.bucket_of(int(chunk[0]))
+            per_bucket[b] = per_bucket.get(b, 0) + 1
+    finite = {"train": [], "eval": []}
+    make_train, make_eval = loop.make_train_step, loop.make_eval_step
+
+    def checked_train_step(config_, model):
+        step = make_train(config_, model)
+
+        def run(state, batch):
+            metrics = step(state, batch)
+            finite["train"].append(torch.stack([torch.isfinite(v).all()
+                                                for v in metrics.values()]).all())
+            return metrics
+        return run
+
+    def checked_eval_step(config_, model):
+        step = make_eval(config_, model)
+
+        def run(batch):
+            result = step(batch)
+            finite["eval"].append(torch.stack([torch.isfinite(v).all()
+                                               for v in result.values()]).all())
+            return result
+        return run
+
+    with tempfile.TemporaryDirectory() as ckpt, warnings.catch_warnings(), \
+            mock.patch.object(loop, "make_train_step", checked_train_step), \
+            mock.patch.object(loop, "make_eval_step", checked_eval_step):
+        warnings.simplefilter("ignore")
+        rc, printed, total, eval_l, wall_s = _train_entry(flags, ckpt)
+    train_l = {k: total[k] - eval_l[k] for k in total}
+    per_step = TRAIN_LAUNCHES["transmil"]
+    want = {k: per_step.get(k, 0) * steps for k in total}
+    want["deform_attention_fwd_span"] = want["deform_attention_bwd_span"] = 4 * steps
+    all_finite = {k: len(v) > 0 and bool(torch.stack(v).all()) for k, v in finite.items()}
+    train_m = ast.literal_eval(printed.split(" train=")[1].splitlines()[0])
+    evals = printed.split(" val=")[1]
+    val_m = ast.literal_eval(evals.split(" test=")[0])
+    test_m = ast.literal_eval(evals.split(" test=")[1].split(" elapsed_sec")[0])
+    ok = (rc == 0 and train_l == want and eval_l["deform_attention_fwd_span"] > 0
+          and eval_l["deform_attention_fwd_span"] == eval_l["deform_attention_fwd"]
+          and all(all_finite.values())
+          and all(math.isfinite(v) for m in (train_m, val_m, test_m) for v in m.values()))
+    _line("bucketed", buckets=config.bucket_list(), steps=steps,
+          train_batches_per_bucket=per_bucket, launches_total=total,
+          launches_train_steps=train_l, expected_train_launches=want,
+          launches_eval=eval_l, batches_finite=all_finite,
+          batches_checked={k: len(v) for k, v in finite.items()}, train_metrics=train_m,
+          val_metrics=val_m, test_metrics=test_m, entry_point_wall_s=round(wall_s, 2),
+          ok=ok, card=card["nvidia_smi"])
+    if not ok:
+        raise AssertionError("bucketed TransMIL run: see the [bucketed] line")
     return total
 
 
@@ -556,6 +828,19 @@ JSON_KERNELS = (   # (entry name, source, replaces, launch-count key)
     ("deform_attention_bwd", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:1044",
      "deform_attention_bwd"),
 )
+# the TransMIL forms: (entry name, source, replaces, launch-count key, the run whose
+# counts they report: the TransMIL train run or the bucketed one)
+CHAIN_KERNELS = (
+    ("deform_attention_fwd_nobias", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:902",
+     "deform_attention_fwd_nobias", "tm-train"),
+    ("deform_attention_fwd_span", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:843",
+     "deform_attention_fwd_span", "bucketed"),
+    ("deform_attention_bwd_nobias", "sml_tpu_torch/csrc/deform_attn_bwd.cu",
+     f"{PALLAS}:926", "deform_attention_bwd_nobias", "tm-train"),
+    ("deform_attention_bwd_span", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:958",
+     "deform_attention_bwd_span", "bucketed"),
+)
+_TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -572,16 +857,26 @@ def main() -> int:
     # the train entry point's run: forward launches split into eval form and dropout
     launches["deform_attention_fwd_eval"] = (launches["deform_attention_fwd"]
                                              - launches["deform_attention_fwd_dropout"])
+    chains = phase_chains()
+    tm_serving = {fixdim: phase_slice(fixdim, card, "transmil") for fixdim in SHAPES}
+    runs = {"tm-train": phase_train(card, "transmil"), "bucketed": phase_bucketed(card)}
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[count],
-                        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                        "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                        **{k: e[k] for k in _TIMES},
                         "launches_serving_s2500": serving[MAIN_FIXDIM].get(name, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16"})
+    for name, source, replaces, count, run in CHAIN_KERNELS:
+        e, e1 = chains[(name, "chain3")], chains[(name, "chain1")]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": runs[run][count],
+                        "launches_run": run, **{k: e[k] for k in _TIMES},
+                        "launches_tm_serving_s2500": tm_serving[MAIN_FIXDIM].get(count, 0),
+                        "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
+                        "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",
+                                   **{k: e1[k] for k in _TIMES}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

@@ -3,16 +3,17 @@
 
     python3 scripts/profile_torch_eval.py [--step eval|train] [--fixdim 2500 4096]
         [--batch_size 8] [--steps 10] [--trace_dir build/profiles]
+        [--mode deformpathomic | --mode path --path_arch transmil]
 
-Builds the deformpathomic model (seeded weights, bf16, synthetic batch already
-on the card), warms up, then runs ``--steps`` eval steps (or train steps:
+Builds the model (deformpathomic by default, or TransMIL; seeded weights,
+bf16, synthetic batch already on the card), warms up, then runs ``--steps`` eval steps (or train steps:
 forward with dropout, backward, gradient modulation, Adam) under
 ``torch.profiler``.  Prints one JSON line per fixdim with the step time (host
 clock around synchronised steps), the kernel time and kernel launches per
 step and the kernel time's share of that step, the device's busy share of the
 profiled window (union of kernel intervals over the window), and the device
 time per step of the kernels that take the most, grouped by name.  The Chrome
-trace goes to ``<trace_dir>/profile_<step>_<fixdim>.json``.
+trace goes to ``<trace_dir>/profile_<model>_<step>_<fixdim>.json``.
 """
 
 from __future__ import annotations
@@ -72,9 +73,11 @@ def _make_step(kind: str, config: Config):
 
 
 def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
-                trace_dir: str) -> dict:
+                trace_dir: str, mode: str = "deformpathomic", path_arch: str = "abmil"
+                ) -> dict:
     config = Config(dataset="synthetic", synthetic_size=4 * batch_size,
-                    batch_size=batch_size, compute_dtype="bfloat16", fixdim=fixdim)
+                    batch_size=batch_size, compute_dtype="bfloat16", fixdim=fixdim,
+                    mode=mode, path_arch=path_arch)
     run = _make_step(kind, config)
     for _ in range(3):
         run()
@@ -90,7 +93,8 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
             run()
         torch.cuda.synchronize()
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{kind}_{fixdim}.json"))
+    name = mode if mode != "path" else path_arch
+    prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{name}_{kind}_{fixdim}.json"))
     busy, start, end = _busy_us(prof)
 
     # kernels only: an aten:: row's device time repeats that of its kernels
@@ -103,7 +107,8 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
            for e in rows[:20]]
     # the profiler slows the host, so the busy share of its window understates the
     # device's share of an unprofiled step; device_ms / step_ms gives that one
-    return {"step": kind, "fixdim": fixdim, "batch": batch_size, "dtype": "bfloat16",
+    return {"model": name, "step": kind, "fixdim": fixdim, "batch": batch_size,
+            "dtype": "bfloat16",
             "card": card,
             "step_ms": step_ms, "device_ms_per_step": device_total,
             "device_share_of_step": device_total / step_ms,
@@ -119,6 +124,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--trace_dir", default="build/profiles")
+    parser.add_argument("--mode", choices=("deformpathomic", "path"),
+                        default="deformpathomic")
+    parser.add_argument("--path_arch", default="abmil", help="transmil with --mode path")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device available", file=sys.stderr)
@@ -128,7 +136,7 @@ def main(argv=None) -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     for fixdim in args.fixdim:
         print(json.dumps(profile_one(args.step, fixdim, args.batch_size, args.steps, card,
-                                     args.trace_dir)), flush=True)
+                                     args.trace_dir, args.mode, args.path_arch)), flush=True)
     return 0
 
 

@@ -83,6 +83,7 @@ class Config:
     # --- model ---
     mode: str = "deformpathomic"
     attn_dim: int = 2
+    path_arch: str = "abmil"            # path-mode backbone: abmil | transmil
 
     # --- task ---
     task_type: str = "diag2021"
@@ -100,6 +101,12 @@ class Config:
         if self.attn_dim == 1 and self.return_vgrid:
             raise ValueError("attn_dim=1 has no vgrid (1-D deformable attention): "
                              "set return_vgrid=false")
+
+    def bucket_list(self) -> tuple:
+        """Parsed ``bucket_sizes`` (sorted), or () when bucketing is off."""
+        if not self.bucket_sizes:
+            return ()
+        return tuple(sorted(int(b) for b in str(self.bucket_sizes).split(",")))
 
 
 def _parse_bool(s: str) -> bool:

@@ -1,4 +1,5 @@
-"""Batching (counterpart of ``sml_tpu/data/loader.py``, single host).
+"""Batching (counterpart of ``sml_tpu/data/loader.py``: ``Loader`` and
+``BucketedLoader``, single host).
 
 Eval mode: sequential order; the final batch is padded to ``batch_size`` by
 repeating its last sample, and ``sample_mask`` (1 = real, 0 = pad) marks the
@@ -11,6 +12,8 @@ Loader's.
 
 from __future__ import annotations
 
+import warnings
+from collections import Counter
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -72,3 +75,41 @@ class Loader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         for chunk in self._index_batches():
             yield self._collate(chunk)
+
+
+class BucketedLoader(Loader):
+    """Loader whose every batch holds one bag-size bucket (single host; the
+    JAX package's ``BucketedLoader``).  The dataset gives ``bucket_of(i)``.
+    Each bucket is batched on its own (dropping or padding its own
+    remainder); in train mode the epoch's batches are then put in the order
+    of ``np.random.default_rng(seed * 900007 + epoch)``, so buckets
+    interleave."""
+
+    def __len__(self) -> int:
+        bs = self.batch_size
+        sizes = Counter(self.dataset.bucket_of(i) for i in range(len(self.dataset)))
+        return sum(n // bs if self.drop_last else -(-n // bs) for n in sizes.values())
+
+    def _index_batches(self) -> List[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed * 100_003 + self.epoch).shuffle(idx)
+        by_bucket: Dict[int, List[int]] = {}
+        for i in idx:
+            by_bucket.setdefault(self.dataset.bucket_of(int(i)), []).append(i)
+        batches: List[np.ndarray] = []
+        for bucket in sorted(by_bucket):
+            bidx = np.asarray(by_bucket[bucket])
+            if self.drop_last and len(bidx) < self.batch_size:
+                warnings.warn(f"bucket {bucket} holds {len(bidx)} samples < batch "
+                              f"{self.batch_size} and drop_last=True: they never train",
+                              stacklevel=2)
+            chunks = [bidx[s:s + self.batch_size] for s in range(0, len(bidx),
+                                                                  self.batch_size)]
+            batches.extend(c for c in chunks
+                           if not self.drop_last or len(c) == self.batch_size)
+        if self.shuffle:
+            order = np.random.default_rng(self.seed * 900_007 + self.epoch).permutation(
+                len(batches))
+            batches = [batches[i] for i in order]
+        return batches

@@ -10,8 +10,11 @@ Per sample:
                                    Subtype, surv_bin, censor, event, surv_time]
 
 A 4-class latent drives the class labels, the omic class centers, a third of the
-path patches and the survival time scale.  Variable-length bags (bucketed and
-masked) wait for the masked-bag slice of the port.
+path patches and the survival time scale.  With ``variable_bags`` each sample
+draws its bag size from [smallest bucket / 2, largest bucket] (or [fixdim / 2,
+fixdim]) and the bag is bucketed with a validity ``mask``
+(``data/bucketing.py``); ``bucket_of`` gives a sample's bucket without
+building its bag.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict
 import numpy as np
 
 from sml_tpu_torch.config import Config
+from sml_tpu_torch.data.bucketing import bucket_bag, bucket_for
 
 # survival-bin thresholds shared with the reference (data/dataset.py:112-119)
 QUANTILES_ALL = (233.5, 511.0, 929.0)
@@ -31,8 +35,6 @@ _PHASE_SALT = {"Train": 0, "Val": 1, "Test": 2}
 
 class SyntheticDataset:
     def __init__(self, phase: str, config: Config):
-        if config.variable_bags:
-            raise NotImplementedError("variable_bags (masked bags) is not ported yet")
         self.phase = phase
         self.config = config
         n = config.synthetic_size if phase == "Train" else max(config.synthetic_size // 4, 8)
@@ -60,6 +62,25 @@ class SyntheticDataset:
         self.idx_immune = np.arange(config.input_size_omic - config.input_size_omic_immune,
                                     config.input_size_omic)
 
+        # variable bags: each size is the first draw of a fresh generator on the
+        # sample's noise seed, so a bucketed loader groups batches without
+        # building the bags
+        self.buckets = config.bucket_list() if config.variable_bags else ()
+        if self.buckets:
+            lo, hi = max(self.buckets[0] // 2, 4), self.buckets[-1]
+        else:
+            lo, hi = max(config.fixdim // 2, 4), config.fixdim
+        self._bag_lo, self._bag_hi = lo, hi
+        if config.variable_bags:
+            self.bag_sizes = np.array([int(np.random.default_rng(int(s)).integers(lo, hi + 1))
+                                       for s in self.omic_noise_seed])
+
+    def bucket_of(self, index: int) -> int:
+        """Bucketed bag length of sample ``index`` (for batch grouping)."""
+        if not self.config.variable_bags:
+            return self.config.fixdim
+        return bucket_for(int(self.bag_sizes[index]), self.buckets or (self.config.fixdim,))
+
     def __len__(self) -> int:
         return self.n
 
@@ -71,6 +92,9 @@ class SyntheticDataset:
         omic = (self.omic_centers[c] + rng.normal(size=cfg.input_size_omic)
                 ).astype(np.float32)
         n_bag = cfg.fixdim
+        if cfg.variable_bags:
+            n_bag = int(self.bag_sizes[index])
+            rng.integers(self._bag_lo, self._bag_hi + 1)  # keeps the stream of the JAX copy
         # bag: 30% signal patches near the class path-center, rest background
         n_sig = n_bag // 3
         signal = (self.path_centers[c][None, :] * 0.5
@@ -79,13 +103,17 @@ class SyntheticDataset:
         bag = np.concatenate([signal, background], axis=0).astype(np.float32)
         rng.shuffle(bag)
 
-        return {
+        sample = {
             "x_path": bag,
             "x_omic": omic,
             "x_omic_tumor": omic[self.idx_tumor],
             "x_omic_immune": omic[self.idx_immune],
             "labels": self._labels(index, c),
         }
+        if cfg.variable_bags:
+            sample["x_path"], sample["mask"] = bucket_bag(
+                bag, buckets=self.buckets or (cfg.fixdim,))
+        return sample
 
     def _labels(self, index: int, c: int) -> np.ndarray:
         t = float(self.times[index])

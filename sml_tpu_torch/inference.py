@@ -1,8 +1,13 @@
-"""Serving entry point of the port: evaluate a deformpathomic model on the Test split.
+"""Serving entry point of the port: evaluate a model on the Test split.
 
 Usage:
     python -m sml_tpu_torch.inference --dataset synthetic --fixdim 2500 \\
         --compute_dtype bfloat16 [--weights params.npz] [--device cuda]
+    python -m sml_tpu_torch.inference --mode path --path_arch transmil ...
+        [--variable_bags true --bucket_sizes 1024,2500,4096]
+
+``--mode`` is deformpathomic (the default) or path with ``--path_arch
+transmil``; with ``--bucket_sizes`` the Test split is batched per bucket.
 
 ``--weights`` is an ``.npz`` of the flattened flax parameter tree ('/'-joined
 keys, see ``sml_tpu_torch.bridge``); without it the model takes a seeded init
@@ -30,7 +35,7 @@ def main(argv=None) -> int:
     import torch
 
     from sml_tpu_torch.bridge import load_npz
-    from sml_tpu_torch.data.loader import Loader, build_datasets
+    from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
     from sml_tpu_torch.models.factory import define_net, resolve_device
     from sml_tpu_torch.train.evaluate import evaluate
     from sml_tpu_torch.train.steps import make_eval_step
@@ -40,7 +45,8 @@ def main(argv=None) -> int:
         # f32 products and convolutions in full f32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    test_loader = Loader(build_datasets(config, "Test"), config.batch_size)
+    loader_cls = BucketedLoader if config.bucket_list() else Loader
+    test_loader = loader_cls(build_datasets(config, "Test"), config.batch_size)
     model = define_net(config, device)
     if weights:
         load_npz(model, weights)

@@ -3,8 +3,12 @@
 Usage:
     python -m sml_tpu_torch.main --dataset synthetic --fixdim 2500 \\
         --compute_dtype bfloat16 --epochs 20 [--checkpoints DIR] [--device cuda]
+    python -m sml_tpu_torch.main --mode path --path_arch transmil ...
+        [--variable_bags true --bucket_sizes 1024,2500,4096]
 
-Every ``Config`` field is a flag.  Runs on ``cuda`` unless ``--device cpu`` is
+Every ``Config`` field is a flag; ``--mode`` is deformpathomic (the default)
+or path with ``--path_arch transmil``, and ``--bucket_sizes`` batches every
+split per bag-size bucket.  Runs on ``cuda`` unless ``--device cpu`` is
 given; asking for cuda without a card raises.  Prints the mean train metrics
 and the ``epoch i/n val=... test=...`` line of each epoch, writes the
 best-on-val weights to ``<checkpoints>/best_modal.npz`` and ends with

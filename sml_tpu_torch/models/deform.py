@@ -106,9 +106,12 @@ class DeformPathomicNet(nn.Module):
         self.classifier_immune = Dense(path_dim, label_dim, dtype=dtype)
 
     def forward(self, x_path: torch.Tensor, x_omic_tumor: torch.Tensor,
-                x_omic_immune: torch.Tensor,
+                x_omic_immune: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
         """``rng`` (training mode with dropout_rate > 0) feeds every dropout."""
+        if mask is not None:
+            raise NotImplementedError("masked (bucketed) deformpathomic bags are not "
+                                      "ported yet")
         tumor = self.pathomic_net_tumor(
             x_path, self.omic_net_tumor(x_omic_tumor, rng)["features"], rng)
         immune = self.pathomic_net_immune(

@@ -1,6 +1,6 @@
-"""Model and optimizer factory for ``mode=deformpathomic`` (counterpart of
-``sml_tpu/models/factory.py``: ``define_net``, ``model_inputs``,
-``make_lr_schedule``, ``define_optimizer``).
+"""Model and optimizer factory for ``mode=deformpathomic`` and ``mode=path``
+with ``path_arch=transmil`` (counterpart of ``sml_tpu/models/factory.py``:
+``define_net``, ``model_inputs``, ``make_lr_schedule``, ``define_optimizer``).
 
 The JAX factory turns its kernels off unless the backend is a TPU; the port
 has no such switch: its kernel wrappers launch their CUDA kernels whenever the
@@ -17,9 +17,14 @@ from torch import nn
 
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.models.deform import DeformPathomicNet
+from sml_tpu_torch.models.mil import TransMIL
 from sml_tpu_torch.ops.common import dtype_of, init_params
 
-MODE_INPUTS = {"deformpathomic": ("x_path", "x_omic_tumor", "x_omic_immune")}
+# which batch keys each ported mode's forward consumes
+MODE_INPUTS = {"path": ("x_path",),
+               "deformpathomic": ("x_path", "x_omic_tumor", "x_omic_immune")}
+# modes whose models take a per-patch validity mask (padded / bucketed bags)
+MASKABLE_MODES = ("path", "deformpathomic")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -46,27 +51,37 @@ def define_net(config: Config, device: str | torch.device = "cuda",
     """The model on ``device`` in eval mode (``train=True``: training mode),
     seeded-initialized from ``seed`` (default ``config.seed``); parameters stay
     float32."""
-    if config.mode != "deformpathomic":
-        raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
-    if config.attn_dim != 2 or config.fusion_type != "concat":
-        raise NotImplementedError("the port runs attn_dim=2 with concat fusion only")
     if config.init_type not in ("max", "none"):
         raise NotImplementedError(f"init_type {config.init_type!r} is not ported yet")
-    device = resolve_device(device)
-    model = DeformPathomicNet(
-        label_dim=config.label_dim,
-        input_size_omic_tumor=config.input_size_omic_tumor,
-        input_size_omic_immune=config.input_size_omic_immune,
-        input_path_dim=config.input_path_dim, path_dim=config.path_dim,
-        omic_dim=config.omic_dim, dropout_rate=config.dropout_rate,
-        return_vgrid=config.return_vgrid, task_type=config.task_type,
-        init_max=config.init_type == "max", dtype=compute_dtype(config))
+    if config.mode == "path":
+        if config.path_arch != "transmil":
+            raise NotImplementedError(f"path_arch {config.path_arch!r} is not ported yet")
+        model = TransMIL(label_dim=config.label_dim, path_dim=config.path_dim,
+                         input_path_dim=config.input_path_dim,
+                         dtype=compute_dtype(config))
+    elif config.mode == "deformpathomic":
+        if config.attn_dim != 2 or config.fusion_type != "concat":
+            raise NotImplementedError("the port runs attn_dim=2 with concat fusion only")
+        model = DeformPathomicNet(
+            label_dim=config.label_dim,
+            input_size_omic_tumor=config.input_size_omic_tumor,
+            input_size_omic_immune=config.input_size_omic_immune,
+            input_path_dim=config.input_path_dim, path_dim=config.path_dim,
+            omic_dim=config.omic_dim, dropout_rate=config.dropout_rate,
+            return_vgrid=config.return_vgrid, task_type=config.task_type,
+            init_max=config.init_type == "max", dtype=compute_dtype(config))
+    else:
+        raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
     init_params(model, config.seed if seed is None else seed)
+    device = resolve_device(device)
     return model.to(device).train(train)
 
 
 def model_inputs(config: Config, batch: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: batch[k] for k in MODE_INPUTS[config.mode]}
+    kwargs = {k: batch[k] for k in MODE_INPUTS[config.mode]}
+    if "mask" in batch and config.mode in MASKABLE_MODES:
+        kwargs["mask"] = batch["mask"]
+    return kwargs
 
 
 def make_lr_schedule(config: Config, steps_per_epoch: int) -> Callable[[int], float]:

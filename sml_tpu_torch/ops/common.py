@@ -7,7 +7,8 @@ returns bf16.  Both keep torch's parameter layout (``weight`` (out, in) and
 kernels into it.  ``Conv`` takes and returns channels-last (N, H, W, C)
 tensors, the JAX package's layout.
 
-``DropoutRNG`` carries the two generators of training-mode dropout.
+``DropoutRNG`` carries the two generators of training-mode dropout, and
+``dropout`` is flax's inverted dropout drawn from one of them.
 
 Initializers (``init_params``) draw from an explicit ``torch.Generator`` with
 the JAX initializers' distributions: ``torch_kernel_init`` is
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +48,19 @@ class DropoutRNG:
 
     def philox_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); identity at eval or
+    when rate == 0.  Training needs an explicit generator."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("training-mode dropout needs a DropoutRNG generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def dtype_of(name: str) -> torch.dtype:

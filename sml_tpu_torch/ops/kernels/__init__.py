@@ -10,18 +10,26 @@ from sml_tpu_torch.ops.kernels.deform_attn import (deform_attention_bwd,
 from sml_tpu_torch.ops.kernels.philox import philox_keep_mask
 
 KERNELS = (cpb_bias, cpb_bias_bwd, deform_attention_fwd, deform_attention_bwd)
+# the per-form counts of the attention wrappers: (wrapper, attribute, key)
+_FORMS = ((deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropout"),
+          (deform_attention_fwd, "nobias_launches", "deform_attention_fwd_nobias"),
+          (deform_attention_fwd, "span_launches", "deform_attention_fwd_span"),
+          (deform_attention_bwd, "nobias_launches", "deform_attention_bwd_nobias"),
+          (deform_attention_bwd, "span_launches", "deform_attention_bwd_span"))
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    deform_attention_fwd.dropout_launches = 0
+    for fn, attr, _ in _FORMS:
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches}, and the dropout launches of the attention forward."""
+    """{wrapper name: launches}, and the attention wrappers' launches by form:
+    with dropout, without a bias, with a span."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
-    counts["deform_attention_fwd_dropout"] = deform_attention_fwd.dropout_launches
+    counts.update({key: getattr(fn, attr) for fn, attr, key in _FORMS})
     return counts
 
 

@@ -1,13 +1,21 @@
-"""Kernels B and D: the deformable-attention forward (``csrc/deform_attn.cu``) and
-its recompute backward (``csrc/deform_attn_bwd.cu``), CUDA C++ for sm_90a, and
-the ``torch.autograd.Function`` around them.
+"""Kernels B and D: the attention forward (``csrc/deform_attn.cu``) and its
+recompute backward (``csrc/deform_attn_bwd.cu``), CUDA C++ for sm_90a, and the
+``torch.autograd.Function`` around them.
 
 Replaces the Pallas kernels ``_fused_attn_fwd_call``
 (``sml_tpu/ops/pallas/deform_attn.py:1016``, body ``_attn_fwd_kernel`` at
 ``:894``, dropout ``_dropout_mult`` at ``:877``) and ``_fused_attn_bwd_call``
 (``:1044``, body ``_attn_bwd_kernel`` at ``:918``), reached through the custom
-VJP ``deform_attention_trainable`` (``:1099``), with a bias and no span mask:
-``out = dropout(softmax(q k^T + bias - rowmax)) @ v``.
+VJP ``deform_attention_trainable`` (``:1099``), in every compiled form:
+``out = dropout(softmax(mask(q k^T + bias))) @ v`` with or without the bias
+(the deformable attention has one; the Nystrom chains have none), with or
+without the span mask, with or without dropout.
+
+``span`` (BG, 4) int32 holds per-bag ``[row_start, row_end, col_start,
+col_end)`` over the unpadded rows and columns (``_span_valid`` ``:843``):
+invalid columns take -f32max before the max, so their probability is exactly
+0; an invalid row is uniform over all J columns; the cotangent is zeroed at
+every masked pair, whole invalid rows included (``:856-874``, ``:958-963``).
 
 Dropout draws its keep mask inside the kernels from Philox4x32-10 on (seed,
 bg, row, col) (``philox.py``); the forward, the backward and the plain
@@ -16,21 +24,23 @@ reaches device memory.  The plain versions also take an explicit {0, 1}
 ``keep`` tensor, which is how the tests hand them the mask of the JAX kernel's
 ``mask`` operand.
 
-What bounds both on the H100: bytes.  Forward: about 4*dh + 7 = 263 FLOP per
-(query, key) pair against 2 bytes of bf16 bias, about 130 FLOP per byte,
-under the card's ridge of about 295; at the 2500-patch shape (BG=64, N=2500,
-J=144, dh=64, bf16) one branch moves about 89 MB: 27 us at 3.35 TB/s.
-Backward: about 10*dh FLOP per pair against the bias and dbias streams (4
-bytes per pair) and q, dout, dq, dk, dv once: about 155 MB per branch.
+What bounds both on the H100: at the deformable attention's bias form (BG=64,
+N=2500, J=144, dh=64, bf16) bytes, the bias stream (the forward moves about
+89 MB: 27 us at 3.35 TB/s); at the Nystrom chains (no bias, J or N of 2560 or
+4352) operations, about 4*dh FLOP per pair forward and 10*dh backward
+against q, k, v and out read or written once.
 
 What the designs do about it: every input byte is read once and the
-(BG, N, J) chain never leaves the SM in either direction.  The forward runs
-one block per (bg, 64 query rows), K and V in shared memory, one warp per
-row; the backward splits into a rows kernel (dq, dbias and the row's
-log-sum-exp) and a keys kernel that sums dk and dv over all rows inside one
-block, so it needs no atomics and no partial sums (see the source note).  The
-ragged last row tile (2500 = 39*64 + 4) is masked in the kernels.  All
-products run on the CUDA cores; tensor-core products are later work.
+(BG, N, J) chain never leaves the SM in either direction.  K and V stream
+through shared memory in tiles of 128 keys with an online softmax (running
+max, running sum, rescaled accumulator), so J has no limit.  The forward runs
+one block per (bg, 64 query rows), one warp per row; the backward splits into
+a rows kernel (two passes over the key tiles: each row's log-sum-exp and
+delta = sum_j p dp, then dq and dbias) and a keys kernel that recomputes ds
+from them and sums dk and dv over all rows inside one block, so it needs no
+atomics, no partial sums and no (BG, N, J) scratch (see the source note).
+Ragged row and key tiles are masked in the kernels.  All products run on the
+CUDA cores; tensor-core products are later work.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -46,7 +56,7 @@ from sml_tpu_torch.ops.kernels import _build
 from sml_tpu_torch.ops.kernels.philox import philox_keep_mask
 
 KERNEL_DH = 64
-_WARPS = 8                   # kThreads / 32 in csrc/deform_attn*.cu
+NEG_MAX = -3.4028234663852886e38     # -finfo(f32).max, the masked-column fill
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
 
@@ -57,45 +67,44 @@ def _library(name: str):
         lib = _build.load(name)
         if name == "deform_attn":
             lib.deform_attn_fwd.argtypes = (
-                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_fwd.restype = ctypes.c_int
         else:
             lib.deform_attn_bwd.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_bwd.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
 
-def smem_bytes(j: int, dtype: torch.dtype, backward: bool = False) -> int:
-    """Dynamic shared memory of one forward (or backward rows) block: padded K
-    and V rows + one (two for the backward) per-warp f32 rows of J."""
-    size = torch.finfo(dtype).bits // 8
-    row = KERNEL_DH + 16 // size
-    return 2 * j * row * size + (2 if backward else 1) * _WARPS * j * 4
-
-
-def _check(q, k, v, bias):
+def _check(q, k, v, bias, span):
     """Validate shapes / dtypes / devices; returns (bg, n, j, dh)."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or bias.dim() != 3:
-        raise ValueError("q (BG, N, dh), k / v (BG, J, dh), bias (BG, N, J) expected")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q (BG, N, dh), k / v (BG, J, dh) expected")
     bg, n, dh = q.shape
     j = k.shape[1]
     if tuple(k.shape) != (bg, j, dh) or tuple(v.shape) != (bg, j, dh):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    if tuple(bias.shape) != (bg, n, j):
-        raise ValueError(f"bias {tuple(bias.shape)} != {(bg, n, j)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k, v must share float32 or bfloat16")
-    if bias.dtype not in _DTYPE_CODE:
-        raise TypeError(f"bias dtype {bias.dtype} is not float32 or bfloat16")
-    for t in (k, v, bias):
+    tensors = [q, k, v]
+    if bias is not None:
+        if tuple(bias.shape) != (bg, n, j):
+            raise ValueError(f"bias {tuple(bias.shape)} != {(bg, n, j)}")
+        if bias.dtype not in _DTYPE_CODE:
+            raise TypeError(f"bias dtype {bias.dtype} is not float32 or bfloat16")
+        tensors.append(bias)
+    if span is not None:
+        if tuple(span.shape) != (bg, 4) or span.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"span must be (BG, 4) int32, not {tuple(span.shape)} "
+                             f"{span.dtype}")
+        tensors.append(span)
+    for t in tensors:
         if t.device != q.device:
             raise ValueError("all inputs must be on one device")
-    for t in (q, k, v, bias):
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
     return bg, n, j, dh
@@ -108,13 +117,18 @@ def _check_dropout(keep_prob: float, seed: int) -> None:
         raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
 
 
-def _check_kernel(name, q, j, backward=False):
+def _check_kernel(name, q, bias, span, tensors):
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.shape[-1] != KERNEL_DH:
         raise ValueError(f"{name} kernel takes dh={KERNEL_DH}, not {q.shape[-1]}")
-    if smem_bytes(j, q.dtype, backward) > _build.SMEM_LIMIT:
-        raise ValueError(f"J={j} does not fit the {name} kernel's shared memory")
+    if bias is not None and bias.dtype != q.dtype:
+        raise TypeError(f"the {name} kernel takes the bias in q's dtype")
+    if span is not None and span.dtype != torch.int32:
+        raise TypeError(f"the {name} kernel takes the span in int32")
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
 def _keep_mask(keep_prob, seed, bg, n, j, device):
@@ -123,9 +137,25 @@ def _keep_mask(keep_prob, seed, bg, n, j, device):
     return philox_keep_mask(seed, bg, n, j, keep_prob, device=device)
 
 
-def _probs(q, k, bias):
-    """(BG, N, J) softmax(q k^T + bias) in f32, max-shifted."""
-    sim = torch.einsum("bnd,bjd->bnj", q.float(), k.float()) + bias.float()
+def _span_valid(span, n, j):
+    """(row_valid (BG, N, 1), col_valid (BG, 1, J)) bools of ``span``."""
+    rows = torch.arange(n, device=span.device)[None, :]
+    cols = torch.arange(j, device=span.device)[None, :]
+    rv = (rows >= span[:, 0:1]) & (rows < span[:, 1:2])
+    cv = (cols >= span[:, 2:3]) & (cols < span[:, 3:4])
+    return rv[:, :, None], cv[:, None, :]
+
+
+def _probs(q, k, bias, span):
+    """(BG, N, J) softmax(mask(q k^T + bias)) in f32, max-shifted; with a span,
+    invalid columns take -f32max and invalid rows 0 before the shift."""
+    sim = torch.einsum("bnd,bjd->bnj", q.float(), k.float())
+    if bias is not None:
+        sim = sim + bias.float()
+    if span is not None:
+        rv, cv = _span_valid(span, q.shape[1], k.shape[1])
+        sim = torch.where(cv, sim, NEG_MAX)
+        sim = torch.where(rv, sim, 0.0)
     sim = sim - sim.amax(dim=-1, keepdim=True)
     p = torch.exp(sim)
     return p / p.sum(dim=-1, keepdim=True)
@@ -138,60 +168,64 @@ def _multiplier(keep, keep_prob):
     return keep.float() * (1.0 / keep_prob)
 
 
-def deform_attention_fwd_plain(q, k, v, bias, keep=None, keep_prob=1.0):
+def deform_attention_fwd_plain(q, k, v, bias=None, keep=None, keep_prob=1.0, span=None):
     """(BG, N, dh) in q's dtype; the chain in f32.  ``keep`` (BG, N, J) is an
     explicit {0, 1} mask of kept probabilities (None: no dropout)."""
-    p = _probs(q, k, bias)
+    p = _probs(q, k, bias, span)
     mult = _multiplier(keep, keep_prob)
     if mult is not None:
         p = p * mult
     return torch.einsum("bnj,bjd->bnd", p, v.float()).to(q.dtype)
 
 
-def deform_attention_fwd(q, k, v, bias, keep_prob=1.0, seed=0):
-    """out (BG, N, dh) = dropout(softmax(q k^T + bias)) @ v, in q's dtype.
+def _count(fn, bias, span, keep_prob) -> None:
+    fn.launches += 1
+    if bias is None:
+        fn.nobias_launches += 1
+    if span is not None:
+        fn.span_launches += 1
+    if keep_prob < 1.0:
+        fn.dropout_launches += 1
+
+
+def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
+    """out (BG, N, dh) = dropout(softmax(mask(q k^T + bias))) @ v, in q's dtype.
 
     q (BG, N, dh) already scaled; k, v (BG, J, dh) in q's dtype (float32 or
-    bfloat16); bias (BG, N, J) float32 or bfloat16, upcast to f32.  With
+    bfloat16); bias (BG, N, J) float32 or bfloat16 (upcast to f32) or None;
+    span (BG, 4) int32 per-bag validity intervals or None.  With
     ``keep_prob < 1`` each probability is kept with that probability (by
     Philox on ``seed``) and scaled by 1/keep_prob.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    version; CUDA tensors launch the kernel, which takes the bias in q's dtype.
     """
-    bg, n, j, dh = _check(q, k, v, bias)
+    bg, n, j, dh = _check(q, k, v, bias, span)
     _check_dropout(keep_prob, seed)
     if q.device.type == "cpu":
         return deform_attention_fwd_plain(
-            q, k, v, bias, _keep_mask(keep_prob, seed, bg, n, j, q.device), keep_prob)
-    _check_kernel("deform_attention_fwd", q, j)
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("q, k, v must be 16-byte aligned")
+            q, k, v, bias, _keep_mask(keep_prob, seed, bg, n, j, q.device), keep_prob,
+            span)
+    _check_kernel("deform_attention_fwd", q, bias, span, (q, k, v, bias, span))
     out = torch.empty_like(q)
     lib = _library("deform_attn")
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.deform_attn_fwd(_DTYPE_CODE[q.dtype], _DTYPE_CODE[bias.dtype],
-                                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), bg, n, j, dh,
-                                 keep_prob, 1.0 / keep_prob, seed, q.device.index,
-                                 stream)
+        rc = lib.deform_attn_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), ptr(bias), ptr(span), out.data_ptr(),
+                                 bg, n, j, dh, keep_prob, 1.0 / keep_prob, seed,
+                                 q.device.index, stream)
     _build.check(rc, "deform_attention_fwd")
-    deform_attention_fwd.launches += 1
-    if keep_prob < 1.0:
-        deform_attention_fwd.dropout_launches += 1
+    _count(deform_attention_fwd, bias, span, keep_prob)
     return out
 
 
-deform_attention_fwd.launches = 0
-deform_attention_fwd.dropout_launches = 0
-
-
-def deform_attention_bwd_plain(q, k, v, bias, dout, keep=None, keep_prob=1.0):
+def deform_attention_bwd_plain(q, k, v, bias, dout, keep=None, keep_prob=1.0, span=None):
     """(dq, dk, dv, dbias) of :func:`deform_attention_fwd_plain`, the chain in
     f32, rounded where ``_attn_bwd_kernel`` rounds: ds to q's dtype before dq
-    and dk, the kept probabilities to v's dtype before dv.  dq, dk, dv come in
-    their inputs' dtypes, dbias in the bias's."""
-    p = _probs(q, k, bias)
+    and dk, the kept probabilities to v's dtype before dv.  With a span, ds is
+    zeroed at every masked pair.  dq, dk, dv come in their inputs' dtypes,
+    dbias in the bias's (None without a bias)."""
+    p = _probs(q, k, bias, span)
     mult = _multiplier(keep, keep_prob)
     pd = p if mult is None else p * mult
     dof = dout.float()
@@ -200,18 +234,22 @@ def deform_attention_bwd_plain(q, k, v, bias, dout, keep=None, keep_prob=1.0):
     if mult is not None:
         dp = dp * mult
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if span is not None:
+        rv, cv = _span_valid(span, q.shape[1], k.shape[1])
+        ds = torch.where(rv & cv, ds, 0.0)
     ds_c = ds.to(q.dtype).float()
     dq = torch.einsum("bnj,bjd->bnd", ds_c, k.float())
     dk = torch.einsum("bnj,bnd->bjd", ds_c, q.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.to(bias.dtype)
+    dbias = None if bias is None else ds.to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0):
+def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
     """(dq, dk, dv, dbias) of :func:`deform_attention_fwd` at the same
-    ``keep_prob`` and ``seed``, recomputed from q, k, v and bias.  CPU tensors
-    take the plain version; CUDA tensors launch the two backward kernels (one
-    launch of the wrapper), which need the bias in q's dtype."""
-    bg, n, j, dh = _check(q, k, v, bias)
+    ``keep_prob``, ``seed`` and ``span``, recomputed from q, k, v and bias
+    (dbias is None without a bias).  CPU tensors take the plain version; CUDA
+    tensors launch the two backward kernels (one launch of the wrapper)."""
+    bg, n, j, dh = _check(q, k, v, bias, span)
     _check_dropout(keep_prob, seed)
     if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match q")
@@ -220,53 +258,51 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0):
     if q.device.type == "cpu":
         return deform_attention_bwd_plain(
             q, k, v, bias, dout, _keep_mask(keep_prob, seed, bg, n, j, q.device),
-            keep_prob)
-    _check_kernel("deform_attention_bwd", q, j, backward=True)
-    if bias.dtype != q.dtype:
-        raise TypeError("the backward kernel takes the bias in q's dtype")
-    for t in (q, k, v, dout):
-        if t.data_ptr() % 16:
-            raise ValueError("q, k, v, dout must be 16-byte aligned")
+            keep_prob, span)
+    _check_kernel("deform_attention_bwd", q, bias, span, (q, k, v, bias, span, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbias = torch.empty_like(bias)
-    lse = torch.empty((bg, n), dtype=torch.float32, device=q.device)
+    dbias = None if bias is None else torch.empty_like(bias)
+    stats = torch.empty((2, bg, n), dtype=torch.float32, device=q.device)  # lse, delta
     lib = _library("deform_attn_bwd")
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.deform_attn_bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                                 v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 dbias.data_ptr(), lse.data_ptr(), bg, n, j, dh,
+                                 v.data_ptr(), ptr(bias), ptr(span), dout.data_ptr(),
+                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(dbias),
+                                 stats[0].data_ptr(), stats[1].data_ptr(), bg, n, j, dh,
                                  keep_prob, 1.0 / keep_prob, seed, q.device.index,
                                  stream)
     _build.check(rc, "deform_attention_bwd")
-    deform_attention_bwd.launches += 1
+    _count(deform_attention_bwd, bias, span, keep_prob)
     return dq, dk, dv, dbias
 
 
-deform_attention_bwd.launches = 0
+for _fn in (deform_attention_fwd, deform_attention_bwd):
+    _fn.launches = _fn.nobias_launches = _fn.span_launches = _fn.dropout_launches = 0
 
 
 class DeformAttentionTrainable(torch.autograd.Function):
-    """Forward kernel + recompute backward kernel; saves q, k, v, bias and the
-    seed (never a mask or a (BG, N, J) activation)."""
+    """Forward kernel + recompute backward kernel; saves q, k, v, bias, the
+    span and the seed (never a mask or a (BG, N, J) activation)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, keep_prob, seed):
-        ctx.save_for_backward(q, k, v, bias)
+    def forward(ctx, q, k, v, bias, keep_prob, seed, span):
+        ctx.save_for_backward(q, k, v, bias, span)
         ctx.keep_prob, ctx.seed = keep_prob, seed
-        return deform_attention_fwd(q, k, v, bias, keep_prob, seed)
+        return deform_attention_fwd(q, k, v, bias, keep_prob, seed, span)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, span = ctx.saved_tensors
         dq, dk, dv, dbias = deform_attention_bwd(q, k, v, bias,
                                                  dout.to(q.dtype).contiguous(),
-                                                 ctx.keep_prob, ctx.seed)
-        return dq, dk, dv, dbias, None, None
+                                                 ctx.keep_prob, ctx.seed, span)
+        return dq, dk, dv, dbias, None, None, None
 
 
-def deform_attention_trainable(q, k, v, bias, keep_prob=1.0, seed=0):
+def deform_attention_trainable(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
     """Differentiable :func:`deform_attention_fwd` (the counterpart of the
-    custom VJP ``deform_attention_trainable``)."""
-    return DeformAttentionTrainable.apply(q, k, v, bias, keep_prob, seed)
+    custom VJP ``deform_attention_trainable``); ``span`` takes no gradient and
+    the bias-less form returns no bias gradient."""
+    return DeformAttentionTrainable.apply(q, k, v, bias, keep_prob, seed, span)

@@ -1,7 +1,8 @@
 """Training orchestration (counterpart of ``sml_tpu/train/loop.py``: ``setup``,
 ``_is_better`` and ``train`` in their single-device, per-step form).
 
-Per epoch: the seeded shuffled train batches, one train step each, then Test
+With ``bucket_sizes`` set, the loaders are ``BucketedLoader``s (one bucket per
+batch).  Per epoch: the seeded shuffled train batches, one train step each, then Test
 and Val evaluation, the ``epoch i/n val=... test=...`` line, and best-on-val
 weights written as ``<checkpoints>/best_modal.npz`` (the flattened flax
 parameter tree, which ``python -m sml_tpu_torch.inference --weights`` reads).
@@ -20,7 +21,7 @@ import torch
 
 from sml_tpu_torch.bridge import export_flax_params, flatten_params
 from sml_tpu_torch.config import Config
-from sml_tpu_torch.data.loader import Loader, build_datasets
+from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
 from sml_tpu_torch.models.factory import define_net, define_optimizer, resolve_device
 from sml_tpu_torch.ops.common import DropoutRNG
 from sml_tpu_torch.train.evaluate import batch_to_device, evaluate
@@ -35,11 +36,14 @@ def setup(config: Config, device: str | torch.device = "cuda"):
         # f32 products and convolutions in full f32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    train_loader = Loader(build_datasets(config, "Train"), config.batch_size, shuffle=True,
-                          drop_last=True, seed=config.seed)
-    test_loader = Loader(build_datasets(config, "Test"), config.batch_size)
+    # mixed bag-size buckets: every batch holds one bucket, masks keep the
+    # padding exact
+    loader_cls = BucketedLoader if config.bucket_list() else Loader
+    train_loader = loader_cls(build_datasets(config, "Train"), config.batch_size,
+                              shuffle=True, drop_last=True, seed=config.seed)
+    test_loader = loader_cls(build_datasets(config, "Test"), config.batch_size)
     val_loader = (None if config.novalset
-                  else Loader(build_datasets(config, "Val"), config.batch_size))
+                  else loader_cls(build_datasets(config, "Val"), config.batch_size))
     model = define_net(config, device, train=True)
     optimizer, scheduler = define_optimizer(config, model, max(len(train_loader), 1))
     state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(config.seed, device))

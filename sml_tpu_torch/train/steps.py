@@ -1,7 +1,7 @@
-"""Train and eval steps of mode=deformpathomic (counterpart of
-``sml_tpu/train/steps.py``: ``make_train_step``, ``modulate_classifier_grads``,
-``make_eval_step`` and the deformpathomic branch of ``compute_mode_loss``).
-Losses are taken in f32 on the model's outputs.
+"""Train and eval steps of mode=deformpathomic and mode=path (counterpart of
+``sml_tpu/train/steps.py``: ``make_train_step``, ``modulate_classifier_grads``
+(deformpathomic only), ``make_eval_step`` and those modes' branches of
+``compute_mode_loss``).  Losses are taken in f32 on the model's outputs.
 
 A train step is the forward in training mode (dropout from the state's
 ``DropoutRNG``), ``backward``, the gradient modulation of the fused
@@ -36,9 +36,21 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
                       labels: torch.Tensor, train: bool = True,
                       sample_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss of ``mode=deformpathomic``: the task loss plus, with
-    ``return_vgrid``, the mean of the two branches' batch-similarity losses.
-    (``batchloss_grad_scale`` only rescales the gradient, not this value.)"""
+    """Total loss.  ``mode=path``: the task loss, or for survival the
+    survival loss on ``sigmoid(logits)``.  ``mode=deformpathomic``: the task
+    loss plus, with ``return_vgrid``, the mean of the two branches'
+    batch-similarity losses.  (``batchloss_grad_scale`` only rescales the
+    gradient, not this value.)"""
+    if config.mode == "path":
+        logits = out["logits"].float()
+        if config.task_type == "survival":
+            hazards = torch.sigmoid(logits)
+            loss3 = _survival_loss(config, hazards, torch.cumprod(1.0 - hazards, dim=1),
+                                   labels, sample_mask)
+        else:
+            loss3 = losses.task_loss(logits, labels, config.task_type, train=train,
+                                     sample_mask=sample_mask)
+        return loss3, {"loss3": loss3}
     if config.mode != "deformpathomic":
         raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
     main = out["logits"].float()
@@ -74,7 +86,9 @@ def make_eval_step(config: Config, model: torch.nn.Module
         logits = out["logits"].float()
         result: Dict[str, torch.Tensor] = {}
         if config.task_type == "survival":
-            result["risk"] = -torch.cumprod(1.0 - logits, dim=1).sum(dim=1)
+            # deformpathomic sigmoids in the model: its logits are hazards
+            hazards = logits if config.mode == "deformpathomic" else torch.sigmoid(logits)
+            result["risk"] = -torch.cumprod(1.0 - hazards, dim=1).sum(dim=1)
         else:
             result["probs"] = torch.softmax(logits, dim=1)
         result["loss"], _ = compute_mode_loss(config, out, batch["labels"], train=False,
@@ -157,7 +171,8 @@ def make_grad_step(config: Config, model: torch.nn.Module
             # its weight decay and Adam update, as under optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if config.gradient_modulate and config.fusion_type == "concat":
+        if (config.mode == "deformpathomic" and config.gradient_modulate
+                and config.fusion_type == "concat"):
             with torch.no_grad():
                 modulate_classifier_grads(config, model, out, labels)
         return {"loss": total.detach(), **{k: v.detach() for k, v in aux.items()}}
