@@ -7,8 +7,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build    nvcc builds of every kernel source, with the compiler's register
-            and spill report;
-3. kernels  each CUDA kernel (CPB forward and backward, attention forward
+            and spill report (a spill fails the run);
+3. ragged   the attention backward in all eight forms at N = 100 and J = 20
+            / 72 / 37 (tails of a row tile, a key tile and a 16-key step; J
+            not a multiple of 8, J odd), f32 and bf16, against its plain
+            version, and two launches bit for bit;
+4. kernels  each CUDA kernel (CPB forward and backward, attention forward
             without and with Philox dropout at keep 0.9, attention backward
             without and with dropout) at the main path's shapes (BG = 8 bags x
             8 offset groups; 2500-patch bags: 50x50 queries, J = 144;
@@ -17,13 +21,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
-4. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
+5. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
             on synthetic data (B = 8, bf16, seeded weights) at 2500 and 4096
             patches per bag: both forward kernels must be launched once per
             branch and batch (no backward, no dropout), every output finite,
             and one batch's outputs must agree with the same model run through
             the plain versions; then the eval step's time per batch;
-5. train    the port's train entry point, ``sml_tpu_torch.main.main``, for one
+6. train    the port's train entry point, ``sml_tpu_torch.main.main``, for one
             epoch at 2500 patches (64 synthetic bags, B = 8, bf16: 8 train
             steps, then Val and Test): each of the four kernels launched
             exactly twice per train step (the eval launches counted apart),
@@ -37,23 +41,23 @@ TransMIL (``--mode path --path_arch transmil``: hidden 512, two TransLayers of
 Nystrom chains per layer run the attention kernels without a bias (with a span
 on masked bags):
 
-6. chains   the bias-less and the span forms, forward and backward, at chain 1
+7. chains   the bias-less and the span forms, forward and backward, at chain 1
             (n_pad rows x 256 landmark keys) and chain 3 (256 landmark rows x
             n_pad keys) of 2500- and 4096-patch bags (n_pad 2560 / 4352,
             BG = 64), f32 and bf16, against their plain versions and timed as
-            in phase 3; the spans come from bucketed masks, with an all-invalid
+            in phase 4; the spans come from bucketed masks, with an all-invalid
             bag, invalid landmark rows and a column start past the first key
-            tile.  (Phase 3 also holds the span form with a bias and dropout.)
-7. tm-slice ``inference.main`` at 2500 and 4096 patches: exactly 4 bias-less
+            tile.  (Phase 4 also holds the span form with a bias and dropout.)
+8. tm-slice ``inference.main`` at 2500 and 4096 patches: exactly 4 bias-less
             forward launches per batch and no backward, finite metrics, one
             batch through the kernels against the plain versions, the eval
             step's time, bags/s and peak memory;
-8. tm-train ``main.main`` for one epoch at 2500 patches: 4 bias-less forward
+9. tm-train ``main.main`` for one epoch at 2500 patches: 4 bias-less forward
             and 4 backward launches per train step, finite loss, one train
             step's loss and every gradient through the kernels against the
             plain versions, the train step's time, bags/s and peak memory;
-9. bucketed ``main.main`` with ``--variable_bags true --bucket_sizes
-            1024,2500`` for one epoch and its Val / Test: span launches in both
+10. bucketed ``main.main`` with ``--variable_bags true --bucket_sizes
+             1024,2500`` for one epoch and its Val / Test: span launches in both
             directions, every batch's loss and outputs finite.
 
 Then it prints the ``kernels`` JSON line, and as its last line
@@ -69,6 +73,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -165,6 +170,10 @@ def phase_build() -> None:
               for name in _build.SOURCES}
     _line("build", seconds=round(time.perf_counter() - t0, 2), per_source=seconds,
           ptxas=report)
+    spilled = sorted({name for name, lines in report.items() for ln in lines
+                      if any(int(n) for n in re.findall(r"(\d+) bytes spill stores", ln))})
+    if spilled:     # a kernel that spills registers is a design fault, not a slow kernel
+        raise AssertionError(f"register spills in {spilled}: see the [build] line")
 
 
 def _cpb_inputs(h: int, j: int, dtype: torch.dtype, g: torch.Generator):
@@ -191,6 +200,14 @@ def _compare_grads(got, want, rtol: float, l2: bool = False) -> dict:
         worst, worst_l2 = max(worst, err), max(worst_l2, rel)
     return {"max_abs_err": worst, "max_rel_l2_err": worst_l2, "rtol": rtol,
             "metric": "l2" if l2 else "of_scale", "ok": ok}
+
+
+def _repeats(fn, got) -> bool:
+    """Whether a second launch of ``fn`` returns ``got`` bit for bit (the
+    backward kernels sum in a fixed order, without atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
@@ -297,8 +314,8 @@ def phase_kernels() -> dict:
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
             # backward: q, k, v, bias, dout read once; dq, dk, dv, dbias written once
-            bound_ms, bound_by = _bound(2 * qkv_bytes + 2 * size * pairs,
-                                        pairs * 10 * DH, dtype)
+            bwd_bytes = size * (3 * BG * n * DH + 4 * BG * j * DH)
+            bound_ms, bound_by = _bound(bwd_bytes + 2 * size * pairs, pairs * 10 * DH, dtype)
             for keep_prob in (1.0, KEEP_PROB):
                 mask = None if keep_prob == 1.0 else keep
                 got = deform_attention_bwd(q, k, v, fbias, dout, keep_prob, SEED)
@@ -307,6 +324,8 @@ def phase_kernels() -> dict:
                     "name": "deform_attention_bwd", "keep_prob": keep_prob,
                     **_compare_grads(got, deform_attention_bwd_plain(
                         q, k, v, fbias, dout, mask, keep_prob), GRAD_RTOL[dtype]),
+                    "repeats": _repeats(lambda: deform_attention_bwd(
+                        q, k, v, fbias, dout, keep_prob, SEED), got),
                     "ms": _time_ms(lambda: deform_attention_bwd(q, k, v, fbias, dout,
                                                                 keep_prob, SEED)),
                     "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
@@ -330,13 +349,15 @@ def phase_kernels() -> dict:
             rows.append({"name": "deform_attention_bwd_span_bias_dropout",
                          **_compare_grads(got, deform_attention_bwd_plain(
                              q, k, v, fbias, dout, keep, KEEP_PROB, span), GRAD_RTOL[dtype]),
+                         "repeats": _repeats(lambda: deform_attention_bwd(
+                             q, k, v, fbias, dout, KEEP_PROB, SEED, span), got),
                          "ms": _time_ms(lambda: deform_attention_bwd(
                              q, k, v, fbias, dout, KEEP_PROB, SEED, span))})
             del got
             for e in rows:
                 e.update(fixdim=fixdim, dtype=str(dtype).split(".")[-1], bg=BG, n=n, j=j)
                 _line("kernels", **e)
-                if not e["ok"]:
+                if not e["ok"] or not e.get("repeats", True):
                     failures.append(f"{e['name']} fixdim={fixdim} {dtype}")
                 main = fixdim == MAIN_FIXDIM and dtype == torch.bfloat16
                 if main and e.get("keep_prob", KEEP_PROB) == KEEP_PROB:
@@ -359,6 +380,50 @@ def _interval_spans(n: int, j: int) -> torch.Tensor:
     span = torch.stack([r0, r1, c0, c1], dim=1)
     span[-1, :2] = n
     return span.to(torch.int32).cuda()
+
+
+# (N, J): 36 rows past a 64-row tile; a partial 64-key tile of 20 / 8 / 37 keys, 4 / 8
+# / 5 keys past a 16-key step; 20 not a multiple of 8 (the bias staged element-wise),
+# 37 odd (bias pairs read and dbias pairs written element-wise)
+RAGGED = ((100, 20), (100, 72), (100, 37))
+
+
+def phase_ragged() -> None:
+    """The attention backward in every form (bias or none x span or none x
+    dropout or none) at ragged shapes, f32 and bf16, against its plain version
+    at GRAD_RTOL, and two launches bit for bit."""
+    from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
+                                           philox_keep_mask)
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    failures = []
+    for n, j in RAGGED:
+        span = _interval_spans(n, j)
+        keep = philox_keep_mask(SEED, BG, n, j, KEEP_PROB, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5).to(dtype)
+            k, v = (torch.randn(2, BG, j, DH, device="cuda", generator=g) * 2).to(dtype)
+            bias = torch.randn(BG, n, j, device="cuda", generator=g).to(dtype)
+            dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
+            for form in ("bias", "nobias", "span", "span_bias"):
+                b = bias if form in ("bias", "span_bias") else None
+                s = span if form.startswith("span") else None
+                for keep_prob in (1.0, KEEP_PROB):
+                    mask = keep if keep_prob < 1.0 else None
+                    run = lambda: deform_attention_bwd(q, k, v, b, dout, keep_prob, SEED, s)
+                    got = run()
+                    torch.cuda.synchronize()
+                    want = deform_attention_bwd_plain(q, k, v, b, dout, mask, keep_prob, s)
+                    n_out = 4 if b is not None else 3
+                    e = {"form": form, "keep_prob": keep_prob, "n": n, "j": j, "bg": BG,
+                         "dtype": str(dtype).split(".")[-1],
+                         **_compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype]),
+                         "repeats": _repeats(run, got)}
+                    _line("ragged", **e)
+                    if not (e["ok"] and e["repeats"]) or (b is None) != (got[3] is None):
+                        failures.append(f"{form} keep={keep_prob} N={n} J={j} {dtype}")
+    if failures:
+        raise AssertionError(f"attention backward at ragged shapes: {failures}")
 
 
 def _span_work(span: torch.Tensor, n: int, j: int):
@@ -440,10 +505,13 @@ def phase_chains() -> dict:
                     got = deform_attention_bwd(q, k, v, None, dout, span=span)
                     torch.cuda.synchronize()
                     want = deform_attention_bwd_plain(q, k, v, None, dout, span=span)
-                    bound_ms, bound_by = _bound(2 * io_bytes,
+                    # q, k, v, dout read once; dq, dk, dv written once
+                    bound_ms, bound_by = _bound(size * (3 * BG * n * DH + 4 * BG * j * DH),
                                                 10 * DH * pairs + 2 * DH * j * uniform, dtype)
                     rows.append({"name": f"deform_attention_bwd_{form}",
                                  **_compare_grads(got[:3], want[:3], GRAD_RTOL[dtype]),
+                                 "repeats": _repeats(lambda: deform_attention_bwd(
+                                     q, k, v, None, dout, span=span), got),
                                  "ms": _time_ms(lambda: deform_attention_bwd(
                                      q, k, v, None, dout, span=span)),
                                  "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
@@ -457,7 +525,7 @@ def phase_chains() -> dict:
                     e.update(chain=chain, fixdim=fixdim, dtype=str(dtype).split(".")[-1],
                              bg=BG, n=n, j=j)
                     _line("chains", **e)
-                    if not e["ok"]:
+                    if not e["ok"] or not e.get("repeats", True):
                         failures.append(f"{e['name']} {chain} fixdim={fixdim} {dtype}")
                     if fixdim == MAIN_FIXDIM and dtype == torch.bfloat16:
                         entries[(e["name"], chain)] = e
@@ -843,6 +911,12 @@ CHAIN_KERNELS = (
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+def _design(name: str) -> dict:
+    """The bf16 attention backward (every entry here is bf16) runs on the tensor
+    cores (``csrc/mma.cuh``); its f32 twins run on the CUDA cores."""
+    return {"design": "mma.sync"} if name.startswith("deform_attention_bwd") else {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -851,6 +925,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = phase_device()
     phase_build()
+    phase_ragged()
     entries = phase_kernels()
     serving = {fixdim: phase_slice(fixdim, card) for fixdim in SHAPES}
     launches = phase_train(card)
@@ -866,6 +941,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[count],
                         **{k: e[k] for k in _TIMES},
+                        **_design(name),
                         "launches_serving_s2500": serving[MAIN_FIXDIM].get(name, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16"})
     for name, source, replaces, count, run in CHAIN_KERNELS:
@@ -873,6 +949,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[run][count],
                         "launches_run": run, **{k: e[k] for k in _TIMES},
+                        **_design(name),
                         "launches_tm_serving_s2500": tm_serving[MAIN_FIXDIM].get(count, 0),
                         "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
                         "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",

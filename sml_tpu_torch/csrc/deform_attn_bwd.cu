@@ -23,24 +23,54 @@
 // kernels and the sum over rows stays inside one block, with no atomics and
 // no partials (the result repeats bit for bit):
 //
-// rows kernel, one block per (bg, 64 query rows), q and dout rows in shared
-//   memory, K and V streamed in key tiles as in the forward, one warp per
-//   row.  Pass 1 walks the tiles with an online max and sum and writes each
-//   row's lse = max + log(sum) and delta = sum_j p dp, (BG, N) f32 each.
-//   Pass 2 walks them again: p = exp(s - lse), ds, dbias, and dq accumulated
-//   in shared memory.
-// keys kernel, one block per (bg, 16 keys), looping over all N rows in chunks
-//   of 64: it recomputes p = exp(s - lse), dp and m for its 16 x 64 pairs,
-//   then ds = p (dp m - delta), and sums dk and dv for its keys in registers.
-//   Its q . k and dout . v sums run in the rows kernel's order, so p and ds
-//   are the rows kernel's to the last bit.
+// rows kernel, one block per (bg, 64 query rows): pass 1 walks K and V in key
+//   tiles with an online max and sum and writes each row's lse = max +
+//   log(sum) and delta = sum_j p dp, (BG, N) f32 each; pass 2 walks them
+//   again for p = exp(s - lse), ds, dbias and dq.
+// keys kernel, one block per (bg, 64 keys in bf16, 16 in f32), looping over
+//   all N rows in tiles of 64: it recomputes p from lse, dp and m, then ds =
+//   p (dp m - delta), and sums dk and dv for its keys.
 //
-// What bounds it: about 10 * DH FLOP per pair against q, k, v, dout, dq, dk,
-// dv read or written once (and 4 bytes of bias and dbias per pair in bf16 in
-// the bias form): operations on the tensor cores at the Nystrom chains.  The
-// products here run on the CUDA cores in f32 (the rows kernel does 5 * DH
-// fused multiply-adds per pair, the keys kernel 4 * DH), and the keys kernel
-// re-reads q and dout once per 16 keys (mostly from L2).
+// What bounds it: about 10 * DH FLOP per pair (five products of 2 * DH each:
+// q k^T, dout v^T, (p m)^T dout, ds k, ds^T q) against q, k, v, dout, dq,
+// dk, dv read or written once, and 4 bytes of bias and dbias per pair in bf16 in
+// the bias form: operations on the tensor cores at the Nystrom chains, bytes
+// at the deformable attention's J = 144.  The recompute issues about 18 * DH
+// per pair: q k^T and dout v^T three times (pass 1, pass 2, keys kernel).
+//
+// bf16, the tensor-core kernels (*_tc): every product is a warp-level
+// mma.sync m16n8k16, bf16 operands and f32 sums (mma.cuh), four warps per
+// block, each warp owning 16 query rows (rows kernel) or 16 keys (keys
+// kernel).  The streamed operand (K and V, or q and dout) comes through a
+// two-stage cp.async ring of swizzled 64 x 64 tiles read with ldmatrix; the
+// block's own operand sits in A fragments in registers for the whole kernel.
+// The masks, the bias, the Philox multipliers and the softmax run on the
+// accumulator fragments in registers.  A 4-key Philox group spans 2 lanes of
+// a fragment in the rows kernel, which draws it once per lane and row (half
+// of the words go unused: sharing them by shuffle measured slower), and 4
+// lanes in the keys kernel's transposed layout, where each lane draws the
+// group for one of the rows the four share and passes the keep bits round by
+// shuffles (one call per group and row).  ds (rounded to bf16) becomes the A
+// operand of the next product without leaving the registers (the
+// accumulator-to-A identity of mma.cuh): rows kernel dq += ds k with k from
+// the key tile by ldmatrix.trans; keys kernel, in the transposed layout (keys
+// x rows), dv += (p m)^T dout and dk += ds^T q, with dout and q by
+// ldmatrix.trans.
+// The keys kernel stages its 64 x 64 bias tile through shared memory with
+// coalesced copies: its fragments read the bias down columns.  The keys
+// kernel's q k^T and dout v^T sums run in another order than the rows
+// kernel's, so p and ds of the two kernels may differ in the last bits; the
+// bf16 gradient tolerance covers it.
+// f32, the CUDA-core twins: one warp per row in the rows kernel (dq summed in
+// shared memory), one block per 16 keys in the keys kernel, products as f32
+// fused multiply-adds, and the keys kernel's q . k and dout . v sums in the
+// rows kernel's order, so p and ds are the rows kernel's to the last bit; they
+// are the exact-arithmetic reference of the port on the card.
+//
+// Left for later: wgmma and TMA (a warpgroup product of 64-row tiles would
+// reach past mma.sync's rate), keeping K and V whole in shared memory when
+// J <= 256 (one pass over them for both passes), and taking lse from the
+// forward so that pass 1 drops out.
 //
 // C entry: deform_attn_bwd(dtype, q, k, v, bias, span, dout, dq, dk, dv, dbias,
 //                          lse, delta, BG, N, J, DH, keep_prob, inv_keep, seed,
@@ -53,7 +83,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "attn_common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -351,6 +384,437 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16: the tensor-core kernels ------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 128;             // 4 warps, 16 rows (rows kernel) or keys each
+constexpr int kBlock = 64;                // rows (keys) per block, keys (rows) per tile
+constexpr int kTile = kBlock * 64;        // elements of one swizzled 64 x DH tile
+constexpr int kBiasLd = kBlock + 8;       // keys kernel: padded row of the bias tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float exp_f(float x) { return exp2f(x * kLog2e); }
+
+// elements (r, j) and (r, j + 1), j even, of a row-major (rows, J) bf16
+// matrix at p = &m[r][j]; j + 1 may be J when J is odd
+__device__ __forceinline__ float2 load_pair(const bf16* p, int j, int J) {
+  if (!(J & 1)) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return make_float2(__bfloat162float(p[0]), j + 1 < J ? __bfloat162float(p[1]) : 0.f);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y, int j, int J) {
+  if (!(J & 1)) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+    return;
+  }
+  p[0] = __float2bfloat16(x);
+  if (j + 1 < J) p[1] = __float2bfloat16(y);
+}
+
+// Stage rows [r0, r0 + kBlock) of two (n, 64) bf16 matrices (a, b) in the
+// swizzled tiles sa, sb by cp.async, rows >= n zero-filled.
+__device__ __forceinline__ void stage_pair(const bf16* a, const bf16* b, bf16* sa, bf16* sb,
+                                           int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * 64 + c * 8;
+    mma::cp_async16(mma::smem_u32(sa + mma::swz64(r, c)), a + off, ok);
+    mma::cp_async16(mma::smem_u32(sb + mma::swz64(r, c)), b + off, ok);
+  }
+}
+
+// acc_a (16 x 32) = A_a X^T and acc_b = A_b Y^T over the 32 rows c0.. of the
+// swizzled 64 x 64 tiles x, y (rows: the n of the products); A_a, A_b: 16 x 64
+// operands as 4 k-steps of A fragments.
+__device__ __forceinline__ void products_nt(const uint32_t (&a_a)[4][4],
+                                            const uint32_t (&a_b)[4][4], const bf16* x,
+                                            const bf16* y, int c0, int lane,
+                                            float (&acc_a)[4][4], float (&acc_b)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_b[i][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      const int at = mma::swz64(c0 + 16 * np + (lane & 7) + ((lane >> 4) << 3),
+                                2 * ks + ((lane >> 3) & 1));
+      uint32_t b[4];
+      mma::ldmatrix_x4(b, mma::smem_u32(x + at));
+      mma::mma_bf16(acc_a[2 * np], a_a[ks], b[0], b[1]);
+      mma::mma_bf16(acc_a[2 * np + 1], a_a[ks], b[2], b[3]);
+      mma::ldmatrix_x4(b, mma::smem_u32(y + at));
+      mma::mma_bf16(acc_b[2 * np], a_b[ks], b[0], b[1]);
+      mma::mma_bf16(acc_b[2 * np + 1], a_b[ks], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 64) += A X over the 16 rows c0.. of the swizzled tile x (the k of
+// the product), B by ldmatrix.trans.
+__device__ __forceinline__ void product_nn(float (&acc)[8][4], const uint32_t (&a)[4],
+                                           const bf16* x, int c0, int lane) {
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t b[4];
+    mma::ldmatrix_x4_trans(b, mma::smem_u32(x + mma::swz64(c0 + (lane & 7) +
+                                                              (((lane >> 3) & 1) << 3),
+                                                          2 * np + (lane >> 4))));
+    mma::mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// Rows kernel: block (row tile, bg), warp w owns rows row0 + 16 w .. + 15,
+// lane (g, t) the rows g and g + 8 of them and, in each n8 tile of keys, the
+// columns 2t and 2t + 1.  K and V stream in 64-key tiles through a two-stage
+// cp.async ring, walked twice (pass 1: statistics; pass 2: ds, dbias, dq).
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const int* __restrict__ span, const bf16* __restrict__ dout,
+                 bf16* __restrict__ dq, bf16* __restrict__ dbias, float* __restrict__ lse,
+                 float* __restrict__ delta, int N, int J, float keep_prob, float inv_keep,
+                 unsigned long long seed) {
+  __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
+  const int bg = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow0 = blockIdx.x * kBlock + warp * 16;
+  const int row[2] = {wrow0 + mma::frag_row(lane, 0), wrow0 + mma::frag_row(lane, 2)};
+  const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
+  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
+  const bool uniform[2] = {HAS_SPAN && mask.uniform(row[0]),
+                           HAS_SPAN && mask.uniform(row[1])};
+  const bf16* kg = k + (size_t)bg * J * 64;
+  const bf16* vg = v + (size_t)bg * J * 64;
+  const int nt = (J + kBlock - 1) / kBlock;
+  auto stage = [&](int it) {
+    stage_pair(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], (it < nt ? it : it - nt) * kBlock,
+               J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  uint32_t qa[4][4], oa[4][4];  // this warp's 16 rows of q and dout as A fragments
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    mma::load_a_global(qa[ks], q + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
+    mma::load_a_global(oa[ks], dout + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
+  }
+  // pass 1 keeps lane-local statistics of its own columns, combined over the
+  // lane quad once at the end
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, d_run[2] = {0.f, 0.f};
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  float dq_acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  for (int it = 0; it < 2 * nt; ++it) {
+    if (it + 1 < 2 * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool pass2 = it >= nt;
+    const int j0 = (pass2 ? it - nt : it) * kBlock;
+    if (it == nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = fmaxf(m_run[h], __shfl_xor_sync(kFull, m_run[h], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float sc = exp_f(m_run[h] - mx);
+        float l = l_run[h] * sc, d = d_run[h] * sc;
+        l += __shfl_xor_sync(kFull, l, 1);
+        d += __shfl_xor_sync(kFull, d, 1);
+        l += __shfl_xor_sync(kFull, l, 2);
+        d += __shfl_xor_sync(kFull, d, 2);
+        lse_r[h] = mx + logf(l);
+        delta_r[h] = d / l;
+        if (col == 0 && row[h] < N) {
+          lse[(size_t)bg * N + row[h]] = lse_r[h];
+          delta[(size_t)bg * N + row[h]] = delta_r[h];
+        }
+      }
+    }
+    const bf16* sk = s_kv[it & 1][0];
+    const bf16* sv = s_kv[it & 1][1];
+#pragma unroll
+    for (int c0 = 0; c0 < kBlock; c0 += 32) {
+      float s[4][4], dp[4][4];
+      products_nt(qa, oa, sk, sv, c0, lane, s, dp);
+      // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + c0 + 8 * i + col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 b = make_float2(0.f, 0.f);
+          if (HAS_BIAS && j < J && row[h] < N)
+            b = load_pair(bias + ((size_t)bg * N + row[h]) * J + j, j, J);
+          uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+          if (DROP) bits = philox::bits4(seed, j >> 2, row[h], bg);
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            float& x = s[i][2 * h + w];
+            x = j + w < J ? mask_score<HAS_SPAN>(x + (w ? b.y : b.x), mask, uniform[h], j + w)
+                          : kNegMax;
+            if (DROP)
+              dp[i][2 * h + w] *=
+                  philox::keep(philox::word(bits, (j & 3) + w), keep_prob) ? inv_keep : 0.f;
+          }
+        }
+      }
+      if (!pass2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = m_run[h];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * h], s[i][2 * h + 1]));
+          const float sc = exp_f(m_run[h] - mx);
+          float l = 0.f, d = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int w = 0; w < 2; ++w) {
+              const float e = exp_f(s[i][2 * h + w] - mx);
+              l += e;
+              d = fmaf(e, dp[i][2 * h + w], d);
+            }
+          l_run[h] = fmaf(l_run[h], sc, l);
+          d_run[h] = fmaf(d_run[h], sc, d);
+          m_run[h] = mx;
+        }
+        continue;
+      }
+      // pass 2: ds (in s), dbias, then dq += ds k
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + c0 + 8 * i + col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            float& x = s[i][2 * h + w];
+            x = j + w < J && pair_valid<HAS_SPAN>(mask, uniform[h], j + w)
+                    ? exp_f(x - lse_r[h]) * (dp[i][2 * h + w] - delta_r[h])
+                    : 0.f;
+          }
+          if (HAS_BIAS && j < J && row[h] < N)
+            store_pair(dbias + ((size_t)bg * N + row[h]) * J + j, s[i][2 * h],
+                       s[i][2 * h + 1], j, J);
+        }
+      }
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        uint32_t a[4];
+        mma::accum_to_a(a, s[2 * kb], s[2 * kb + 1]);
+        product_nn(dq_acc, a, sk, c0 + 16 * kb, lane);
+      }
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < N)
+        *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)bg * N + row[h]) * 64 + 8 * n + col) =
+            __floats2bfloat162_rn(dq_acc[n][2 * h], dq_acc[n][2 * h + 1]);
+}
+
+template <bool HAS_BIAS>
+constexpr size_t keys_smem_bytes() {
+  return 2 * 2 * kTile * sizeof(bf16)                             // q, dout stages
+         + 2 * 2 * kBlock * sizeof(float)                         // lse, delta stages
+         + (HAS_BIAS ? 2 * kBlock * kBiasLd * sizeof(bf16) : 0);  // bias stages
+}
+
+// Keys kernel: block (key tile, bg), warp w owns keys key0 + 16 w .. + 15 as
+// the rows of its products (s^T = k q^T, dp^T = v dout^T), lane (g, t) the
+// keys g and g + 8 and, in each n8 tile of query rows, the rows 2t and 2t + 1.
+// q, dout, lse, delta (and the bias tile) stream in 64-row tiles through a
+// two-stage ring, each tile in four 16-row steps: dv += (p m)^T dout and
+// dk += ds^T q, summed over all rows in this block in row order.
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const int* __restrict__ span, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int J, float keep_prob,
+                 float inv_keep, unsigned long long seed) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);              // [2][kTile]
+  bf16* s_do = s_q + 2 * kTile;                               // [2][kTile]
+  float* s_lse = reinterpret_cast<float*>(s_do + 2 * kTile);  // [2][kBlock]
+  float* s_dl = s_lse + 2 * kBlock;                           // [2][kBlock]
+  bf16* s_b = reinterpret_cast<bf16*>(s_dl + 2 * kBlock);     // [2][kBlock][kBiasLd]
+
+  const int bg = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key_blk = blockIdx.x * kBlock;
+  const int bcol[2] = {warp * 16 + mma::frag_row(lane, 0), warp * 16 + mma::frag_row(lane, 2)};
+  const int key[2] = {key_blk + bcol[0], key_blk + bcol[1]};  // bcol: in the bias tile
+  const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
+  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
+  const bf16* qg = q + (size_t)bg * N * 64;
+  const bf16* dog = dout + (size_t)bg * N * 64;
+  const int nr = (N + kBlock - 1) / kBlock;
+  const bool bias_vec = (J & 7) == 0;  // 16-byte rows segments of the bias
+  auto stage = [&](int it) {
+    const int r0 = it * kBlock, buf = it & 1;
+    stage_pair(qg, dog, s_q + buf * kTile, s_do + buf * kTile, r0, N);
+    if (HAS_BIAS) {
+      bf16* sb = s_b + buf * kBlock * kBiasLd;
+      if (bias_vec) {
+        for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+          const int r = i >> 3, c = 8 * (i & 7);
+          const bool ok = r0 + r < N && key_blk + c < J;
+          const bf16* src =
+              bias + ((size_t)bg * N + (ok ? r0 + r : 0)) * J + (ok ? key_blk + c : 0);
+          mma::cp_async16(mma::smem_u32(sb + r * kBiasLd + c), src, ok);
+        }
+      } else {
+        for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
+          const int r = i / kBlock, c = i - r * kBlock;
+          const bool ok = r0 + r < N && key_blk + c < J;
+          sb[r * kBiasLd + c] =
+              ok ? bias[((size_t)bg * N + r0 + r) * J + key_blk + c] : __float2bfloat16(0.f);
+        }
+      }
+    }
+    mma::cp_async_commit();
+    static_assert(kThreads == 2 * kBlock, "one thread per lse and per delta of a tile");
+    const int tr = threadIdx.x & (kBlock - 1);
+    const float* src = threadIdx.x < kBlock ? lse : delta;
+    float* dst = (threadIdx.x < kBlock ? s_lse : s_dl) + buf * kBlock;
+    dst[tr] = r0 + tr < N ? src[(size_t)bg * N + r0 + tr] : 0.f;
+  };
+  stage(0);
+
+  uint32_t ka[4][4], va[4][4];  // this warp's 16 keys of k and v as A fragments
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    mma::load_a_global(ka[ks], k + (size_t)bg * J * 64, 64, key_blk + 16 * warp, J, 16 * ks,
+                       lane);
+    mma::load_a_global(va[ks], v + (size_t)bg * J * 64, 64, key_blk + 16 * warp, J, 16 * ks,
+                       lane);
+  }
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < nr; ++it) {
+    if (it + 1 < nr) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int r0 = it * kBlock, buf = it & 1;
+    const bf16* sq = s_q + buf * kTile;
+    const bf16* sdo = s_do + buf * kTile;
+    const float* slse = s_lse + buf * kBlock;
+    const float* sdl = s_dl + buf * kBlock;
+    const bf16* sb = s_b + buf * kBlock * kBiasLd;
+#pragma unroll 1  // unrolled, the bias-less form spills
+    for (int rs = 0; rs < kBlock; rs += 16) {
+      // s^T and dp^T of this warp's 16 keys x rows rs .. rs + 15 of the tile
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int at = mma::swz64(rs + (lane & 7) + ((lane >> 4) << 3),
+                                  2 * ks + ((lane >> 3) & 1));
+        uint32_t b[4];
+        mma::ldmatrix_x4(b, mma::smem_u32(sq + at));
+        mma::mma_bf16(st[0], ka[ks], b[0], b[1]);
+        mma::mma_bf16(st[1], ka[ks], b[2], b[3]);
+        mma::ldmatrix_x4(b, mma::smem_u32(sdo + at));
+        mma::mma_bf16(dpt[0], va[ks], b[0], b[1]);
+        mma::mma_bf16(dpt[1], va[ks], b[2], b[3]);
+      }
+      // st[i][2h + w]: key key[h], row r0 + rs + 8 i + col + w; -> p m and ds.
+      // The lanes lane ^ (s << 2), s < 4, hold the same rows and the same
+      // 4-key Philox groups, one word c = (lane >> 2) & 3 of each: each lane
+      // draws its two groups for one row, e = c (e = 2 i + w), and the four
+      // pass the keep bits round; bit 4 h + e of kept is key[h], row e.
+      uint32_t kept = 0u;
+      if (DROP) {
+        const int c = (lane >> 2) & 3;
+        const int r = r0 + rs + 8 * (c >> 1) + col + (c & 1);
+        const uint32_t own =
+            philox::keep4(philox::bits4(seed, key[0] >> 2, r, bg), keep_prob) |
+            philox::keep4(philox::bits4(seed, key[1] >> 2, r, bg), keep_prob) << 4;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t from = s ? __shfl_xor_sync(kFull, own, s << 2) : own;
+          kept |= ((from >> c) & 0x11u) << (c ^ s);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int rl = rs + 8 * i + col + w;
+          const int r = r0 + rl;
+          const bool uni = HAS_SPAN && mask.uniform(r);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = key[h];
+            float pd = 0.f, ds = 0.f;
+            if (r < N && j < J) {
+              float x = st[i][2 * h + w];
+              if (HAS_BIAS) x += __bfloat162float(sb[rl * kBiasLd + bcol[h]]);
+              const float p = exp_f(mask_score<HAS_SPAN>(x, mask, uni, j) - slse[rl]);
+              const float m =
+                  !DROP ? 1.f : ((kept >> (4 * h + 2 * i + w)) & 1u ? inv_keep : 0.f);
+              pd = p * m;
+              if (pair_valid<HAS_SPAN>(mask, uni, j))
+                ds = p * (dpt[i][2 * h + w] * m - sdl[rl]);
+            }
+            st[i][2 * h + w] = pd;
+            dpt[i][2 * h + w] = ds;
+          }
+        }
+      uint32_t pa[4], da[4];
+      mma::accum_to_a(pa, st[0], st[1]);
+      mma::accum_to_a(da, dpt[0], dpt[1]);
+      product_nn(dv_acc, pa, sdo, rs, lane);
+      product_nn(dk_acc, da, sq, rs, lane);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (key[h] < J) {
+        const size_t at = ((size_t)bg * J + key[h]) * 64 + 8 * n + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
+}
+
+}  // namespace tc
+
 struct Args {
   const void *q, *k, *v, *bias;
   const int* span;
@@ -363,32 +827,67 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
-cudaError_t launch(const Args& a) {
-  constexpr int DH = 64;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* bias = static_cast<const T*>(a.bias);
-  const T* dout = static_cast<const T*>(a.dout);
-  constexpr size_t rows_smem = rows_smem_bytes<T, DH>();
-  auto rows = attn_bwd_rows_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(rows_smem));
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch_tc(const Args& a) {
+  using tc::bf16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* bias = static_cast<const bf16*>(a.bias);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  auto rows = tc::attn_bwd_rows_tc<HAS_BIAS, HAS_SPAN, DROP>;
+  cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  rows<<<dim3((a.N + kRows - 1) / kRows, a.BG), kThreads, rows_smem, a.stream>>>(
-      q, k, v, bias, a.span, dout, static_cast<T*>(a.dq), static_cast<T*>(a.dbias), a.lse,
-      a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
+  rows<<<dim3((a.N + tc::kBlock - 1) / tc::kBlock, a.BG), tc::kThreads, 0, a.stream>>>(
+      q, k, v, bias, a.span, dout, static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dbias),
+      a.lse, a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto keys = attn_bwd_keys_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-  err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(sizeof(KeysSmem)));
+  auto keys = tc::attn_bwd_keys_tc<HAS_BIAS, HAS_SPAN, DROP>;
+  constexpr int keys_smem = static_cast<int>(tc::keys_smem_bytes<HAS_BIAS>());
+  err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize, keys_smem);
   if (err != cudaSuccess) return err;
-  keys<<<dim3((a.J + kKeys - 1) / kKeys, a.BG), kThreads, sizeof(KeysSmem), a.stream>>>(
-      q, k, v, bias, a.span, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
+  err = cudaFuncSetAttribute(keys, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  keys<<<dim3((a.J + tc::kBlock - 1) / tc::kBlock, a.BG), tc::kThreads, keys_smem,
+         a.stream>>>(q, k, v, bias, a.span, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
+                     static_cast<bf16*>(a.dv), a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
   return cudaGetLastError();
+}
+
+// bf16 to the tensor-core kernels, f32 to the CUDA-core twins
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch(const Args& a) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
+  } else {
+    constexpr int DH = 64;
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* bias = static_cast<const T*>(a.bias);
+    const T* dout = static_cast<const T*>(a.dout);
+    constexpr size_t rows_smem = rows_smem_bytes<T, DH>();
+    auto rows = attn_bwd_rows_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(rows_smem));
+    if (err != cudaSuccess) return err;
+    rows<<<dim3((a.N + kRows - 1) / kRows, a.BG), kThreads, rows_smem, a.stream>>>(
+        q, k, v, bias, a.span, dout, static_cast<T*>(a.dq), static_cast<T*>(a.dbias), a.lse,
+        a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    auto keys = attn_bwd_keys_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
+    err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(KeysSmem)));
+    if (err != cudaSuccess) return err;
+    keys<<<dim3((a.J + kKeys - 1) / kKeys, a.BG), kThreads, sizeof(KeysSmem), a.stream>>>(
+        q, k, v, bias, a.span, dout, a.lse, a.delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -1,0 +1,116 @@
+// Warp-level tensor-core building blocks for sm_80 and later (sm_90a here):
+// the bf16 m16n8k16 product with f32 accumulators, ldmatrix loads of its
+// operands from shared memory, 16-byte cp.async copies from device memory,
+// and the lane maps of the fragments.  Plain inline PTX, no CUTLASS / CuTe.
+//
+// Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
+// l of a warp, g = l / 4 and t = l % 4 (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"); each 32-bit register holds two bf16, the lower column in
+// the low half:
+//   A (16 x 16, row-major)  a[0] = (g, 2t..2t+1)    a[1] = (g + 8, 2t..2t+1)
+//                           a[2] = (g, 2t+8..2t+9)  a[3] = (g + 8, 2t+8..2t+9)
+//   B (16 x 8, k x n)       b[0] = (k 2t..2t+1, n g)   b[1] = (k 2t+8..2t+9, n g)
+//   C, D (16 x 8, f32)      c[e] = (frag_row(l, e), frag_col(l, e)):
+//                           c[0], c[1] = (g, 2t), (g, 2t+1); c[2], c[3] = row g + 8
+// So the accumulators of two neighbouring n8 tiles (columns 0-7 and 8-15),
+// rounded to bf16 and packed in pairs, are an A fragment whose k runs over
+// those 16 columns (accum_to_a).
+//
+// ldmatrix.x4 loads four 8 x 8 b16 matrices; lanes 8i..8i+7 give the shared
+// address of row 0..7 of matrix i (16 bytes each) and register i receives
+// matrix i: (row g, columns 2t, 2t+1), or with .trans (rows 2t, 2t+1, column g).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// d += a b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes from device to shared memory, asynchronously; with !valid the 16
+// shared bytes are zero-filled and nothing is read (src must still be a
+// device address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the (row, column) of accumulator element e (0..3) of lane l in an m16n8 tile
+__device__ __forceinline__ int frag_row(int lane, int e) {
+  return (lane >> 2) + ((e >> 1) << 3);
+}
+__device__ __forceinline__ int frag_col(int lane, int e) { return ((lane & 3) << 1) + (e & 1); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A fragment (16 x 16, k over 16 columns) of the accumulators c0
+// (columns 0-7) and c1 (columns 8-15), rounded to bf16.
+__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                           const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A (16 x 16) fragment of rows r0.. of a row-major bf16 matrix in device
+// memory (ld elements per row), columns k0..k0+15; rows >= rows_valid give 0.
+__device__ __forceinline__ void load_a_global(uint32_t (&a)[4], const __nv_bfloat16* m,
+                                              int ld, int r0, int rows_valid, int k0,
+                                              int lane) {
+  const int r = r0 + (lane >> 2), c = k0 + ((lane & 3) << 1);
+  const uint32_t* lo = reinterpret_cast<const uint32_t*>(m + (size_t)r * ld + c);
+  const uint32_t* hi = reinterpret_cast<const uint32_t*>(m + (size_t)(r + 8) * ld + c);
+  const bool ok_lo = r < rows_valid, ok_hi = r + 8 < rows_valid;
+  a[0] = ok_lo ? lo[0] : 0u;
+  a[1] = ok_hi ? hi[0] : 0u;
+  a[2] = ok_lo ? lo[4] : 0u;
+  a[3] = ok_hi ? hi[4] : 0u;
+}
+
+// Shared-memory tiles of rows of 64 bf16 (8 chunks of 16 bytes), chunk c of
+// row r stored at chunk c ^ (r % 8): the 8 rows an ldmatrix phase reads at
+// one chunk fall on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int swz64(int r, int chunk) {
+  return r * 64 + ((chunk ^ (r & 7)) << 3);
+}
+
+}  // namespace mma

@@ -49,4 +49,12 @@ __device__ __forceinline__ bool keep(uint32_t bits, float keep_prob) {
   return static_cast<float>(bits & 0x7FFFFFu) * (1.0f / 8388608.0f) < keep_prob;
 }
 
+// the keep decisions of the four words of b as bits 0..3
+__device__ __forceinline__ uint32_t keep4(const uint4& b, float keep_prob) {
+  return static_cast<uint32_t>(keep(b.x, keep_prob)) |
+         static_cast<uint32_t>(keep(b.y, keep_prob)) << 1 |
+         static_cast<uint32_t>(keep(b.z, keep_prob)) << 2 |
+         static_cast<uint32_t>(keep(b.w, keep_prob)) << 3;
+}
+
 }  // namespace philox

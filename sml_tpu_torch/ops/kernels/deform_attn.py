@@ -39,8 +39,10 @@ a rows kernel (two passes over the key tiles: each row's log-sum-exp and
 delta = sum_j p dp, then dq and dbias) and a keys kernel that recomputes ds
 from them and sums dk and dv over all rows inside one block, so it needs no
 atomics, no partial sums and no (BG, N, J) scratch (see the source note).
-Ragged row and key tiles are masked in the kernels.  All products run on the
-CUDA cores; tensor-core products are later work.
+Ragged row and key tiles are masked in the kernels.  The forward's products
+run on the CUDA cores.  In bf16 the backward's run on the tensor cores
+(warp-level ``mma.sync``, ``csrc/mma.cuh``); its f32 forms keep CUDA-core
+twins, the exact-arithmetic reference on the card.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.

@@ -7,7 +7,8 @@ on a machine with a CUDA card, each backward kernel against its plain version.
 Tolerances (f32): 1e-5 absolute + 1e-5 relative for outputs and input
 gradients; 1e-5 absolute + 1e-4 relative for the weight gradients, whose sums
 run over every pair in another order than the Pallas kernel's.  bf16: one
-bf16 ulp of the output's scale (2**(floor(log2 max|out|) - 7)).
+bf16 ulp of the output's scale (2**(floor(log2 max|out|) - 7)) for the plain
+forwards; for the plain attention backward, see ``_bf16_rounding_bound``.
 """
 
 import math
@@ -66,29 +67,86 @@ def test_plain_cpb_bias_bwd_matches_pallas_interpret_vjp(bg, h, w, j, dm):
                                    **(TOL if name in ("d_dx", "d_dy") else WTOL))
 
 
-@pytest.mark.parametrize("bg,n,j", [(3, 100, 16), (2, 64, 8)])
+def _bf16_rounding_bound(want: np.ndarray) -> np.ndarray:
+    """Three bf16 ulps of each element plus 3 * 2**-13 of the tensor's max:
+    what two backwards that round the same quantities to bf16, from f32 sums
+    taken in another order, differ by here (at most 0.8 of it), while either
+    rounding left out misses it (by 1.35x at least)."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    return 3 * (ulp + 2.0 ** -13 * np.abs(want).max())
+
+
+def _attn_bwd_errors(got, want):
+    """name -> (|got - want| / the bf16 rounding bound).max() per gradient."""
+    out = {}
+    for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if g is not None:
+            out[name] = (np.abs(g.float().numpy() - w_) / _bf16_rounding_bound(w_)).max()
+    return out
+
+
+@pytest.mark.parametrize("bg,n,j", [(3, 100, 16), (2, 64, 8), (3, 100, 20), (3, 100, 72)])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
-def test_plain_deform_attention_bwd_matches_pallas_interpret_vjp(bg, n, j, keep_prob):
-    """N=100 is ragged against every row tile; at keep 0.9 one shared numpy
-    {0, 1} mask feeds the Pallas kernel's mask operand and the plain versions."""
+@pytest.mark.parametrize("form", ["bias", "nobias", "span", "span_bias"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_deform_attention_bwd_matches_pallas_interpret_vjp(bg, n, j, keep_prob, form,
+                                                                 dtype):
+    """Every form of the backward (bias or none x span or none x dropout or
+    none).  N=100 is ragged against every row tile; J=20 and 72 are 4 and 8 keys
+    past a 16-key step, 20 not a multiple of 8.  The spans: an interior
+    interval, a whole bag, a bag with no valid row.  At keep 0.9 one shared
+    numpy {0, 1} mask feeds the Pallas kernel's mask operand and the plain
+    versions.
+
+    f32: element-wise 1e-5 absolute + 1e-5 relative.  bf16: 1e-2 of each
+    tensor's max (the kernels' tolerance on the card) and, element-wise, the
+    bound of ``_bf16_rounding_bound``, which holds the plain backward's
+    rounding points to the Pallas kernel's: p * m to v's dtype before dv, ds to
+    q's dtype before dq and dk.  Each of those roundings left out (the plain
+    backward given v, or q, in f32) misses that bound."""
     q, k, v, bias, dout = _attn_inputs(n + j, bg, n, j)
+    bias = bias if form in ("bias", "span_bias") else None
+    span = None
+    if form.startswith("span"):
+        span = np.asarray([[7, n - 7, 3, j - 3], [0, n, 0, j], [n, n, 0, j]], np.int32)[:bg]
     mask = None
     if keep_prob < 1.0:
         mask = (np.random.default_rng(j).uniform(size=(bg, n, j)) < keep_prob
                 ).astype(np.float32)
+    jdt = jnp.dtype(dtype)
     jm = None if mask is None else jnp.asarray(mask)
-    fn = lambda q_, k_, v_, b_: j_attn_trainable(q_, k_, v_, b_, jm, None, None,
-                                                 keep_prob, True)
-    out, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v, bias)))
-    want = vjp(jnp.asarray(dout))
+    jspan = None if span is None else jnp.asarray(span)
+    leaves = [q, k, v] + ([] if bias is None else [bias])
+    fn = lambda q_, k_, v_, b_=None: j_attn_trainable(q_, k_, v_, b_, jm, None, jspan,
+                                                      keep_prob, True)
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a, jdt) for a in leaves))
+    want = [np.asarray(w_.astype(jnp.float32)) for w_ in vjp(jnp.asarray(dout, jdt))]
+
+    tdt = getattr(torch, dtype)
     keep = None if mask is None else torch.from_numpy(mask)
-    tq, tk, tv, tb, td = _t((q, k, v, bias, dout))
-    np.testing.assert_allclose(deform_attention_fwd_plain(tq, tk, tv, tb, keep,
-                                                          keep_prob).numpy(),
-                               np.asarray(out), **TOL)
-    got = deform_attention_bwd_plain(tq, tk, tv, tb, td, keep, keep_prob)
+    tspan = None if span is None else torch.from_numpy(span)
+    tq, tk, tv, td = (t.to(tdt) for t in _t((q, k, v, dout)))
+    tb = None if bias is None else torch.from_numpy(bias).to(tdt)
+    got = deform_attention_bwd_plain(tq, tk, tv, tb, td, keep, keep_prob, tspan)
+    assert (got[3] is None) == (bias is None)
+    assert all(g.dtype == tdt for g in got if g is not None)
+    if dtype == "float32":
+        np.testing.assert_allclose(deform_attention_fwd_plain(tq, tk, tv, tb, keep, keep_prob,
+                                                              tspan).numpy(),
+                                   np.asarray(out), **TOL)
+        for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+            np.testing.assert_allclose(g.numpy(), w_, err_msg=name, **TOL)
+        return
     for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w_), err_msg=name, **TOL)
+        assert np.abs(g.float().numpy() - w_).max() <= 1e-2 * np.abs(w_).max(), name
+    errors = _attn_bwd_errors(got, want)
+    assert max(errors.values()) <= 1.0, errors
+    # the control: without the rounding of p * m (v in f32) dv misses the bound,
+    # without the rounding of ds (q in f32) dq or dk does
+    no_pd = deform_attention_bwd_plain(tq, tk, tv.float(), tb, td, keep, keep_prob, tspan)
+    assert _attn_bwd_errors(no_pd, want)["dv"] > 1.0
+    no_ds = deform_attention_bwd_plain(tq.float(), tk, tv, tb, td, keep, keep_prob, tspan)
+    assert max(_attn_bwd_errors(no_ds, want)[name] for name in ("dq", "dk")) > 1.0
 
 
 def test_cpb_bias_trainable_on_cpu_is_the_plain_backward():
