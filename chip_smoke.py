@@ -12,6 +12,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
             / 72 / 37 (tails of a row tile, a key tile and a 16-key step; J
             not a multiple of 8, J odd), f32 and bf16, against its plain
             version, and two launches bit for bit;
+3b. cpb-ragged  the CPB backward at (H, W, J) = (8, 8, 4), (9, 7, 20),
+            (6, 11, 37) and (5, 9, 72) (a 64-token bag's J = 4; W*J not a
+            multiple of 16; a J split across two tiles), dm 8 / 16 / 32, f32
+            and bf16, against its plain version at CPB_GRAD_L2, and two
+            launches bit for bit;
 4. kernels  each CUDA kernel (CPB forward and backward, attention forward
             without and with Philox dropout at keep 0.9, attention backward
             without and with dropout) at the main path's shapes (BG = 8 bags x
@@ -21,6 +26,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
+            both backward kernels must repeat bit for bit;
 5. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
             on synthetic data (B = 8, bf16, seeded weights) at 2500 and 4096
             patches per bag: both forward kernels must be launched once per
@@ -176,13 +182,14 @@ def phase_build() -> None:
         raise AssertionError(f"register spills in {spilled}: see the [build] line")
 
 
-def _cpb_inputs(h: int, j: int, dtype: torch.dtype, g: torch.Generator):
+def _cpb_inputs(h: int, w: int, j: int, dtype: torch.dtype, g: torch.Generator,
+                dm: int = DM):
     def rn(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=g) * scale
-    dx, dy = rn(BG, h * j, scale=0.7), rn(BG, h, j, scale=0.7)
-    weights = [rn(DM, scale=0.7), rn(DM, scale=0.7), rn(DM, scale=0.1),
-               rn(DM, DM, scale=DM ** -0.5), rn(DM, scale=0.1),
-               rn(DM, 1, scale=DM ** -0.5), rn(1, scale=0.1)]
+    dx, dy = rn(BG, w * j, scale=0.7), rn(BG, h, j, scale=0.7)
+    weights = [rn(dm, scale=0.7), rn(dm, scale=0.7), rn(dm, scale=0.1),
+               rn(dm, dm, scale=dm ** -0.5), rn(dm, scale=0.1),
+               rn(dm, 1, scale=dm ** -0.5), rn(1, scale=0.1)]
     return [dx, dy] + [w.to(dtype) for w in weights]
 
 
@@ -249,7 +256,7 @@ def phase_kernels() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             size = torch.finfo(dtype).bits // 8
             pairs = BG * n * j
-            args = _cpb_inputs(side, j, dtype, g)
+            args = _cpb_inputs(side, side, j, dtype, g)
             bias = cpb_bias(*args)
             torch.cuda.synchronize()
             w_bytes = size * (DM * DM + 5 * DM + 1)
@@ -271,6 +278,7 @@ def phase_kernels() -> dict:
             rows.append({"name": "cpb_bias_bwd",
                          **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
                                           CPB_GRAD_L2, l2=True),
+                         "repeats": _repeats(lambda: cpb_bias_bwd(*args[:8], dbias), got),
                          "ms": _time_ms(lambda: cpb_bias_bwd(*args[:8], dbias)),
                          "plain_ms": _time_ms(lambda: cpb_bias_bwd_plain(*args[:8], dbias),
                                               iters=slow_iters, warmup=1),
@@ -424,6 +432,41 @@ def phase_ragged() -> None:
                         failures.append(f"{form} keep={keep_prob} N={n} J={j} {dtype}")
     if failures:
         raise AssertionError(f"attention backward at ragged shapes: {failures}")
+
+
+# (H, W, J) of the CPB backward: a 64-token bag (8 x 8 queries, 2 x 2 offsets, J = 4,
+# under a warp's 32 lanes); W*J = 140, 407 and 648, none a multiple of the tensor-core
+# kernel's 16-pair step; 648 spans two 512-lane tiles, the second cutting J = 72 apart
+CPB_RAGGED = ((8, 8, 4), (9, 7, 20), (6, 11, 37), (5, 9, 72))
+
+
+def phase_cpb_ragged() -> None:
+    """The CPB backward at ragged shapes, dm 8 / 16 / 32, f32 (the CUDA-core
+    twin) and bf16 (the tensor-core kernel), against its plain version at
+    CPB_GRAD_L2, and two launches bit for bit."""
+    from sml_tpu_torch.ops.kernels import cpb_bias_bwd, cpb_bias_bwd_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    failures = []
+    for h, w, j in CPB_RAGGED:
+        for dm in (8, 16, 32):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _cpb_inputs(h, w, j, dtype, g, dm)
+                dbias = (torch.randn(BG, h, w * j, device="cuda", generator=g) * 1e-3
+                         ).to(dtype)
+                run = lambda: cpb_bias_bwd(*args[:8], dbias)
+                got = run()
+                torch.cuda.synchronize()
+                e = {"h": h, "w": w, "j": j, "dm": dm, "bg": BG,
+                     "dtype": str(dtype).split(".")[-1],
+                     **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
+                                      CPB_GRAD_L2, l2=True),
+                     "repeats": _repeats(run, got)}
+                _line("cpb-ragged", **e)
+                if not (e["ok"] and e["repeats"]):
+                    failures.append(f"H={h} W={w} J={j} dm={dm} {dtype}")
+    if failures:
+        raise AssertionError(f"CPB backward at ragged shapes: {failures}")
 
 
 def _span_work(span: torch.Tensor, n: int, j: int):
@@ -912,9 +955,11 @@ _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def _design(name: str) -> dict:
-    """The bf16 attention backward (every entry here is bf16) runs on the tensor
-    cores (``csrc/mma.cuh``); its f32 twins run on the CUDA cores."""
-    return {"design": "mma.sync"} if name.startswith("deform_attention_bwd") else {}
+    """The bf16 backward kernels (every entry here is bf16), attention and CPB,
+    run on the tensor cores (``csrc/mma.cuh``); their f32 twins run on the CUDA
+    cores."""
+    tc = name.startswith("deform_attention_bwd") or name == "cpb_bias_bwd"
+    return {"design": "mma.sync"} if tc else {}
 
 
 def main() -> int:
@@ -926,6 +971,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     phase_ragged()
+    phase_cpb_ragged()
     entries = phase_kernels()
     serving = {fixdim: phase_slice(fixdim, card) for fixdim in SHAPES}
     launches = phase_train(card)

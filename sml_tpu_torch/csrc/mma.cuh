@@ -53,6 +53,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "r"(addr));
 }
 
+// The transpose of an 8 x 8 b16 matrix held one register per lane in the
+// ldmatrix layout (row g, columns 2t, 2t+1), returned in the same layout,
+// without shared memory.  Each register of an A fragment, or of a B fragment
+// read as the transposed matrix, is such an 8 x 8 block.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
 // 16 bytes from device to shared memory, asynchronously; with !valid the 16
 // shared bytes are zero-filled and nothing is read (src must still be a
 // device address)
@@ -79,6 +89,13 @@ __device__ __forceinline__ int frag_col(int lane, int e) { return ((lane & 3) <<
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// relu(lo), relu(hi) rounded to bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
 // The A fragment (16 x 16, k over 16 columns) of the accumulators c0

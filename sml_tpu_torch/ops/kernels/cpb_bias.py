@@ -23,12 +23,14 @@ device memory in either direction.  Layer 1 is built in registers from the
 thin dx / dy displacement tables.  The forward runs one block per (bg, query
 row) with the weights and the row's dy in shared memory; each thread runs the
 whole per-pair MLP in f32 registers for two lanes at a time, so each
-broadcast weight load feeds two FMAs.  The backward runs one block per (bg,
-tile of 512 lanes) over all rows: d_dx stays in registers, d_dy and the
-weight gradients leave as small per-block partials that the wrapper sums
-(see the source note).  All products run on the CUDA cores (67 TFLOP/s f32),
-not the tensor cores, so these first kernels land well short of the bound;
-``wgmma`` is later work.
+broadcast weight load feeds two FMAs (CUDA cores, 67 TFLOP/s f32).  The
+backward runs one block per (bg, tile of 512 lanes) over all rows: d_dx
+stays on chip, d_dy and the weight gradients leave as small per-block
+partials that the wrapper sums, in a fixed order with no atomics, so it
+repeats bit for bit.  Its bf16 form runs the three dm x dm products per pair
+on the tensor cores (``mma.sync``, ``csrc/mma.cuh``), with h1 and dz2 rounded
+to bf16 where the Pallas kernel rounds them; its f32 form is the CUDA-core
+twin (see the source note).  ``wgmma`` is later work.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -45,7 +47,6 @@ from sml_tpu_torch.ops.kernels import _build
 KERNEL_DMS = (8, 16, 32)     # dm instantiated in the kernel (csrc/cpb_bias.cu)
 MAX_J = 8192                 # the row's dy stays under 48 KB of shared memory
 BWD_TILE = 512               # lanes per backward block (kTile in csrc/cpb_bias_bwd.cu)
-_BWD_WARPS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
 
@@ -64,11 +65,6 @@ def _library(name: str):
             lib.cpb_bias_bwd.restype = ctypes.c_int
         _libs[name] = lib
     return lib
-
-
-def bwd_smem_bytes(j: int, dm: int) -> int:
-    """Dynamic shared memory of one backward block (``smem_bytes`` in the source)."""
-    return 4 * (2 * dm * dm + 5 * dm + _BWD_WARPS * j + _BWD_WARPS * 3 * 32 * (dm + 4))
 
 
 def _check(dx, dy, weights):
@@ -165,37 +161,42 @@ def _layer1(dx, dy, w0x, w0y, b0, y0, rows):
 def cpb_bias_bwd_plain(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     """Gradients of :func:`cpb_bias_plain` from ``dbias`` (BG, H, W*J): the
     formulas of ``_bwd_kernel`` written out in f32, rows in chunks so the
-    (BG, rows, W, J, dm) activations stay under 2**26 elements.  Returns
-    (d_dx, d_dy, dw0x, dw0y, db0, dw1, db1, dw2, db2): d_dx, d_dy f32, the
-    weight gradients in the weights' dtype."""
+    (BG, rows, W, J, dm) activations stay under 2**26 elements.  With bf16
+    weights it rounds where the Pallas kernel and the tensor-core kernel round:
+    h1 and dz2 to bf16 before the products with w1 and before dw1, dx and dy to
+    bf16 in dw0x and dw0y; every sum stays f32.  Returns (d_dx, d_dy, dw0x,
+    dw0y, db0, dw1, db1, dw2, db2): d_dx, d_dy f32, the weight gradients in the
+    weights' dtype."""
     bg, wj = dx.shape
     _, h, j = dy.shape
     w = wj // j
     dm = w1.shape[0]
     wdt = w1.dtype
+    rnd = (lambda t: t.bfloat16().float()) if wdt == torch.bfloat16 else (lambda t: t)
     w0x, w0y, b0, w1, b1, w2 = (t.float() for t in (w0x, w0y, b0, w1, b1, w2))
     ddx = torch.zeros((bg, w, j), dtype=torch.float32, device=dx.device)
     ddy = torch.empty((bg, h, j), dtype=torch.float32, device=dx.device)
     acc = {k: torch.zeros(s, dtype=torch.float32, device=dx.device)
            for k, s in (("w0x", dm), ("w0y", dm), ("b0", dm), ("w1", (dm, dm)),
                         ("b1", dm), ("w2", dm), ("b2", 1))}
-    dxr = dx.reshape(bg, 1, w, j)
+    dxr = rnd(dx).reshape(bg, 1, w, j)
     rows = max(1, (1 << 26) // (bg * wj * dm))
     for y0 in range(0, h, rows):
         a = _layer1(dx, dy, w0x, w0y, b0, y0, rows)                 # (BG, r, W, J, dm)
-        h1 = torch.relu(a)
+        h1 = rnd(torch.relu(a))
         z2 = h1 @ w1 + b1
         g = dbias[:, y0:y0 + rows].float().reshape(bg, -1, w, j)    # (BG, r, W, J)
         acc["w2"] += torch.einsum("brxjm,brxj->m", torch.relu(z2), g)
         acc["b2"] += g.sum()
         dz2 = torch.where(z2 > 0, w2[:, 0] * g[..., None], 0.0)
-        acc["w1"] += torch.einsum("brxjk,brxjm->km", h1, dz2)
         acc["b1"] += dz2.sum(dim=(0, 1, 2, 3))
+        dz2 = rnd(dz2)
+        acc["w1"] += torch.einsum("brxjk,brxjm->km", h1, dz2)
         dz1 = torch.where(a > 0, dz2 @ w1.T, 0.0)
         ddx += (dz1 @ w0x).sum(dim=1)
         ddy[:, y0:y0 + rows] = (dz1 @ w0y).sum(dim=2)
         acc["w0x"] += torch.einsum("brxjk,bxj->k", dz1, dxr[:, 0])
-        dyr = dy[:, y0:y0 + rows, None, :]
+        dyr = rnd(dy[:, y0:y0 + rows, None, :])
         acc["w0y"] += torch.einsum("brxjk,brxj->k", dz1, dyr.expand_as(g))
         acc["b0"] += dz1.sum(dim=(0, 1, 2, 3))
     return (ddx.reshape(bg, wj), ddy, acc["w0x"].to(wdt), acc["w0y"].to(wdt),
@@ -207,8 +208,9 @@ def cpb_bias_bwd(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     """Gradients of :func:`cpb_bias` from ``dbias`` (BG, H, W*J) in the
     weights' dtype: (d_dx (BG, W*J) f32, d_dy (BG, H, J) f32, dw0x, dw0y, db0,
     dw1, db1, dw2, db2 in the weights' dtype), recomputed from the inputs.
-    CPU tensors take the plain version; CUDA tensors launch the kernel, whose
-    per-block partials of d_dy and the weight gradients are summed here."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16:
+    the tensor-core kernel; f32: its CUDA-core twin), whose per-block partials
+    of d_dy and the weight gradients are summed here."""
     weights = (w0x, w0y, b0, w1, b1, w2)
     bg, h, w, j, dm = _check(dx, dy, weights + (w2.new_zeros(1),))
     if tuple(dbias.shape) != (bg, h, w * j) or dbias.dtype != w1.dtype:
@@ -222,8 +224,6 @@ def cpb_bias_bwd(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
         raise ValueError(f"cpb_bias_bwd runs on cpu or cuda, not {dx.device}")
     if dm not in KERNEL_DMS:
         raise ValueError(f"cpb_bias_bwd kernel has dm in {KERNEL_DMS}, not {dm}")
-    if bwd_smem_bytes(j, dm) > _build.SMEM_LIMIT:
-        raise ValueError(f"J={j} does not fit the cpb_bias_bwd kernel's shared memory")
     tiles = -(-(w * j) // BWD_TILE)
     f32 = dict(dtype=torch.float32, device=dx.device)
     ddx = torch.empty((bg, w * j), **f32)
