@@ -12,10 +12,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
             / 72 / 37 (tails of a row tile, a key tile and a 16-key step; J
             not a multiple of 8, J odd), f32 and bf16, against its plain
             version, and two launches bit for bit;
-3b. cpb-ragged  the CPB backward at (H, W, J) = (8, 8, 4), (9, 7, 20),
-            (6, 11, 37) and (5, 9, 72) (a 64-token bag's J = 4; W*J not a
-            multiple of 16; a J split across two tiles), dm 8 / 16 / 32, f32
-            and bf16, against its plain version at CPB_GRAD_L2, and two
+3b. cpb-ragged  the CPB forward and backward at (H, W, J) = (8, 8, 4), (9,
+            7, 20), (6, 11, 37) and (5, 9, 72) (a 64-token bag's J = 4; W*J
+            not a multiple of 16; a J split across two backward tiles), dm 8
+            / 16 / 32, f32 and bf16, against their plain versions (the
+            forward at KERNEL_TOL, the backward at CPB_GRAD_L2), and two
             launches bit for bit;
 4. kernels  each CUDA kernel (CPB forward and backward, attention forward
             without and with Philox dropout at keep 0.9, attention backward
@@ -26,7 +27,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
-            both backward kernels must repeat bit for bit;
+            the CPB forward and both backward kernels must repeat bit for bit;
+            the bf16 CPB forward's largest error in bf16 ulps of each element
+            and its share of elements equal to the plain version's;
 5. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
             on synthetic data (B = 8, bf16, seeded weights) at 2500 and 4096
             patches per bag: both forward kernels must be launched once per
@@ -211,10 +214,19 @@ def _compare_grads(got, want, rtol: float, l2: bool = False) -> dict:
 
 def _repeats(fn, got) -> bool:
     """Whether a second launch of ``fn`` returns ``got`` bit for bit (the
-    backward kernels sum in a fixed order, without atomics)."""
+    kernels sum in a fixed order, without atomics)."""
     again = fn()
     torch.cuda.synchronize()
     return all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The largest |got - want| in bf16 ulps of each element of ``want``, and
+    the share of elements equal to it."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return {"max_bf16_ulps": ((got - want).abs() / ulp).max().item(),
+            "equal_share": (got == want).float().mean().item()}
 
 
 def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
@@ -263,11 +275,14 @@ def phase_kernels() -> dict:
             table_bytes = 4 * (BG * side * j * 2)            # dx and dy, f32
             bound_ms, bound_by = _bound(table_bytes + w_bytes + size * pairs,
                                         pairs * (2 * DM * DM + 6 * DM + 1), dtype)
-            rows = [{"name": "cpb_bias", **_compare(bias, cpb_bias_plain(*args),
-                                                    KERNEL_TOL[dtype]),
+            plain = cpb_bias_plain(*args)
+            rows = [{"name": "cpb_bias", **_compare(bias, plain, KERNEL_TOL[dtype]),
+                     **(_ulps(bias, plain) if dtype == torch.bfloat16 else {}),
+                     "repeats": _repeats(lambda: (cpb_bias(*args),), (bias,)),
                      "ms": _time_ms(lambda: cpb_bias(*args)),
                      "plain_ms": _time_ms(lambda: cpb_bias_plain(*args), iters=5),
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+            del plain
 
             dbias = (torch.randn(BG, side, side * j, device="cuda", generator=g)
                      * 1e-3).to(dtype)
@@ -441,10 +456,12 @@ CPB_RAGGED = ((8, 8, 4), (9, 7, 20), (6, 11, 37), (5, 9, 72))
 
 
 def phase_cpb_ragged() -> None:
-    """The CPB backward at ragged shapes, dm 8 / 16 / 32, f32 (the CUDA-core
-    twin) and bf16 (the tensor-core kernel), against its plain version at
-    CPB_GRAD_L2, and two launches bit for bit."""
-    from sml_tpu_torch.ops.kernels import cpb_bias_bwd, cpb_bias_bwd_plain
+    """The CPB forward and backward at ragged shapes, dm 8 / 16 / 32, f32 (the
+    CUDA-core twins) and bf16 (the tensor-core kernels), against their plain
+    versions (the forward at KERNEL_TOL, the backward at CPB_GRAD_L2), and two
+    launches bit for bit."""
+    from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
+                                           cpb_bias_plain)
 
     g = torch.Generator(device="cuda").manual_seed(3)
     failures = []
@@ -454,19 +471,26 @@ def phase_cpb_ragged() -> None:
                 args = _cpb_inputs(h, w, j, dtype, g, dm)
                 dbias = (torch.randn(BG, h, w * j, device="cuda", generator=g) * 1e-3
                          ).to(dtype)
-                run = lambda: cpb_bias_bwd(*args[:8], dbias)
-                got = run()
+                case = {"h": h, "w": w, "j": j, "dm": dm, "bg": BG,
+                        "dtype": str(dtype).split(".")[-1]}
+                fwd = lambda: (cpb_bias(*args),)
+                bias = fwd()
                 torch.cuda.synchronize()
-                e = {"h": h, "w": w, "j": j, "dm": dm, "bg": BG,
-                     "dtype": str(dtype).split(".")[-1],
-                     **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
-                                      CPB_GRAD_L2, l2=True),
-                     "repeats": _repeats(run, got)}
-                _line("cpb-ragged", **e)
-                if not (e["ok"] and e["repeats"]):
-                    failures.append(f"H={h} W={w} J={j} dm={dm} {dtype}")
+                bwd = lambda: cpb_bias_bwd(*args[:8], dbias)
+                got = bwd()
+                torch.cuda.synchronize()
+                for e in ({"pass": "fwd", **case,
+                           **_compare(bias[0], cpb_bias_plain(*args), KERNEL_TOL[dtype]),
+                           "repeats": _repeats(fwd, bias)},
+                          {"pass": "bwd", **case,
+                           **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
+                                            CPB_GRAD_L2, l2=True),
+                           "repeats": _repeats(bwd, got)}):
+                    _line("cpb-ragged", **e)
+                    if not (e["ok"] and e["repeats"]):
+                        failures.append(f"{e['pass']} H={h} W={w} J={j} dm={dm} {dtype}")
     if failures:
-        raise AssertionError(f"CPB backward at ragged shapes: {failures}")
+        raise AssertionError(f"CPB kernels at ragged shapes: {failures}")
 
 
 def _span_work(span: torch.Tensor, n: int, j: int):
@@ -955,10 +979,10 @@ _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def _design(name: str) -> dict:
-    """The bf16 backward kernels (every entry here is bf16), attention and CPB,
-    run on the tensor cores (``csrc/mma.cuh``); their f32 twins run on the CUDA
-    cores."""
-    tc = name.startswith("deform_attention_bwd") or name == "cpb_bias_bwd"
+    """The bf16 CPB kernels, forward and backward, and the bf16 attention
+    backward (every entry here is bf16) run on the tensor cores
+    (``csrc/mma.cuh``); their f32 twins run on the CUDA cores."""
+    tc = name.startswith("deform_attention_bwd") or name in ("cpb_bias", "cpb_bias_bwd")
     return {"design": "mma.sync"} if tc else {}
 
 

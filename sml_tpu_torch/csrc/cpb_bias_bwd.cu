@@ -39,9 +39,11 @@
 // which is at once the A-fragment layout of h1 and the accumulator layout of
 // z2 and dh1:
 //   - layer 1 in f32 on the CUDA cores, relu(a) rounded to bf16 straight into
-//     the A fragments of h1;
-//   - z2 = h1 w1 + b1 and dh1 = dz2 w1^T, with w1 and w1^T held as B
-//     fragments in registers for the whole launch;
+//     the A fragments of h1, and z2 = h1 w1 + b1: the forward's own code
+//     (cpb_common.cuh, shared with tc::cpb_bias_fwd_tc in cpb_bias.cu), so
+//     z2 and its ReLU mask are the forward's bit for bit;
+//   - dh1 = dz2 w1^T, with w1 and w1^T held as B fragments in registers for
+//     the whole launch;
 //   - dz2 = [z2 > 0] w2 g in f32, rounded to bf16 as an A fragment
 //     (accum_to_a);
 //   - dz1 = [h1 > 0] dh1 element for element, no shuffle: the mask is read
@@ -75,6 +77,7 @@
 
 #include <type_traits>
 
+#include "cpb_common.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -356,15 +359,11 @@ constexpr int kStage = kTile / kThreads;       // lanes each thread stages per r
 
 template <int DM>
 __host__ __device__ constexpr int smem_floats() {
-  return 5 * DM + 17 * kTile + kWarps * wgrad_size<DM>();
+  return cpb::par_floats<DM>() + 17 * kTile + kWarps * wgrad_size<DM>();
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -388,16 +387,12 @@ cpb_bias_bwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
                 const bf16* __restrict__ dbias, float* __restrict__ ddx,
                 float* __restrict__ ddy_part, float* __restrict__ wgrad_part, int H, int W,
                 int J) {
-  static_assert(DM % 8 == 0 && DM <= 32, "dm columns in n8 tiles");
-  constexpr int NT = DM / 8;           // n8 tiles over dm
-  constexpr int KT = (DM + 15) / 16;   // k16 steps over dm (dm = 8: zero-padded)
+  constexpr int NT = cpb::Frags<DM>::NT;
+  constexpr int KT = cpb::Frags<DM>::KT;
   constexpr int SIZE = wgrad_size<DM>();
   extern __shared__ __align__(16) float smem[];
-  // the weights in f32, per column pair c = 2i, 2i + 1 (one 16-byte load each):
-  // [DM/2][4] (w0x[c], w0x[c+1], w0y[c], w0y[c+1]), [DM] b0,
-  // [DM/2][4] (b1[c], b1[c+1], w2[c], w2[c+1])
-  float* s_par = smem;
-  float* s_dx = s_par + 5 * DM;        // [kTile]: dx of the tile's lanes, 0 past W*J
+  float* s_par = smem;                 // the weights in f32 (cpb::stage_params)
+  float* s_dx = s_par + cpb::par_floats<DM>();  // [kTile]: dx of the tile's lanes, 0 past W*J
   float* s_ddx = s_dx + kTile;         // [kTile][4]: d_dx per lane, one slot per t
   float* s_pair = s_ddx + 4 * kTile;   // [2][kTile][4]: w0y . dz1 per lane of a row
   float* s_g = s_pair + 8 * kTile;     // [2][kTile]: dbias of a row, f32
@@ -415,14 +410,7 @@ cpb_bias_bwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  for (int i = threadIdx.x; i < DM; i += kThreads) {
-    const int c = 4 * (i >> 1) + (i & 1);
-    s_par[c] = __bfloat162float(w0x[i]);
-    s_par[c + 2] = __bfloat162float(w0y[i]);
-    s_par[2 * DM + i] = __bfloat162float(b0[i]);
-    s_par[3 * DM + c] = __bfloat162float(b1[i]);
-    s_par[3 * DM + c + 2] = __bfloat162float(w2[i]);
-  }
+  cpb::stage_params<DM>(s_par, w0x, w0y, b0, b1, w2, threadIdx.x, kThreads);
   // the lanes this thread stages every row: threadIdx.x + kThreads * q
   int js[kStage];
 #pragma unroll
@@ -435,21 +423,15 @@ cpb_bias_bwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
   }
 
   // w1 as B fragments: bz for z2 = h1 w1 (k x m), bh for dh1 = dz2 w1^T (m x k)
-  const unsigned short* w1b = reinterpret_cast<const unsigned short*>(w1);
-  auto w1_bits = [&](int k, int m) -> uint32_t {
-    return k < DM && m < DM ? w1b[k * DM + m] : 0u;
-  };
   uint32_t bz[KT][NT][2], bh[NT][KT][2];
+  cpb::w1_frags<DM>(bz, w1, g, t);
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int k = 16 * kt + 2 * t, m = 8 * n + g;
-      bz[kt][n][0] = w1_bits(k, m) | w1_bits(k + 1, m) << 16;
-      bz[kt][n][1] = w1_bits(k + 8, m) | w1_bits(k + 9, m) << 16;
       const int k2 = 8 * n + g, m2 = 16 * kt + 2 * t;
-      bh[n][kt][0] = w1_bits(k2, m2) | w1_bits(k2, m2 + 1) << 16;
-      bh[n][kt][1] = w1_bits(k2, m2 + 8) | w1_bits(k2, m2 + 9) << 16;
+      bh[n][kt][0] = cpb::w1_bits<DM>(w1, k2, m2) | cpb::w1_bits<DM>(w1, k2, m2 + 1) << 16;
+      bh[n][kt][1] = cpb::w1_bits<DM>(w1, k2, m2 + 8) | cpb::w1_bits<DM>(w1, k2, m2 + 9) << 16;
     }
   }
 
@@ -514,34 +496,11 @@ cpb_bias_bwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
         gv[r] = g_buf[i];
       }
 
-      // layer 1 in f32 (the forward's fmaf order); relu(a) to bf16 A fragments
+      // layer 1 and z2 = h1 w1 + b1, as the forward computes them (cpb_common.cuh)
       uint32_t ha[KT][4];
-#pragma unroll
-      for (int n = 0; n < 2 * KT; ++n) {
-        const int kt = n >> 1, h = n & 1;
-        if (n < NT) {
-          const float4 w = ld4(s_par + 4 * (4 * n + t));   // w0x, w0y of 8n + 2t, + 1
-          const float2 bb = ld2(s_par + 2 * DM + 8 * n + 2 * t);
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-            ha[kt][2 * h + r] =
-                mma::pack_relu_bf16(fmaf(w.x, xv[r], fmaf(w.z, yv[r], bb.x)),
-                                    fmaf(w.y, xv[r], fmaf(w.w, yv[r], bb.y)));
-        } else {
-          ha[kt][2 * h] = ha[kt][2 * h + 1] = 0u;
-        }
-      }
-
-      // z2 = h1 w1 + b1
+      cpb::layer1<DM>(ha, s_par, xv, yv, t);
       float z[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float4 bw = ld4(s_par + 3 * DM + 4 * (4 * n + t));   // b1, w2
-        z[n][0] = z[n][2] = bw.x;
-        z[n][1] = z[n][3] = bw.y;
-#pragma unroll
-        for (int kt = 0; kt < KT; ++kt) mma::mma_bf16(z[n], ha[kt], bz[kt][n][0], bz[kt][n][1]);
-      }
+      cpb::layer2<DM>(z, ha, bz, s_par, t);
 
       // dz2 = [z2 > 0] w2 g in f32 (db1, and dw2 = sum relu(z2) g as z2 [z2 > 0] g),
       // then to bf16 A fragments
@@ -549,7 +508,7 @@ cpb_bias_bwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
 #pragma unroll
       for (int n = 0; n < 2 * KT; ++n) {
         if (n < NT) {
-          const float4 bw = ld4(s_par + 3 * DM + 4 * (4 * n + t));   // b1, w2
+          const float4 bw = cpb::b1_w2<DM>(s_par, n, t);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float sel = z[n][e] > 0.f ? gv[e >> 1] : 0.f;

@@ -21,16 +21,26 @@ recomputes the MLP and adds two more dm x dm products per pair, about
 What the designs do about it: the (BG, N, J, dm) activations never reach
 device memory in either direction.  Layer 1 is built in registers from the
 thin dx / dy displacement tables.  The forward runs one block per (bg, query
-row) with the weights and the row's dy in shared memory; each thread runs the
-whole per-pair MLP in f32 registers for two lanes at a time, so each
-broadcast weight load feeds two FMAs (CUDA cores, 67 TFLOP/s f32).  The
-backward runs one block per (bg, tile of 512 lanes) over all rows: d_dx
-stays on chip, d_dy and the weight gradients leave as small per-block
-partials that the wrapper sums, in a fixed order with no atomics, so it
-repeats bit for bit.  Its bf16 form runs the three dm x dm products per pair
-on the tensor cores (``mma.sync``, ``csrc/mma.cuh``), with h1 and dz2 rounded
-to bf16 where the Pallas kernel rounds them; its f32 form is the CUDA-core
-twin (see the source note).  ``wgmma`` is later work.
+row) with the weights and the row's dy in shared memory.  Its bf16 form
+(``tc::cpb_bias_fwd_tc``) runs layer 2 on the tensor cores (``mma.sync``,
+``csrc/mma.cuh``), 16 pairs per warp step, with layers 1 and 3 (9% of the
+FLOP, and most of the instructions) in f32 on the CUDA cores.  The backward
+runs one block per (bg, tile of 512 lanes) over all rows: d_dx stays on chip,
+d_dy and the weight gradients leave as small per-block partials that the
+wrapper sums, in a fixed order with no atomics, so it repeats bit for bit.
+Its bf16 form runs the three dm x dm products per pair on the tensor cores.
+Both bf16 forms compute layers 1 and 2 with one piece of code
+(``csrc/cpb_common.cuh``), so the backward's recomputed z2, and its layer-2
+ReLU mask, are the forward's bit for bit.  The f32 forms are CUDA-core twins
+that run the per-pair MLP in f32 registers (see the source notes).  ``wgmma``
+is later work.
+
+Rounding points of the bf16 forms, each one where the Pallas kernels round
+too: h1 to bf16 before layer 2 (forward and backward), dz2 to bf16 before its
+products with w1, dx and dy to bf16 in dw0x and dw0y; every sum, z2, h2 and
+layer 3 in f32; each output rounded once.  (Pallas also runs layer 1 in bf16;
+the port keeps it in f32.)  The plain versions round at the same points, so they
+specify what the kernels compute.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -97,20 +107,35 @@ def _check(dx, dy, weights):
     return bg, h, wj // j, j, dm
 
 
+def _rounder(dtype):
+    """x -> x rounded to bf16 and back for bf16 weights, else x unchanged."""
+    return (lambda t: t.bfloat16().float()) if dtype == torch.bfloat16 else (lambda t: t)
+
+
+def _layer1(dx, dy, w0x, w0y, b0, y0, rows):
+    """(BG, r, W, J, dm) pre-activation a = w0x dx + (w0y dy + b0) of rows
+    [y0, y0 + rows), in f32."""
+    bg, wj = dx.shape
+    j = dy.shape[-1]
+    u = dx.reshape(bg, 1, wj // j, j, 1) * w0x
+    return u + (dy[:, y0:y0 + rows, None, :, None] * w0y + b0)
+
+
 def cpb_bias_plain(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
     """(BG, H, W*J) bias in the weights' dtype, computed in f32, rows in chunks
-    so the (BG, rows, W, J, dm) activations stay under 2**26 elements."""
+    so the (BG, rows, W, J, dm) activations stay under 2**26 elements.  With
+    bf16 weights h1 is rounded to bf16 before layer 2, where the Pallas kernel
+    and the tensor-core kernel round it; z2, h2 and layer 3 stay f32."""
     bg, wj = dx.shape
     _, h, j = dy.shape
-    w = wj // j
     dm = w1.shape[0]
     out = torch.empty((bg, h, wj), dtype=w1.dtype, device=dx.device)
+    rnd = _rounder(w1.dtype)
     w0x, w0y, b0, w1, b1, w2, b2 = (t.float() for t in (w0x, w0y, b0, w1, b1, w2, b2))
-    u = dx.reshape(bg, 1, w, j, 1) * w0x                           # (BG, 1, W, J, dm)
     rows = max(1, (1 << 26) // (bg * wj * dm))
     for y0 in range(0, h, rows):
-        v = dy[:, y0:y0 + rows, None, :, None] * w0y + b0          # (BG, r, 1, J, dm)
-        h2 = torch.relu(torch.relu(u + v) @ w1 + b1)
+        h1 = rnd(torch.relu(_layer1(dx, dy, w0x, w0y, b0, y0, rows)))
+        h2 = torch.relu(h1 @ w1 + b1)
         bias = (h2 @ w2)[..., 0] + b2                              # (BG, r, W, J)
         out[:, y0:y0 + rows] = bias.reshape(bg, -1, wj)
     return out
@@ -122,7 +147,8 @@ def cpb_bias(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
     dx (BG, W*J) f32 and dy (BG, H, J) f32 are the signed-log displacement
     tables; w0x, w0y, b0, b1 (dm,), w1 (dm, dm), w2 (dm, 1), b2 (1,) share the
     compute dtype (float32 or bfloat16).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel.
+    CUDA tensors launch the kernel (bf16: the tensor-core kernel; f32: its
+    CUDA-core twin).
     """
     weights = (w0x, w0y, b0, w1, b1, w2, b2)
     bg, h, w, j, dm = _check(dx, dy, weights)
@@ -149,15 +175,6 @@ def cpb_bias(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
 cpb_bias.launches = 0
 
 
-def _layer1(dx, dy, w0x, w0y, b0, y0, rows):
-    """(BG, r, W, J, dm) pre-activation a = w0x dx + (w0y dy + b0) of rows
-    [y0, y0 + rows), in f32."""
-    bg, wj = dx.shape
-    j = dy.shape[-1]
-    u = dx.reshape(bg, 1, wj // j, j, 1) * w0x
-    return u + (dy[:, y0:y0 + rows, None, :, None] * w0y + b0)
-
-
 def cpb_bias_bwd_plain(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     """Gradients of :func:`cpb_bias_plain` from ``dbias`` (BG, H, W*J): the
     formulas of ``_bwd_kernel`` written out in f32, rows in chunks so the
@@ -172,7 +189,7 @@ def cpb_bias_bwd_plain(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     w = wj // j
     dm = w1.shape[0]
     wdt = w1.dtype
-    rnd = (lambda t: t.bfloat16().float()) if wdt == torch.bfloat16 else (lambda t: t)
+    rnd = _rounder(wdt)
     w0x, w0y, b0, w1, b1, w2 = (t.float() for t in (w0x, w0y, b0, w1, b1, w2))
     ddx = torch.zeros((bg, w, j), dtype=torch.float32, device=dx.device)
     ddy = torch.empty((bg, h, j), dtype=torch.float32, device=dx.device)

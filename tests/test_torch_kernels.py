@@ -97,10 +97,15 @@ def _cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bg,h,w,j,dm", [(4, 10, 10, 36, 32), (4, 10, 10, 36, 16),
+                                         (4, 10, 10, 36, 8), (3, 6, 11, 37, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_cpb_bias_matches_plain(dtype):
+def test_cuda_cpb_bias_matches_plain(dtype, bg, h, w, j, dm):
+    """dm 32 / 16 / 8 (8 pads the tensor-core kernel's k16 step), and J = 37 with
+    W*J = 407, not a multiple of its 16-pair step: a second launch must return
+    the first one's bias bit for bit."""
     dev = _cuda()
-    args = [torch.from_numpy(a).to(dev) for a in _cpb_inputs(1, 4, 10, 10, 36, 32)]
+    args = [torch.from_numpy(a).to(dev) for a in _cpb_inputs(1, bg, h, w, j, dm)]
     args[2:] = [a.to(dtype) for a in args[2:]]
     before = cpb_bias.launches
     got = cpb_bias(*args)
@@ -108,6 +113,7 @@ def test_cuda_cpb_bias_matches_plain(dtype):
     assert cpb_bias.launches == before + 1
     tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
     torch.testing.assert_close(got.float(), cpb_bias_plain(*args).float(), **tol)
+    assert torch.equal(cpb_bias(*args), got)
 
 
 @pytest.mark.cuda

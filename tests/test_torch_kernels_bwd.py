@@ -103,15 +103,41 @@ def _pallas_cpb_vjp_bf16(args, dbias):
     return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dbias, jnp.bfloat16))]
 
 
+def _rel_and_ulps(got, want):
+    """(relative L2 error, max |got - want| in bf16 ulps of each element of want)."""
+    g = got.float().numpy().reshape(want.shape)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    return (np.linalg.norm(g - want) / max(np.linalg.norm(want), 1e-30),
+            (np.abs(g - want) / ulp).max())
+
+
 def _cpb_errors(got, want):
     """name -> (relative L2 error, max |got - want| in bf16 ulps of want)."""
-    out = {}
-    for name, g, w_ in zip(CPB_GRADS, got, want):
-        g = g.float().numpy().reshape(w_.shape)
-        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w_), 1e-30))) - 7)
-        out[name] = (np.linalg.norm(g - w_) / max(np.linalg.norm(w_), 1e-30),
-                     (np.abs(g - w_) / ulp).max())
-    return out
+    return {name: _rel_and_ulps(g, w_) for name, g, w_ in zip(CPB_GRADS, got, want)}
+
+
+@pytest.mark.parametrize("bg,h,w,j,dm", [(2, 8, 8, 16, 32), (3, 5, 7, 9, 16),
+                                         (2, 6, 6, 4, 8)])
+def test_plain_cpb_bias_bf16_rounds_h1_where_pallas_does(bg, h, w, j, dm):
+    """bf16: the plain forward rounds h1 to bf16 before layer 2, where the Pallas
+    kernel (and the tensor-core kernel, and the backward's recompute) rounds it.
+    With layer 1 rounded once in both (``_bf16_exact_layer1``) it agrees with
+    the interpret-mode Pallas kernel within 1e-5 relative L2 and one bf16 ulp of
+    each element.  The control, the same forward with the weights handed over
+    as f32 (h1 never rounded) and its output rounded to bf16, lies at least
+    100x farther in relative L2."""
+    args = _bf16_exact_layer1(_cpb_inputs(bg * h + dm + 1, bg, h, w, j, dm))
+    jargs = [jnp.asarray(a) for a in args[:2]] + [jnp.asarray(a, jnp.bfloat16)
+                                                  for a in args[2:]]
+    want = np.asarray(fused_cpb_bias(*jargs, interpret=True).astype(jnp.float32))
+    targs = _t(args[:2]) + [torch.from_numpy(a).bfloat16() for a in args[2:]]
+    got = cpb_bias_plain(*targs)
+    assert got.dtype == torch.bfloat16
+    rel, ulps = _rel_and_ulps(got, want)
+    assert rel <= 1e-5 and ulps <= 1.0, (rel, ulps)
+    control = cpb_bias_plain(*targs[:2], *(a.float() for a in targs[2:])).bfloat16()
+    control_rel, _ = _rel_and_ulps(control, want)
+    assert control_rel >= 100 * max(rel, 1e-6), (control_rel, rel)
 
 
 @pytest.mark.parametrize("bg,h,w,j,dm", [(2, 8, 8, 16, 32), (3, 5, 7, 9, 16),
@@ -296,7 +322,7 @@ def _bf16_ulp_of_scale(x: np.ndarray) -> float:
 
 def test_plain_cpb_bias_bf16_within_one_ulp_of_pallas_interpret():
     """The Pallas kernel rounds dx/dy and the layer-1 activations to bf16; the
-    port computes the per-pair MLP in f32 and rounds only the output."""
+    port computes layer 1 in f32 and rounds h1 (before layer 2) and the output."""
     args = _cpb_inputs(21, 2, 8, 8, 16, 32)
     jargs = [jnp.asarray(a) for a in args[:2]] + [jnp.asarray(a, jnp.bfloat16)
                                                   for a in args[2:]]
