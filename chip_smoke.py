@@ -8,10 +8,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device   the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build    nvcc builds of every kernel source, with the compiler's register
             and spill report (a spill fails the run);
-3. ragged   the attention backward in all eight forms at N = 100 and J = 20
-            / 72 / 37 (tails of a row tile, a key tile and a 16-key step; J
-            not a multiple of 8, J odd), f32 and bf16, against its plain
-            version, and two launches bit for bit;
+3. ragged   the attention forward and backward in all eight forms at N =
+            100 and J = 20 / 72 / 37 (tails of a row tile, a key tile and a
+            16-key step; J not a multiple of 8, J odd), f32 and bf16, against
+            their plain versions (the forward at KERNEL_TOL and, in bf16,
+            FWD_ULPS of its largest output; the backward at GRAD_RTOL), and
+            two launches bit for bit;
 3b. cpb-ragged  the CPB forward and backward at (H, W, J) = (8, 8, 4), (9,
             7, 20), (6, 11, 37) and (5, 9, 72) (a 64-token bag's J = 4; W*J
             not a multiple of 16; a J split across two backward tiles), dm 8
@@ -27,9 +29,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
-            the CPB forward and both backward kernels must repeat bit for bit;
-            the bf16 CPB forward's largest error in bf16 ulps of each element
-            and its share of elements equal to the plain version's;
+            every kernel must repeat bit for bit; the bf16 forwards' largest
+            error in bf16 ulps of each element and their share of elements
+            equal to the plain version's;
 5. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
             on synthetic data (B = 8, bf16, seeded weights) at 2500 and 4096
             patches per bag: both forward kernels must be launched once per
@@ -53,10 +55,11 @@ on masked bags):
 7. chains   the bias-less and the span forms, forward and backward, at chain 1
             (n_pad rows x 256 landmark keys) and chain 3 (256 landmark rows x
             n_pad keys) of 2500- and 4096-patch bags (n_pad 2560 / 4352,
-            BG = 64), f32 and bf16, against their plain versions and timed as
-            in phase 4; the spans come from bucketed masks, with an all-invalid
-            bag, invalid landmark rows and a column start past the first key
-            tile.  (Phase 4 also holds the span form with a bias and dropout.)
+            BG = 64), f32 and bf16, against their plain versions, repeated bit
+            for bit and timed as in phase 4; the spans come from bucketed
+            masks, with an all-invalid bag, invalid landmark rows and a column
+            start past the first key tile.  (Phase 4 also holds the span form
+            with a bias and dropout.)
 8. tm-slice ``inference.main`` at 2500 and 4096 patches: exactly 4 bias-less
             forward launches per batch and no backward, finite metrics, one
             batch through the kernels against the plain versions, the eval
@@ -100,6 +103,11 @@ MAIN_FIXDIM = 2500                                     # config/config_mine.yaml
 # |kernel - plain| <= atol + rtol * |plain|: f32 sums run in another order;
 # bf16 outputs are both rounded from f32 and may differ by one bf16 ulp
 KERNEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+# bf16 attention forwards: also max|kernel - plain| <= FWD_ULPS bf16 ulps of
+# max|plain|.  Where outputs are small, KERNEL_TOL's atol is as large as a
+# typical output (chain 3 at 4352 keys: ~0.02, max ~0.1) and would pass a 20%
+# error; the two differ by one rounding of p or of out, one ulp of the largest
+FWD_ULPS = 4
 SLICE_TOL = (3e-2, 2e-2)    # bf16 model through kernels vs through plain versions
 # gradients: |kernel - plain| <= rtol * max|plain| per tensor (sums in another order;
 # bf16 outputs both rounded from f32)
@@ -150,6 +158,19 @@ def _compare(got: torch.Tensor, want: torch.Tensor, tol) -> dict:
     return {"max_abs_err": err.max().item(),
             "max_rel_err": (err.max() / want.abs().max().clamp_min(1e-30)).item(),
             "atol": atol, "rtol": rtol, "ok": ok}
+
+
+def _compare_fwd(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """An attention forward against its plain version: ``_compare`` at
+    KERNEL_TOL and, in bf16, the largest error within FWD_ULPS bf16 ulps of
+    the largest |plain| (``ulps_of_max``)."""
+    cmp = _compare(got, want, KERNEL_TOL[got.dtype])
+    if got.dtype == torch.bfloat16:
+        top = want.float().abs().max().clamp_min(1e-30)
+        cmp["ulps_of_max"] = cmp["max_abs_err"] / torch.exp2(torch.floor(torch.log2(top)) - 7
+                                                             ).item()
+        cmp["ok"] &= cmp["ulps_of_max"] <= FWD_ULPS
+    return cmp
 
 
 def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
@@ -229,6 +250,11 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> dict:
             "equal_share": (got == want).float().mean().item()}
 
 
+def _ulps_bf16(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``_ulps`` of a bf16 output, nothing of an f32 one."""
+    return _ulps(got, want) if got.dtype == torch.bfloat16 else {}
+
+
 def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
     """(forward ms, backward ms) of F.scaled_dot_product_attention(q, k, v,
     attn_mask=mask, scale=1.0), its backward with respect to q, k, v (and the
@@ -277,7 +303,7 @@ def phase_kernels() -> dict:
                                         pairs * (2 * DM * DM + 6 * DM + 1), dtype)
             plain = cpb_bias_plain(*args)
             rows = [{"name": "cpb_bias", **_compare(bias, plain, KERNEL_TOL[dtype]),
-                     **(_ulps(bias, plain) if dtype == torch.bfloat16 else {}),
+                     **_ulps_bf16(bias, plain),
                      "repeats": _repeats(lambda: (cpb_bias(*args),), (bias,)),
                      "ms": _time_ms(lambda: cpb_bias(*args)),
                      "plain_ms": _time_ms(lambda: cpb_bias_plain(*args), iters=5),
@@ -310,9 +336,11 @@ def phase_kernels() -> dict:
             lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, fbias, mask_grad=True)
             out = deform_attention_fwd(q, k, v, fbias)
             torch.cuda.synchronize()
+            plain = deform_attention_fwd_plain(q, k, v, fbias)
             rows.append({"name": "deform_attention_fwd",
-                         **_compare(out, deform_attention_fwd_plain(q, k, v, fbias),
-                                    KERNEL_TOL[dtype]),
+                         **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                         "repeats": _repeats(lambda: (deform_attention_fwd(q, k, v, fbias),),
+                                             (out,)),
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias)),
                          "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(q, k, v, fbias),
                                               iters=5),
@@ -323,11 +351,13 @@ def phase_kernels() -> dict:
             sigma = math.sqrt(KEEP_PROB * (1 - KEEP_PROB) / keep.numel())
             out = deform_attention_fwd(q, k, v, fbias, KEEP_PROB, SEED)
             torch.cuda.synchronize()
-            cmp = _compare(out, deform_attention_fwd_plain(q, k, v, fbias, keep, KEEP_PROB),
-                           KERNEL_TOL[dtype])
+            plain = deform_attention_fwd_plain(q, k, v, fbias, keep, KEEP_PROB)
+            cmp = _compare_fwd(out, plain)
             cmp["kept_share"], cmp["kept_share_sigmas"] = share, (share - KEEP_PROB) / sigma
             cmp["ok"] &= abs(share - KEEP_PROB) < 5 * sigma
-            rows.append({"name": "deform_attention_fwd_dropout", **cmp,
+            rows.append({"name": "deform_attention_fwd_dropout", **cmp, **_ulps_bf16(out, plain),
+                         "repeats": _repeats(lambda: (deform_attention_fwd(
+                             q, k, v, fbias, KEEP_PROB, SEED),), (out,)),
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias,
                                                                      KEEP_PROB, SEED)),
                          "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(
@@ -362,9 +392,11 @@ def phase_kernels() -> dict:
             span = _interval_spans(n, j)
             out = deform_attention_fwd(q, k, v, fbias, KEEP_PROB, SEED, span)
             torch.cuda.synchronize()
+            plain = deform_attention_fwd_plain(q, k, v, fbias, keep, KEEP_PROB, span)
             rows.append({"name": "deform_attention_fwd_span_bias_dropout",
-                         **_compare(out, deform_attention_fwd_plain(
-                             q, k, v, fbias, keep, KEEP_PROB, span), KERNEL_TOL[dtype]),
+                         **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                         "repeats": _repeats(lambda: (deform_attention_fwd(
+                             q, k, v, fbias, KEEP_PROB, SEED, span),), (out,)),
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias,
                                                                      KEEP_PROB, SEED, span))})
             got = deform_attention_bwd(q, k, v, fbias, dout, KEEP_PROB, SEED, span)
@@ -385,7 +417,7 @@ def phase_kernels() -> dict:
                 main = fixdim == MAIN_FIXDIM and dtype == torch.bfloat16
                 if main and e.get("keep_prob", KEEP_PROB) == KEEP_PROB:
                     entries[e["name"]] = e
-            del args, bias, q, k, v, dout, out, keep, fbias, span
+            del args, bias, q, k, v, dout, out, plain, keep, fbias, span
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
@@ -412,10 +444,12 @@ RAGGED = ((100, 20), (100, 72), (100, 37))
 
 
 def phase_ragged() -> None:
-    """The attention backward in every form (bias or none x span or none x
-    dropout or none) at ragged shapes, f32 and bf16, against its plain version
-    at GRAD_RTOL, and two launches bit for bit."""
+    """The attention forward and backward in every form (bias or none x span
+    or none x dropout or none) at ragged shapes, f32 and bf16, against their
+    plain versions (the forward at KERNEL_TOL and, in bf16, FWD_ULPS of its
+    largest output; the backward at GRAD_RTOL), and two launches bit for bit."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
+                                           deform_attention_fwd, deform_attention_fwd_plain,
                                            philox_keep_mask)
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -433,20 +467,31 @@ def phase_ragged() -> None:
                 s = span if form.startswith("span") else None
                 for keep_prob in (1.0, KEEP_PROB):
                     mask = keep if keep_prob < 1.0 else None
-                    run = lambda: deform_attention_bwd(q, k, v, b, dout, keep_prob, SEED, s)
-                    got = run()
+                    case = {"form": form, "keep_prob": keep_prob, "n": n, "j": j, "bg": BG,
+                            "dtype": str(dtype).split(".")[-1]}
+                    fwd = lambda: (deform_attention_fwd(q, k, v, b, keep_prob, SEED, s),)
+                    out = fwd()
+                    torch.cuda.synchronize()
+                    plain = deform_attention_fwd_plain(q, k, v, b, mask, keep_prob, s)
+                    bwd = lambda: deform_attention_bwd(q, k, v, b, dout, keep_prob, SEED, s)
+                    got = bwd()
                     torch.cuda.synchronize()
                     want = deform_attention_bwd_plain(q, k, v, b, dout, mask, keep_prob, s)
                     n_out = 4 if b is not None else 3
-                    e = {"form": form, "keep_prob": keep_prob, "n": n, "j": j, "bg": BG,
-                         "dtype": str(dtype).split(".")[-1],
-                         **_compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype]),
-                         "repeats": _repeats(run, got)}
-                    _line("ragged", **e)
-                    if not (e["ok"] and e["repeats"]) or (b is None) != (got[3] is None):
-                        failures.append(f"{form} keep={keep_prob} N={n} J={j} {dtype}")
+                    for e in ({"pass": "fwd", **case,
+                               **_compare_fwd(out[0], plain),
+                               **_ulps_bf16(out[0], plain), "repeats": _repeats(fwd, out)},
+                              {"pass": "bwd", **case,
+                               **_compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype]),
+                               "repeats": _repeats(bwd, got)}):
+                        _line("ragged", **e)
+                        if not (e["ok"] and e["repeats"]):
+                            failures.append(f"{e['pass']} {form} keep={keep_prob} N={n} J={j} "
+                                            f"{dtype}")
+                    if (b is None) != (got[3] is None):
+                        failures.append(f"bwd {form} N={n} J={j}: dbias is wrong")
     if failures:
-        raise AssertionError(f"attention backward at ragged shapes: {failures}")
+        raise AssertionError(f"attention kernels at ragged shapes: {failures}")
 
 
 # (H, W, J) of the CPB backward: a 64-token bag (8 x 8 queries, 2 x 2 offsets, J = 4,
@@ -558,11 +603,13 @@ def phase_chains() -> dict:
                     lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, mask)
                     out = deform_attention_fwd(q, k, v, span=span)
                     torch.cuda.synchronize()
+                    plain = deform_attention_fwd_plain(q, k, v, span=span)
                     bound_ms, bound_by = _bound(io_bytes, 4 * DH * pairs + 2 * DH * j * uniform,
                                                 dtype)
                     rows.append({"name": f"deform_attention_fwd_{form}",
-                                 **_compare(out, deform_attention_fwd_plain(q, k, v, span=span),
-                                            KERNEL_TOL[dtype]),
+                                 **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                                 "repeats": _repeats(lambda: (deform_attention_fwd(
+                                     q, k, v, span=span),), (out,)),
                                  "ms": _time_ms(lambda: deform_attention_fwd(q, k, v,
                                                                              span=span)),
                                  "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(
@@ -587,7 +634,7 @@ def phase_chains() -> dict:
                                  "library_ms": lib_bwd})
                     if got[3] is not None:
                         failures.append("bias-less backward returned a bias gradient")
-                    del out, got, want, mask
+                    del out, plain, got, want, mask
                 for e in rows:
                     e.update(chain=chain, fixdim=fixdim, dtype=str(dtype).split(".")[-1],
                              bg=BG, n=n, j=j)
@@ -976,14 +1023,9 @@ CHAIN_KERNELS = (
      "deform_attention_bwd_span", "bucketed"),
 )
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-
-
-def _design(name: str) -> dict:
-    """The bf16 CPB kernels, forward and backward, and the bf16 attention
-    backward (every entry here is bf16) run on the tensor cores
-    (``csrc/mma.cuh``); their f32 twins run on the CUDA cores."""
-    tc = name.startswith("deform_attention_bwd") or name in ("cpb_bias", "cpb_bias_bwd")
-    return {"design": "mma.sync"} if tc else {}
+# every bf16 kernel (every entry of the kernels line is bf16) runs on the tensor
+# cores (csrc/mma.cuh); the f32 twins run on the CUDA cores
+DESIGN = "mma.sync"
 
 
 def main() -> int:
@@ -1011,7 +1053,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[count],
                         **{k: e[k] for k in _TIMES},
-                        **_design(name),
+                        "design": DESIGN,
                         "launches_serving_s2500": serving[MAIN_FIXDIM].get(name, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16"})
     for name, source, replaces, count, run in CHAIN_KERNELS:
@@ -1019,7 +1061,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[run][count],
                         "launches_run": run, **{k: e[k] for k in _TIMES},
-                        **_design(name),
+                        "design": DESIGN,
                         "launches_tm_serving_s2500": tm_serving[MAIN_FIXDIM].get(count, 0),
                         "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
                         "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",

@@ -1,73 +1,145 @@
 #!/usr/bin/env python3
-"""Device time of the attention backward's two kernels, form by form, on one CUDA card.
+"""Device time of the attention kernels, forward and backward, form by form, on one CUDA card.
 
-    python3 scripts/profile_attn_bwd.py [--tag NAME] [--iters 10]
+    python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
 
-Builds ``csrc/deform_attn_bwd.cu`` and prints, for each bf16 kernel (``*_tc``)
-of the build, its registers and spill stores from the ptxas log; then, for
-each form at the main path's shapes (BG=64, bf16: the bias form without and
-with dropout at S2500 / S4096, the bias-less Nystrom chains 1 and 3), the
-largest gradient error against the plain version relative to that tensor's
-max, and the device time per launch of the rows and keys kernels under
-``torch.profiler`` (mean of ``--iters`` launches).  One line per item,
-prefixed with ``--tag``, so that runs of two trees can be told apart.
+Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
+the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
+sources and their shared headers, such as another commit's, compares them in
+the same call) into ``build/profile_attn/<tag>/`` and prints, for each kernel
+instantiation of the two builds, its registers and spill stores from the
+ptxas log.  Then, at the main path's shapes (BG=64, bf16): for the forward
+(``"pass": "fwd"``) in every form the main paths run (the bias form without
+and with dropout at S2500 / S4096, the bias-less and span Nystrom chains 1 and
+3 at S2500 / S4096, the span form with bias and dropout at S2500), the largest
+error against the plain version, whether a second launch repeats the first
+bit for bit, and the median device time of one launch over ``--iters``
+CUDA-event timings; for the backward (``"pass": "bwd"``: the bias form without
+and with dropout, the bias-less chains), the largest gradient error against
+the plain version relative to that tensor's max, a digest of the gradients'
+bits (equal digests of two trees: equal results), and the device time per
+launch of the rows and keys kernels under ``torch.profiler`` (mean of
+``--iters`` launches).  One line per item, prefixed with ``--tag``, so that
+runs of two trees can be told apart.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
-import os
 import re
+import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 from sml_tpu_torch.ops.kernels import (_build, deform_attention_bwd,  # noqa: E402
-                                       deform_attention_bwd_plain, philox_keep_mask)
+                                       deform_attention_bwd_plain, deform_attention_fwd,
+                                       deform_attention_fwd_plain, philox_keep_mask)
 
+SOURCES = ("deform_attn", "deform_attn_bwd")
 BG, DH, SEED = 64, 64, 7
-# name: (N, J, bias, keep_prob)
-CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144, True, 0.9),
-         "bias_s4096": (4096, 256, True, 1.0), "bias_drop_s4096": (4096, 256, True, 0.9),
-         "ch3_s2500": (256, 2560, False, 1.0), "ch1_s2500": (2560, 256, False, 1.0),
-         "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
+# forward, name: (N, J, bias, keep_prob, span)
+FWD_CASES = {
+    "bias_s2500": (2500, 144, True, 1.0, False), "bias_drop_s2500": (2500, 144, True, 0.9, False),
+    "bias_s4096": (4096, 256, True, 1.0, False), "bias_drop_s4096": (4096, 256, True, 0.9, False),
+    "ch3_s2500": (256, 2560, False, 1.0, False), "ch1_s2500": (2560, 256, False, 1.0, False),
+    "ch3_s4096": (256, 4352, False, 1.0, False), "ch1_s4096": (4352, 256, False, 1.0, False),
+    "ch3_span_s2500": (256, 2560, False, 1.0, True),
+    "ch1_span_s2500": (2560, 256, False, 1.0, True),
+    "ch3_span_s4096": (256, 4352, False, 1.0, True),
+    "ch1_span_s4096": (4352, 256, False, 1.0, True),
+    "span_bias_drop_s2500": (2500, 144, True, 0.9, True)}
+# backward, name: (N, J, bias, keep_prob)
+BWD_CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144, True, 0.9),
+             "bias_s4096": (4096, 256, True, 1.0), "bias_drop_s4096": (4096, 256, True, 0.9),
+             "ch3_s2500": (256, 2560, False, 1.0), "ch1_s2500": (2560, 256, False, 1.0),
+             "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
+KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn_fwd_kernel"
+                    r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
 
 
-def ptxas_lines(tag: str) -> None:
-    """Registers and spill stores of every tensor-core kernel instantiation."""
+def ptxas(tag: str) -> None:
+    """Registers and spill stores of every kernel instantiation."""
     name, spill = None, "?"
-    for line in _build.build_log("deform_attn_bwd").splitlines():
+    for line in "\n".join(_build.build_log(s) for s in SOURCES).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(rows|keys)_tcILb(\d)ELb(\d)ELb(\d)", m.group(1))
-            name = ("%s_tc bias=%s span=%s drop=%s" % k.groups()) if k else None
+            k = KERNEL.search(m.group(1))
+            name = m.group(1)
+            if k:
+                bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
+                dtype = "f32" if k.group(2).startswith("f") else "bf16"
+                name = f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
-            spill = m.group(1)
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            print(tag, "ptxas", name, "registers", m.group(1), "spill_stores", spill, flush=True)
+            print(json.dumps({"tag": tag, "kernel": name, "registers": int(m.group(1)),
+                              "spill_stores": spill}), flush=True)
             name = None
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tag", default=".")
-    ap.add_argument("--iters", type=int, default=10)
-    args = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(args.tag, "card", card, flush=True)
-    _build.build(["deform_attn_bwd"])
-    ptxas_lines(args.tag)
-    g = torch.Generator(device="cuda").manual_seed(0)
+def _time_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _spans(n: int, j: int) -> torch.Tensor:
+    """(BG, 4) int32 intervals: every sixteenth bag whole, then a bag with no
+    valid row, the rest random."""
+    g = torch.Generator().manual_seed(n + j)
+    r0 = torch.randint(0, n // 2, (BG,), generator=g)
+    c0 = torch.randint(0, j // 2, (BG,), generator=g)
+    span = torch.stack([r0, r0 + torch.randint(1, n // 2, (BG,), generator=g),
+                        c0, c0 + torch.randint(1, j // 2, (BG,), generator=g)], dim=1)
+    span[::16] = torch.tensor([0, n, 0, j])
+    span[1::16, :2] = n
+    return span.to(torch.int32).cuda()
+
+
+def forward(tag: str, iters: int, g: torch.Generator) -> None:
     bf = torch.bfloat16
-    for name, (n, j, has_bias, keep_prob) in CASES.items():
+    for name, (n, j, has_bias, keep_prob, has_span) in FWD_CASES.items():
+        rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
+        q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
+        bias = rn(BG, n, j) if has_bias else None
+        span = _spans(n, j) if has_span else None
+        run = lambda: deform_attention_fwd(q, k, v, bias, keep_prob, SEED, span)
+        out = run()
+        again = run()
+        keep = (philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
+                if keep_prob < 1 else None)
+        want = deform_attention_fwd_plain(q, k, v, bias, keep, keep_prob, span).float()
+        print(json.dumps({"tag": tag, "pass": "fwd", "case": name,
+                          "max_abs_err": (out.float() - want).abs().max().item(),
+                          "equal_share": (out.float() == want).float().mean().item(),
+                          "repeats": torch.equal(out, again),
+                          "ms": _time_ms(run, iters)}), flush=True)
+        del q, k, v, bias, out, again, keep, want
+        torch.cuda.empty_cache()
+
+
+def backward(tag: str, iters: int, g: torch.Generator) -> None:
+    bf = torch.bfloat16
+    for name, (n, j, has_bias, keep_prob) in BWD_CASES.items():
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
         dout = rn(BG, n, DH, scale=1e-2)
@@ -79,24 +151,51 @@ def main() -> None:
         want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob)
         err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                   for a, b in zip(got, want) if a is not None)
-        del want, keep
+        again = run()
+        repeats = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        digest = hashlib.sha256(b"".join(a.view(torch.int16).cpu().numpy().tobytes()
+                                         for a in got if a is not None)).hexdigest()[:16]
+        del want, keep, again
         for _ in range(3):
             run()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.iters):
+            for _ in range(iters):
                 run()
             torch.cuda.synchronize()
         ms = {}
         for e in prof.key_averages():
             m = re.search(r"(rows|keys)_(tc|kernel)", e.key)
             if e.device_type == torch.autograd.DeviceType.CUDA and m:
-                ms[m.group(0)] = round(e.self_device_time_total / 1e3 / args.iters, 4)
-        print(args.tag, name, json.dumps({"max_rel_err": err, "ms": ms,
-                                          "total_ms": round(sum(ms.values()), 4)}), flush=True)
+                ms[m.group(0)] = round(e.self_device_time_total / 1e3 / iters, 4)
+        print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err,
+                          "repeats": repeats, "digest": digest, "ms": ms,
+                          "total_ms": round(sum(ms.values()), 4)}), flush=True)
         del q, k, v, dout, bias, got
         torch.cuda.empty_cache()
 
 
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tag", default="tree")
+    ap.add_argument("--csrc", default=str(_build.CSRC))
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_attn_bwd: no CUDA device", file=sys.stderr)
+        return 1
+    _build.CSRC = Path(args.csrc).resolve()
+    _build.BUILD_DIR = ROOT / "build" / "profile_attn" / args.tag
+    _build.build(SOURCES)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"tag": args.tag, "card": card, "csrc": str(_build.CSRC)}), flush=True)
+    ptxas(args.tag)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    forward(args.tag, args.iters, g)
+    backward(args.tag, args.iters, g)
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,12 +1,12 @@
 // Helpers shared by the attention kernels (deform_attn.cu, deform_attn_bwd.cu):
-// f32 conversions, 16-byte vector loads of float / bfloat16 rows, warp
+// the per-bag span mask and, for the f32 CUDA-core twins (the bf16 kernels'
+// pieces are in attn_tc.cuh), 16-byte vector loads of float rows, warp
 // reductions, the padded shared-memory row stride of K and V, the key tiles
-// that stream K and V through shared memory, the per-bag span mask and the
-// Philox dropout multipliers of a row's key tile.
+// that stream K and V through shared memory and the Philox dropout
+// multipliers of a row's key tile.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
@@ -14,7 +14,6 @@
 namespace attn {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // one 16-byte vector of T, converted to floats
 template <typename T>
@@ -30,32 +29,12 @@ struct Vec16<float> {
     f[3] = v.w;
   }
 };
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-};
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -75,11 +54,7 @@ __host__ __device__ constexpr int row_stride(int dh) {
 }
 
 __device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // -finfo(f32).max, the fill of masked columns (the Pallas kernel's _NEG_INF)
 constexpr float kNegMax = -3.4028234663852886e38f;

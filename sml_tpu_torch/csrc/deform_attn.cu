@@ -17,21 +17,45 @@
 // comes from Philox4x32-10 on (seed, bg, row, col) (philox.cuh), applied after
 // the normalisation and before @ v; no mask reaches device memory.
 //
-// One block per (bg, tile of kRows query rows), the q rows in shared memory.
-// K and V stream through shared memory in tiles of kTile keys, so J has no
-// limit (the Nystrom chain 3 has J = 2560 or 4352).  Each warp owns query
-// rows; per tile and row its lanes take the keys lane + 32 t, reduce the
-// tile's max and sum of exponentials with shuffles, and update the row's
-// running max, running sum and rescaled accumulator (online softmax; the
-// accumulator is f32 in shared memory, two output columns per lane).  A
-// masked column's -f32max keeps a first all-masked tile from poisoning the
-// sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
+// bf16, the tensor-core kernel tc::attn_fwd_tc: one block of kFwdWarps
+// warps per (bg, 16 kFwdWarps query rows), each warp owning 16 rows whose q
+// sits in A fragments in registers for the whole kernel (mma.cuh).  K and V
+// stream in 64-key swizzled tiles through a two-stage cp.async ring, walked
+// twice, with the backward rows kernel's code (attn_tc.cuh):
+//   pass 1: s = q k^T (mma.sync m16n8k16, bf16 operands, f32 sums), the bias,
+//     span mask and key tail on the accumulator fragments, lane-local running
+//     max and sum folded over the lane quad once into lse per row (K only);
+//   pass 2: s again, p = exp(s - lse) * m with m the Philox multiplier on
+//     (seed, bg, row, col), rounded to bf16 straight into A fragments (where
+//     the Pallas kernel rounds attn * mult to v's dtype), out += p V with V by
+//     ldmatrix.trans.
+// out, 16 x 64 f32 per warp in registers, is stored once as bf16.  Nothing of
+// the (BG, N, J) chain reaches device memory.  Two passes, not one online
+// softmax: the normalised p * m is what Pallas rounds, and a rescaled
+// accumulator would round exp(s - running max) instead, in key-tile order;
+// the second q k^T costs 2 DH FLOP per pair.  Pass 1 is the backward's pass 1
+// (the same code, the same sums in the same order), meant to give the
+// backward's lse and p; nvcc compiles the two instantiations apart, and no
+// check on the card holds them bit for bit.  A 32-key half past J (the last
+// tile of J = 144) is skipped.
+//
+// f32, the CUDA-core twin deform_attn_fwd_kernel, the exact-arithmetic
+// reference on the card: one block per (bg, tile of kRows query rows), the q
+// rows in shared memory.  K and V stream through shared memory in tiles of
+// kTile keys, so J has no limit (the Nystrom chain 3 has J = 2560 or 4352).
+// Each warp owns query rows; per tile and row its lanes take the keys lane +
+// 32 t, reduce the tile's max and sum of exponentials with shuffles, and
+// update the row's running max, running sum and rescaled accumulator (online
+// softmax; the accumulator is f32 in shared memory, two output columns per
+// lane).  A masked column's -f32max keeps a first all-masked tile from
+// poisoning the sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
 //
 // What bounds it: at the Nystrom chains (J or N of 2560 / 4352, dh 64, bf16)
-// about 4 * DH FLOP per pair against q, K, V and out read or written once, so
-// operations on the tensor cores would be the bound; the products here run
-// on the CUDA cores in f32.  Chain 3 has 256 rows per bag: 4 row tiles x BG
-// blocks, about 2 blocks per SM at BG = 64 (the keys are not split yet).
+// about 4 * DH FLOP per pair against q, K, V and out read or written once:
+// operations on the tensor cores (the kernel issues 6 * DH, q k^T twice); at
+// the deformable attention's J = 144, the bias stream, bytes.  Chain 3 has
+// 256 rows per bag: 4 row blocks x BG, about 2 blocks of 4 warps per SM at BG
+// = 64 (the keys are not split yet), so it is latency-bound there.
 //
 // C entry: deform_attn_fwd(dtype, q, k, v, bias, span, out, BG, N, J, DH,
 //                          keep_prob, inv_keep, seed, device, stream)
@@ -44,7 +68,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "attn_common.cuh"
+#include "attn_tc.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -165,6 +193,118 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+}  // namespace
+
+// ---- bf16: the tensor-core kernel --------------------------------------------
+
+namespace tc {
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // query rows per block
+// blocks per SM for 16 warps, so at most 128 registers a thread: with no
+// minimum, ptxas held the bias forms at 96 and spilled
+constexpr int kFwdMinBlocks = 512 / kFwdThreads;
+
+// Block (row tile, bg), warp w owns rows row0 + 16 w .. + 15, lane (g, t) the
+// rows g and g + 8 of them and, in each n8 tile of keys, the columns 2t and
+// 2t + 1; in the output, the columns 8 n + 2t, 8 n + 2t + 1 of n8 tile n.
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ bias,
+            const int* __restrict__ span, bf16* __restrict__ out, int N, int J,
+            float keep_prob, float inv_keep, unsigned long long seed) {
+  __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
+  const int bg = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow0 = blockIdx.x * kFwdRows + warp * 16;
+  const int row[2] = {wrow0 + mma::frag_row(lane, 0), wrow0 + mma::frag_row(lane, 2)};
+  const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
+  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
+  const bool uniform[2] = {HAS_SPAN && mask.uniform(row[0]),
+                           HAS_SPAN && mask.uniform(row[1])};
+  const bf16* kg = k + (size_t)bg * J * 64;
+  const bf16* vg = v + (size_t)bg * J * 64;
+  const bf16* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  const int nt = (J + kBlock - 1) / kBlock;
+  auto stage = [&](int it) {  // pass 1 reads K only, pass 2 K and V
+    if (it < nt)
+      stage_tile<kFwdThreads>(kg, s_kv[it & 1][0], it * kBlock, J);
+    else
+      stage_pair<kFwdThreads>(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], (it - nt) * kBlock, J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  uint32_t qa[4][4];  // this warp's 16 rows of q as A fragments
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    mma::load_a_global(qa[ks], q + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
+  RowStats st;  // pass 1: lane-local statistics, folded over the lane quad at its end
+  float lse_r[2] = {0.f, 0.f}, no_delta[2];
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < 2 * nt; ++it) {
+    if (it + 1 < 2 * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool pass2 = it >= nt;
+    const int j0 = (pass2 ? it - nt : it) * kBlock;
+    if (it == nt) stats_fold<false>(st, lse_r, no_delta);
+    const bf16* sk = s_kv[it & 1][0];
+    const bf16* sv = s_kv[it & 1][1];
+#pragma unroll
+    for (int c0 = 0; c0 < kBlock; c0 += 32) {
+      if (j0 + c0 >= J) break;  // a half of the last tile past J
+      float s[4][4];
+      product_nt(qa, sk, c0, lane, s);
+      // s[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      mask_scores<HAS_BIAS, HAS_SPAN>(s, bias_bg, N, J, row, j0 + c0, col, mask, uniform);
+      if (!pass2) {
+        stats_update<false>(st, s, s);
+        continue;
+      }
+      // pass 2: p * m (in s), rounded to bf16 as the A operand of out += p V
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 m = make_float2(1.f, 1.f);
+          if (DROP) m = drop_pair(seed, j0 + c0 + 8 * i + col, row[h], bg, keep_prob, inv_keep);
+          s[i][2 * h] = exp_f(s[i][2 * h] - lse_r[h]) * m.x;
+          s[i][2 * h + 1] = exp_f(s[i][2 * h + 1] - lse_r[h]) * m.y;
+        }
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        uint32_t a[4];
+        mma::accum_to_a(a, s[2 * kb], s[2 * kb + 1]);
+        product_nn(o, a, sv, c0 + 16 * kb, lane);
+      }
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bg * N + row[h]) * 64 + 8 * n + col) =
+            __floats2bfloat162_rn(o[n][2 * h], o[n][2 * h + 1]);
+}
+
+}  // namespace tc
+
+namespace {
+
 struct Args {
   const void *q, *k, *v, *bias;
   const int* span;
@@ -175,20 +315,40 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch_tc(const Args& a) {
+  using tc::bf16;
+  auto kernel = tc::attn_fwd_tc<HAS_BIAS, HAS_SPAN, DROP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.N + tc::kFwdRows - 1) / tc::kFwdRows, a.BG), tc::kFwdThreads, 0,
+           a.stream>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.bias),
+                       a.span, static_cast<bf16*>(a.out), a.N, a.J, a.keep_prob,
+                       a.inv_keep, a.seed);
+  return cudaGetLastError();
+}
+
+// bf16 to the tensor-core kernel, f32 to the CUDA-core twin
 template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
 cudaError_t launch(const Args& a) {
-  constexpr int DH = 64;
-  constexpr size_t smem = smem_bytes<T, DH>();
-  auto kernel = deform_attn_fwd_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + kRows - 1) / kRows, a.BG);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.bias), a.span, static_cast<T*>(a.out), a.N, a.J,
-      a.keep_prob, a.inv_keep, a.seed);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
+  } else {
+    constexpr int DH = 64;
+    constexpr size_t smem = smem_bytes<T, DH>();
+    auto kernel = deform_attn_fwd_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.N + kRows - 1) / kRows, a.BG);
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.bias), a.span, static_cast<T*>(a.out), a.N, a.J,
+        a.keep_prob, a.inv_keep, a.seed);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -39,7 +39,9 @@
 // per pair: q k^T and dout v^T three times (pass 1, pass 2, keys kernel).
 //
 // bf16, the tensor-core kernels (*_tc): every product is a warp-level
-// mma.sync m16n8k16, bf16 operands and f32 sums (mma.cuh), four warps per
+// mma.sync m16n8k16, bf16 operands and f32 sums (mma.cuh); the rows kernel's
+// scores, masks, multipliers and pass-1 statistics are the forward's own code
+// (attn_tc.cuh, shared with deform_attn.cu's attn_fwd_tc), four warps per
 // block, each warp owning 16 query rows (rows kernel) or 16 keys (keys
 // kernel).  The streamed operand (K and V, or q and dout) comes through a
 // two-stage cp.async ring of swizzled 64 x 64 tiles read with ldmatrix; the
@@ -86,6 +88,7 @@
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "attn_tc.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -384,90 +387,13 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: the tensor-core kernels ------------------------------------------
+}  // namespace
+
+// ---- bf16: the tensor-core kernels (shared pieces: attn_tc.cuh) -------------
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;             // 4 warps, 16 rows (rows kernel) or keys each
-constexpr int kBlock = 64;                // rows (keys) per block, keys (rows) per tile
-constexpr int kTile = kBlock * 64;        // elements of one swizzled 64 x DH tile
 constexpr int kBiasLd = kBlock + 8;       // keys kernel: padded row of the bias tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float exp_f(float x) { return exp2f(x * kLog2e); }
-
-// elements (r, j) and (r, j + 1), j even, of a row-major (rows, J) bf16
-// matrix at p = &m[r][j]; j + 1 may be J when J is odd
-__device__ __forceinline__ float2 load_pair(const bf16* p, int j, int J) {
-  if (!(J & 1)) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  return make_float2(__bfloat162float(p[0]), j + 1 < J ? __bfloat162float(p[1]) : 0.f);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y, int j, int J) {
-  if (!(J & 1)) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-    return;
-  }
-  p[0] = __float2bfloat16(x);
-  if (j + 1 < J) p[1] = __float2bfloat16(y);
-}
-
-// Stage rows [r0, r0 + kBlock) of two (n, 64) bf16 matrices (a, b) in the
-// swizzled tiles sa, sb by cp.async, rows >= n zero-filled.
-__device__ __forceinline__ void stage_pair(const bf16* a, const bf16* b, bf16* sa, bf16* sb,
-                                           int r0, int n) {
-  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = r0 + r < n;
-    const size_t off = (size_t)(ok ? r0 + r : 0) * 64 + c * 8;
-    mma::cp_async16(mma::smem_u32(sa + mma::swz64(r, c)), a + off, ok);
-    mma::cp_async16(mma::smem_u32(sb + mma::swz64(r, c)), b + off, ok);
-  }
-}
-
-// acc_a (16 x 32) = A_a X^T and acc_b = A_b Y^T over the 32 rows c0.. of the
-// swizzled 64 x 64 tiles x, y (rows: the n of the products); A_a, A_b: 16 x 64
-// operands as 4 k-steps of A fragments.
-__device__ __forceinline__ void products_nt(const uint32_t (&a_a)[4][4],
-                                            const uint32_t (&a_b)[4][4], const bf16* x,
-                                            const bf16* y, int c0, int lane,
-                                            float (&acc_a)[4][4], float (&acc_b)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_b[i][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      const int at = mma::swz64(c0 + 16 * np + (lane & 7) + ((lane >> 4) << 3),
-                                2 * ks + ((lane >> 3) & 1));
-      uint32_t b[4];
-      mma::ldmatrix_x4(b, mma::smem_u32(x + at));
-      mma::mma_bf16(acc_a[2 * np], a_a[ks], b[0], b[1]);
-      mma::mma_bf16(acc_a[2 * np + 1], a_a[ks], b[2], b[3]);
-      mma::ldmatrix_x4(b, mma::smem_u32(y + at));
-      mma::mma_bf16(acc_b[2 * np], a_b[ks], b[0], b[1]);
-      mma::mma_bf16(acc_b[2 * np + 1], a_b[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x 64) += A X over the 16 rows c0.. of the swizzled tile x (the k of
-// the product), B by ldmatrix.trans.
-__device__ __forceinline__ void product_nn(float (&acc)[8][4], const uint32_t (&a)[4],
-                                           const bf16* x, int c0, int lane) {
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    uint32_t b[4];
-    mma::ldmatrix_x4_trans(b, mma::smem_u32(x + mma::swz64(c0 + (lane & 7) +
-                                                              (((lane >> 3) & 1) << 3),
-                                                          2 * np + (lane >> 4))));
-    mma::mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
 
 // Rows kernel: block (row tile, bg), warp w owns rows row0 + 16 w .. + 15,
 // lane (g, t) the rows g and g + 8 of them and, in each n8 tile of keys, the
@@ -506,9 +432,8 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma::load_a_global(qa[ks], q + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
     mma::load_a_global(oa[ks], dout + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
   }
-  // pass 1 keeps lane-local statistics of its own columns, combined over the
-  // lane quad once at the end
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, d_run[2] = {0.f, 0.f};
+  const bf16* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  RowStats st;  // pass 1: lane-local statistics, folded over the lane quad at its end
   float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
   float dq_acc[8][4];
 #pragma unroll
@@ -527,72 +452,36 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool pass2 = it >= nt;
     const int j0 = (pass2 ? it - nt : it) * kBlock;
     if (it == nt) {
+      stats_fold<true>(st, lse_r, delta_r);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = fmaxf(m_run[h], __shfl_xor_sync(kFull, m_run[h], 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float sc = exp_f(m_run[h] - mx);
-        float l = l_run[h] * sc, d = d_run[h] * sc;
-        l += __shfl_xor_sync(kFull, l, 1);
-        d += __shfl_xor_sync(kFull, d, 1);
-        l += __shfl_xor_sync(kFull, l, 2);
-        d += __shfl_xor_sync(kFull, d, 2);
-        lse_r[h] = mx + logf(l);
-        delta_r[h] = d / l;
+      for (int h = 0; h < 2; ++h)
         if (col == 0 && row[h] < N) {
           lse[(size_t)bg * N + row[h]] = lse_r[h];
           delta[(size_t)bg * N + row[h]] = delta_r[h];
         }
-      }
     }
     const bf16* sk = s_kv[it & 1][0];
     const bf16* sv = s_kv[it & 1][1];
 #pragma unroll
     for (int c0 = 0; c0 < kBlock; c0 += 32) {
       float s[4][4], dp[4][4];
-      products_nt(qa, oa, sk, sv, c0, lane, s, dp);
+      product_nt(qa, sk, c0, lane, s);
+      product_nt(oa, sv, c0, lane, dp);
       // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      mask_scores<HAS_BIAS, HAS_SPAN>(s, bias_bg, N, J, row, j0 + c0, col, mask, uniform);
+      if (DROP) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = j0 + c0 + 8 * i + col;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2 b = make_float2(0.f, 0.f);
-          if (HAS_BIAS && j < J && row[h] < N)
-            b = load_pair(bias + ((size_t)bg * N + row[h]) * J + j, j, J);
-          uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-          if (DROP) bits = philox::bits4(seed, j >> 2, row[h], bg);
-#pragma unroll
-          for (int w = 0; w < 2; ++w) {
-            float& x = s[i][2 * h + w];
-            x = j + w < J ? mask_score<HAS_SPAN>(x + (w ? b.y : b.x), mask, uniform[h], j + w)
-                          : kNegMax;
-            if (DROP)
-              dp[i][2 * h + w] *=
-                  philox::keep(philox::word(bits, (j & 3) + w), keep_prob) ? inv_keep : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const float2 m = drop_pair(seed, j0 + c0 + 8 * i + col, row[h], bg, keep_prob,
+                                       inv_keep);
+            dp[i][2 * h] *= m.x;
+            dp[i][2 * h + 1] *= m.y;
           }
-        }
       }
       if (!pass2) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float mx = m_run[h];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * h], s[i][2 * h + 1]));
-          const float sc = exp_f(m_run[h] - mx);
-          float l = 0.f, d = 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int w = 0; w < 2; ++w) {
-              const float e = exp_f(s[i][2 * h + w] - mx);
-              l += e;
-              d = fmaf(e, dp[i][2 * h + w], d);
-            }
-          l_run[h] = fmaf(l_run[h], sc, l);
-          d_run[h] = fmaf(d_run[h], sc, d);
-          m_run[h] = mx;
-        }
+        stats_update<true>(st, s, dp);
         continue;
       }
       // pass 2: ds (in s), dbias, then dq += ds k
@@ -814,6 +703,8 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 }  // namespace tc
+
+namespace {
 
 struct Args {
   const void *q, *k, *v, *bias;

@@ -32,17 +32,20 @@ against q, k, v and out read or written once.
 
 What the designs do about it: every input byte is read once and the
 (BG, N, J) chain never leaves the SM in either direction.  K and V stream
-through shared memory in tiles of 128 keys with an online softmax (running
-max, running sum, rescaled accumulator), so J has no limit.  The forward runs
-one block per (bg, 64 query rows), one warp per row; the backward splits into
-a rows kernel (two passes over the key tiles: each row's log-sum-exp and
-delta = sum_j p dp, then dq and dbias) and a keys kernel that recomputes ds
-from them and sums dk and dv over all rows inside one block, so it needs no
-atomics, no partial sums and no (BG, N, J) scratch (see the source note).
-Ragged row and key tiles are masked in the kernels.  The forward's products
-run on the CUDA cores.  In bf16 the backward's run on the tensor cores
-(warp-level ``mma.sync``, ``csrc/mma.cuh``); its f32 forms keep CUDA-core
-twins, the exact-arithmetic reference on the card.
+through shared memory in key tiles, so J has no limit.  The forward runs one
+block per (bg, 64 query rows) and walks the key tiles twice: each row's
+log-sum-exp, then p = exp(s - lse) * m rounded to bf16 and out += p v; the
+backward splits into a rows kernel (two passes over the key tiles: each row's
+log-sum-exp and delta = sum_j p dp, then dq and dbias) and a keys kernel that
+recomputes ds from them and sums dk and dv over all rows inside one block, so
+it needs no atomics, no partial sums and no (BG, N, J) scratch (see the
+source notes).  Ragged row and key tiles are masked in the kernels.  In bf16
+every product of both runs on the tensor cores (warp-level ``mma.sync``,
+``csrc/mma.cuh``), and the forward's first pass is the backward rows kernel's
+own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
+checked bit for bit on the card: the forward returns no lse); the f32
+forms keep CUDA-core twins (the forward one warp per row with an online
+softmax), the exact-arithmetic reference on the card.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -171,13 +174,15 @@ def _multiplier(keep, keep_prob):
 
 
 def deform_attention_fwd_plain(q, k, v, bias=None, keep=None, keep_prob=1.0, span=None):
-    """(BG, N, dh) in q's dtype; the chain in f32.  ``keep`` (BG, N, J) is an
-    explicit {0, 1} mask of kept probabilities (None: no dropout)."""
+    """(BG, N, dh) in q's dtype; the chain in f32, the kept probabilities
+    rounded to v's dtype before the product with v, where ``_attn_fwd_kernel``
+    rounds them.  ``keep`` (BG, N, J) is an explicit {0, 1} mask of kept
+    probabilities (None: no dropout)."""
     p = _probs(q, k, bias, span)
     mult = _multiplier(keep, keep_prob)
     if mult is not None:
         p = p * mult
-    return torch.einsum("bnj,bjd->bnd", p, v.float()).to(q.dtype)
+    return torch.einsum("bnj,bjd->bnd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def _count(fn, bias, span, keep_prob) -> None:

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 
 from sml_tpu.ops.pallas.deform_attn import deform_attention_trainable, fused_cpb_bias
 from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_plain, deform_attention_fwd,
-                                       deform_attention_fwd_plain)
+                                       deform_attention_fwd_plain, philox_keep_mask)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -117,16 +117,32 @@ def test_cuda_cpb_bias_matches_plain(dtype, bg, h, w, j, dm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bg,n,j", [(4, 100, 144), (4, 100, 20), (4, 100, 72), (4, 100, 37)])
+@pytest.mark.parametrize("form", ["bias", "nobias", "span", "span_bias"])
+@pytest.mark.parametrize("keep_prob", [1.0, 0.9])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_deform_attention_matches_plain(dtype):
+def test_cuda_deform_attention_matches_plain(dtype, keep_prob, form, bg, n, j):
+    """Every form (bias or none x span or none x dropout or none) at J = 144
+    and the ragged J = 20 / 72 / 37 (a partial 64-key tile, J not a multiple
+    of 8, J odd) with N = 100 (a partial row tile); the span batch has an
+    interior interval, a whole bag, a bag with no valid row and one with no
+    valid column.  A second launch must return the first one's output bit for
+    bit."""
     dev = _cuda()
-    q, k, v, bias = (torch.from_numpy(a).to(dev, dtype)
-                     for a in _attn_inputs(2, 4, 100, 144))
+    q, k, v, bias = (torch.from_numpy(a).to(dev, dtype) for a in _attn_inputs(2, bg, n, j))
+    bias = bias if form in ("bias", "span_bias") else None
+    span = None
+    if form.startswith("span"):
+        span = torch.tensor([[7, n - 7, 3, j - 3], [0, n, 0, j], [n, n, 0, j], [0, n, j, j]],
+                            dtype=torch.int32, device=dev)[:bg]
+    keep = (philox_keep_mask(5, bg, n, j, keep_prob, device=dev) if keep_prob < 1.0
+            else None)
     before = deform_attention_fwd.launches
-    got = deform_attention_fwd(q, k, v, bias)
+    got = deform_attention_fwd(q, k, v, bias, keep_prob, 5, span)
     torch.cuda.synchronize()
     assert deform_attention_fwd.launches == before + 1
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2,
                                                                          atol=2e-2)
-    torch.testing.assert_close(got.float(),
-                               deform_attention_fwd_plain(q, k, v, bias).float(), **tol)
+    torch.testing.assert_close(got.float(), deform_attention_fwd_plain(
+        q, k, v, bias, keep, keep_prob, span).float(), **tol)
+    assert torch.equal(deform_attention_fwd(q, k, v, bias, keep_prob, 5, span), got)

@@ -333,8 +333,10 @@ def test_plain_cpb_bias_bf16_within_one_ulp_of_pallas_interpret():
 
 
 def test_plain_deform_attention_bf16_within_one_ulp_of_pallas_interpret():
-    """The Pallas kernel rounds p to v's dtype before p @ v; the port keeps p
-    in f32 and rounds only the output (see ROADMAP 'Faults')."""
+    """The Pallas kernel rounds p to v's dtype before p @ v, and so does the
+    port's plain forward (and its bf16 kernel): both sum p v in f32 and round
+    the output; ``test_plain_deform_attention_bf16_rounds_p_where_pallas_does``
+    holds them closer."""
     q, k, v, bias, _ = _attn_inputs(22, 2, 100, 16)
     want = np.asarray(j_attn_trainable(*(jnp.asarray(a, jnp.bfloat16)
                                          for a in (q, k, v, bias)),
@@ -342,6 +344,48 @@ def test_plain_deform_attention_bf16_within_one_ulp_of_pallas_interpret():
     got = deform_attention_fwd_plain(*(t.bfloat16() for t in _t((q, k, v, bias)))
                                      ).float().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=_bf16_ulp_of_scale(want))
+
+
+@pytest.mark.parametrize("bg,n,j,form,keep_prob", [
+    (2, 100, 16, "bias", 1.0), (2, 128, 144, "bias", 1.0), (2, 64, 256, "bias", 1.0),
+    (2, 100, 72, "bias", 0.9), (3, 100, 72, "span", 1.0)])
+def test_plain_deform_attention_bf16_rounds_p_where_pallas_does(bg, n, j, form, keep_prob):
+    """The plain bf16 forward rounds the kept probabilities p * m to v's dtype
+    before the product with v, where ``_attn_fwd_kernel`` rounds them: against
+    the interpret-mode Pallas kernel on bf16 inputs at least 99.9% of the
+    elements are equal and none is more than 1/16 of a bf16 ulp of the
+    output's scale away.  The dropout case feeds one numpy {0, 1} mask to the
+    Pallas kernel's mask operand and to the plain version; the span form has
+    an interior interval, a whole bag and a bag with no valid row.  The
+    control, p kept in f32 (v given in f32), misses the share of equal
+    elements."""
+    q, k, v, bias, _ = _attn_inputs(22, bg, n, j)
+    bias = bias if form == "bias" else None
+    span = None
+    if form == "span":
+        span = np.asarray([[7, n - 7, 3, j - 3], [0, n, 0, j], [n, n, 0, j]], np.int32)[:bg]
+    mask = None
+    if keep_prob < 1.0:
+        mask = (np.random.default_rng(j).uniform(size=(bg, n, j)) < keep_prob
+                ).astype(np.float32)
+    leaves = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(j_attn_trainable(
+        *leaves, None if bias is None else jnp.asarray(bias, jnp.bfloat16),
+        None if mask is None else jnp.asarray(mask), None,
+        None if span is None else jnp.asarray(span), keep_prob, True
+    ).astype(jnp.float32))
+    tq, tk, tv = (t.bfloat16() for t in _t((q, k, v)))
+    tb = None if bias is None else torch.from_numpy(bias).bfloat16()
+    keep = None if mask is None else torch.from_numpy(mask)
+    tspan = None if span is None else torch.from_numpy(span)
+    bound = _bf16_ulp_of_scale(want) / 16
+
+    got = deform_attention_fwd_plain(tq, tk, tv, tb, keep, keep_prob, tspan).float().numpy()
+    assert (got == want).mean() >= 0.999, (got == want).mean()
+    assert np.abs(got - want).max() <= bound, (np.abs(got - want).max(), bound)
+    control = deform_attention_fwd_plain(tq, tk, tv.float(), tb, keep, keep_prob,
+                                         tspan).float().numpy()
+    assert (control == want).mean() < 0.999, (control == want).mean()
 
 
 @pytest.mark.parametrize("bad", ["dbias_shape", "dbias_dtype"])
