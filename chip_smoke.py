@@ -8,7 +8,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device   the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build    nvcc builds of every kernel source, with the compiler's register
             and spill report (a spill fails the run);
-3. ragged   the attention forward and backward in all eight forms at N =
+3. ragged   the attention forward and backward in all eight forms, and the
+            f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
             100 and J = 20 / 72 / 37 (tails of a row tile, a key tile and a
             16-key step; J not a multiple of 8, J odd), f32 and bf16, against
             their plain versions (the forward at KERNEL_TOL and, in bf16,
@@ -31,7 +32,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
             every kernel must repeat bit for bit; the bf16 forwards' largest
             error in bf16 ulps of each element and their share of elements
-            equal to the plain version's;
+            equal to the plain version's; then the f32-bias forms at the 1-D
+            path's shape (BG = 64, N = 2501, J = 625), dbias at the f32 bound;
 5. slice    the port's serving entry point, ``sml_tpu_torch.inference.main``,
             on synthetic data (B = 8, bf16, seeded weights) at 2500 and 4096
             patches per bag: both forward kernels must be launched once per
@@ -71,6 +73,21 @@ on masked bags):
 10. bucketed ``main.main`` with ``--variable_bags true --bucket_sizes
              1024,2500`` for one epoch and its Val / Test: span launches in both
             directions, every batch's loss and outputs finite.
+
+The other deformpathomic configurations and the modes without a kernel:
+
+11. deform-masked  phase 10's run for deformpathomic (masked bags zeroed, no
+            span: each kernel twice per train step), then phase 5 at fixdim
+            2000 (45 x 45 queries, J = 121);
+12. deform-1d  ``--attn_dim 1`` at 2500 patches (N = 2501, J = 625): phases 5
+            and 6 with the f32-bias forms of the attention forward and
+            backward (no CPB kernel, no dropout);
+13. deform-fusion  phase 6 with ``--fusion_type pofusion``: the BatchNorm
+            running averages moved, finite, written to ``best_modal.npz`` and
+            read back by ``inference.main --weights``;
+14. modes   omic, path with ABMIL (fixed and bucketed bags), pathomic
+            (concat and pofusion) and pathomic_original: one short epoch
+            each, no kernel launch, finite metrics, a train step's time.
 
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -129,6 +146,13 @@ KEEP_PROB, SEED = 0.9, 20240611       # the attention dropout of the training pa
 NYSTROM_M = 256
 N_PAD = {2500: 2560, 4096: 4352}
 TM_FLAGS = {"mode": "path", "path_arch": "transmil"}
+# the 1-D deformable path (attn_dim 1): the cls token and 2500 patches, J = Nd
+# of the stride-4 offset conv; its bias is f32 beside bf16 q, k, v
+D1_FLAGS = {"attn_dim": 1, "return_vgrid": False}
+D1_N, D1_J = 2501, 625
+PATH_FLAGS = {"transmil": TM_FLAGS, "deform1d": D1_FLAGS}
+LABELS = {"deformpathomic": ("slice", "train"), "transmil": ("tm-slice", "tm-train"),
+          "deform1d": ("deform-1d", "deform-1d")}
 
 
 def _line(phase: str, **fields) -> None:
@@ -231,6 +255,23 @@ def _compare_grads(got, want, rtol: float, l2: bool = False) -> dict:
         worst, worst_l2 = max(worst, err), max(worst_l2, rel)
     return {"max_abs_err": worst, "max_rel_l2_err": worst_l2, "rtol": rtol,
             "metric": "l2" if l2 else "of_scale", "ok": ok}
+
+
+def _compare_f32_dbias(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The f32-bias form's dbias on its own, at the f32 gradient bound:
+    max|kernel - plain| <= GRAD_RTOL[float32] * max|plain| (its other three
+    gradients are bf16, held at GRAD_RTOL[bfloat16]).  As a control the plain
+    dbias rounded through bf16 (up to 2^-9 of each element) must miss the same
+    bound, so that a kernel which rounded dbias would fail it too."""
+    rtol = GRAD_RTOL[torch.float32]
+    scale = want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    control = (want.to(torch.bfloat16).float() - want).abs().max().item()
+    ok = (got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+          and err <= rtol * scale < control)
+    return {"dbias_dtype": str(got.dtype).split(".")[-1], "dbias_max_abs_err": err,
+            "dbias_of_scale": err / scale, "dbias_rtol": rtol,
+            "dbias_bf16_control_of_scale": control / scale, "dbias_ok": ok}
 
 
 def _repeats(fn, got) -> bool:
@@ -387,8 +428,9 @@ def phase_kernels() -> dict:
                     "library_ms": lib_bwd if keep_prob == 1.0 else None})
                 del got
 
-            # the span form with a bias and dropout (the 1-D deformable path and
-            # sequence-parallel chain 1 of later slices), on random intervals
+            # the span form with a bias and dropout, on random intervals: no port
+            # path reaches it (JAX reaches it only through the TPU's sampled-point
+            # padding of the 1-D route), and it is held here all the same
             span = _interval_spans(n, j)
             out = deform_attention_fwd(q, k, v, fbias, KEEP_PROB, SEED, span)
             torch.cuda.synchronize()
@@ -419,9 +461,65 @@ def phase_kernels() -> dict:
                     entries[e["name"]] = e
             del args, bias, q, k, v, dout, out, plain, keep, fbias, span
             torch.cuda.empty_cache()
+    for e in _f32_bias_rows():
+        e.update(fixdim=MAIN_FIXDIM, dtype="bfloat16", bias_dtype="float32", bg=BG, n=D1_N,
+                 j=D1_J)
+        _line("kernels", **e)
+        if not e["ok"] or not e["repeats"]:
+            failures.append(f"{e['name']} N={D1_N} J={D1_J}")
+        entries[e["name"]] = e
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
     return entries
+
+
+def _f32_bias_rows() -> list:
+    """The f32-bias form (bf16 q, k, v; no span, no dropout) forward and
+    backward at the 1-D path's shape (BG = 8 bags x 8 heads, N = 2501, J =
+    625).  The library time is F.scaled_dot_product_attention with the bias as
+    attn_mask, which it takes only in q's dtype (bf16)."""
+    from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
+                                           deform_attention_fwd, deform_attention_fwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n, j, bf = D1_N, D1_J, torch.bfloat16
+    q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5).to(bf)
+    k = torch.randn(BG, j, DH, device="cuda", generator=g).to(bf)
+    v = torch.randn(BG, j, DH, device="cuda", generator=g).to(bf)
+    bias = torch.randn(BG, n, j, device="cuda", generator=g)
+    dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(bf)
+    pairs, io = BG * n * j, 2 * (2 * BG * n * DH + 2 * BG * j * DH)
+    lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, bias.to(bf), mask_grad=True)
+    out = deform_attention_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    plain = deform_attention_fwd_plain(q, k, v, bias)
+    # the bias f32: 4 bytes a pair read (and dbias 4 written in the backward)
+    bound_ms, bound_by = _bound(io + 4 * pairs, pairs * (4 * DH + 7), bf)
+    rows = [{"name": "deform_attention_fwd_f32bias", **_compare_fwd(out, plain),
+             **_ulps_bf16(out, plain),
+             "repeats": _repeats(lambda: (deform_attention_fwd(q, k, v, bias),), (out,)),
+             "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, bias)),
+             "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(q, k, v, bias), iters=5),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd,
+             "library_mask_dtype": "bfloat16"}]
+    del out, plain
+    got = deform_attention_bwd(q, k, v, bias, dout)
+    torch.cuda.synchronize()
+    want = deform_attention_bwd_plain(q, k, v, bias, dout)
+    bwd_io = 2 * (3 * BG * n * DH + 4 * BG * j * DH)
+    bound_ms, bound_by = _bound(bwd_io + 8 * pairs, pairs * 10 * DH, bf)
+    rows.append({"name": "deform_attention_bwd_f32bias",
+                 **_compare_grads(got, want, GRAD_RTOL[bf]), **_compare_f32_dbias(got[3], want[3]),
+                 "repeats": _repeats(lambda: deform_attention_bwd(q, k, v, bias, dout), got),
+                 "ms": _time_ms(lambda: deform_attention_bwd(q, k, v, bias, dout)),
+                 "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(q, k, v, bias, dout),
+                                      iters=3),
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_bwd,
+                 "library_mask_dtype": "bfloat16"})
+    rows[-1]["ok"] &= rows[-1]["dbias_ok"]
+    del got, want, q, k, v, bias, dout
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _interval_spans(n: int, j: int) -> torch.Tensor:
@@ -445,14 +543,16 @@ RAGGED = ((100, 20), (100, 72), (100, 37))
 
 def phase_ragged() -> None:
     """The attention forward and backward in every form (bias or none x span
-    or none x dropout or none) at ragged shapes, f32 and bf16, against their
-    plain versions (the forward at KERNEL_TOL and, in bf16, FWD_ULPS of its
-    largest output; the backward at GRAD_RTOL), and two launches bit for bit."""
+    or none x dropout or none) at ragged shapes, f32 and bf16, and the f32
+    bias beside bf16 q, k, v, against their plain versions (the forward at
+    KERNEL_TOL and, in bf16, FWD_ULPS of its largest output; the backward at
+    GRAD_RTOL), and two launches bit for bit."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
                                            deform_attention_fwd, deform_attention_fwd_plain,
                                            philox_keep_mask)
 
     g = torch.Generator(device="cuda").manual_seed(2)
+    g32 = torch.Generator(device="cuda").manual_seed(4)      # the f32 biases
     failures = []
     for n, j in RAGGED:
         span = _interval_spans(n, j)
@@ -462,10 +562,15 @@ def phase_ragged() -> None:
             k, v = (torch.randn(2, BG, j, DH, device="cuda", generator=g) * 2).to(dtype)
             bias = torch.randn(BG, n, j, device="cuda", generator=g).to(dtype)
             dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
-            for form in ("bias", "nobias", "span", "span_bias"):
+            # bf16 q, k, v with an f32 bias: the 1-D path's form (no span, no dropout)
+            forms = ("bias", "nobias", "span", "span_bias") + (
+                ("bias_f32",) if dtype == torch.bfloat16 else ())
+            for form in forms:
                 b = bias if form in ("bias", "span_bias") else None
+                if form == "bias_f32":
+                    b = torch.randn(BG, n, j, device="cuda", generator=g32)
                 s = span if form.startswith("span") else None
-                for keep_prob in (1.0, KEEP_PROB):
+                for keep_prob in ((1.0,) if form == "bias_f32" else (1.0, KEEP_PROB)):
                     mask = keep if keep_prob < 1.0 else None
                     case = {"form": form, "keep_prob": keep_prob, "n": n, "j": j, "bg": BG,
                             "dtype": str(dtype).split(".")[-1]}
@@ -478,12 +583,14 @@ def phase_ragged() -> None:
                     torch.cuda.synchronize()
                     want = deform_attention_bwd_plain(q, k, v, b, dout, mask, keep_prob, s)
                     n_out = 4 if b is not None else 3
+                    grads = _compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype])
+                    if form == "bias_f32":
+                        grads.update(_compare_f32_dbias(got[3], want[3]))
+                        grads["ok"] &= grads["dbias_ok"]
                     for e in ({"pass": "fwd", **case,
                                **_compare_fwd(out[0], plain),
                                **_ulps_bf16(out[0], plain), "repeats": _repeats(fwd, out)},
-                              {"pass": "bwd", **case,
-                               **_compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype]),
-                               "repeats": _repeats(bwd, got)}):
+                              {"pass": "bwd", **case, **grads, "repeats": _repeats(bwd, got)}):
                         _line("ragged", **e)
                         if not (e["ok"] and e["repeats"]):
                             failures.append(f"{e['pass']} {form} keep={keep_prob} N={n} J={j} "
@@ -690,26 +797,36 @@ def _plain_kernels():
 # train step of the training path; every other count must stay 0
 SERVE_LAUNCHES = {
     "deformpathomic": {"cpb_bias": 2, "deform_attention_fwd": 2},
-    "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4}}
+    "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4},
+    "deform1d": {"deform_attention_fwd": 2, "deform_attention_fwd_f32bias": 2}}
 TRAIN_LAUNCHES = {
     "deformpathomic": {"cpb_bias": 2, "cpb_bias_bwd": 2, "deform_attention_fwd": 2,
                        "deform_attention_bwd": 2, "deform_attention_fwd_dropout": 2},
     "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4,
-                 "deform_attention_bwd": 4, "deform_attention_bwd_nobias": 4}}
+                 "deform_attention_bwd": 4, "deform_attention_bwd_nobias": 4},
+    "deform1d": {"deform_attention_fwd": 2, "deform_attention_bwd": 2,
+                 "deform_attention_fwd_f32bias": 2, "deform_attention_bwd_f32bias": 2}}
+# the span forms that a masked bag adds to TRAIN_LAUNCHES per train step (and,
+# the forward's, to SERVE_LAUNCHES per eval batch): TransMIL's four masked
+# chains; deformpathomic zeroes its masked tokens and passes no span
+BUCKETED_SPAN = {"transmil": {"deform_attention_fwd_span": 4, "deform_attention_bwd_span": 4},
+                 "deformpathomic": {}}
 OUTPUTS = {"deformpathomic": ("logits", "logits_tumor", "logits_immune", "features"),
-           "transmil": ("logits", "features")}
+           "transmil": ("logits", "features"),
+           "deform1d": ("logits", "logits_tumor", "logits_immune", "features")}
 TRAIN_METRICS = {"deformpathomic": {"loss", "loss3", "batch_sim_loss"},
-                 "transmil": {"loss", "loss3"}}
+                 "transmil": {"loss", "loss3"}, "deform1d": {"loss", "loss3"}}
 
 
 def _flags(path: str, **extra) -> dict:
     base = {"dataset": "synthetic", "batch_size": 8, "compute_dtype": "bfloat16"}
-    return {**base, **(TM_FLAGS if path == "transmil" else {}), **extra}
+    return {**base, **PATH_FLAGS.get(path, {}), **extra}
 
 
-def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic") -> dict:
+def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic",
+                label: str = "") -> dict:
     """The serving path of ``path`` at ``fixdim``; returns the kernels' launch
-    counts."""
+    counts.  Its line is labelled ``label`` (default: the path's)."""
     from sml_tpu_torch import inference
     from sml_tpu_torch.config import Config
     from sml_tpu_torch.data.loader import Loader, build_datasets
@@ -767,7 +884,7 @@ def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic") -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_ms = statistics.median(_host_ms(lambda: step(batch)) for _ in range(10))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _line("tm-slice" if path == "transmil" else "slice", fixdim=fixdim,
+    _line(label or LABELS[path][0], run="serve", fixdim=fixdim,
           batch=config.batch_size, dtype="bfloat16", metrics=metrics, launches=launches,
           expected_launches=want, entry_point_wall_s=round(wall_s, 2),
           max_abs_err={k: c["max_abs_err"] for k, c in checks.items()},
@@ -820,9 +937,51 @@ def _train_entry(flags: dict, ckpt: str):
     return rc, printed, total, eval_l, wall_s
 
 
-def phase_train(card: dict, path: str = "deformpathomic") -> dict:
-    """The training path of ``path`` at S2500 through ``sml_tpu_torch.main``;
-    returns the kernels' launch counts of that run."""
+def _epoch_metrics(printed: str):
+    """(train, val, test) metrics of the first epoch line ``main.main`` printed."""
+    train_m = ast.literal_eval(printed.split(" train=")[1].splitlines()[0])
+    evals = printed.split(" val=")[1]
+    val_m = ast.literal_eval(evals.split(" test=")[0])
+    return train_m, val_m, ast.literal_eval(evals.split(" test=")[1].split(" elapsed_sec")[0])
+
+
+def _train_step_ms(config, model, batch, steps: int, iters: int = 10):
+    """(median host ms of a train step on a device-resident batch, optimizer
+    step included; peak device GB over those steps)."""
+    from sml_tpu_torch.models.factory import define_optimizer
+    from sml_tpu_torch.ops.common import DropoutRNG
+    from sml_tpu_torch.train.state import TrainState
+    from sml_tpu_torch.train.steps import make_train_step
+
+    optimizer, scheduler = define_optimizer(config, model, steps)
+    state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(1, "cuda"))
+    train_step = make_train_step(config, model)
+    for _ in range(2):
+        train_step(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = statistics.median(_host_ms(lambda: train_step(state, batch))
+                                for _ in range(iters))
+    return step_ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _batch_stats(npz_path: str) -> dict:
+    """The BatchNorm running averages stored in a weights file: {key: (finite,
+    moved off the init's 0 / 1)}."""
+    import numpy as np
+
+    with np.load(npz_path) as data:
+        return {k: (bool(np.isfinite(data[k]).all()),
+                    not np.allclose(data[k], 0.0 if k.endswith("/mean") else 1.0))
+                for k in data.files if k.startswith("batch_stats/")}
+
+
+def phase_train(card: dict, path: str = "deformpathomic", extra: dict | None = None,
+                label: str = "") -> dict:
+    """The training path of ``path`` (with the config flags ``extra``) at S2500
+    through ``sml_tpu_torch.main``; returns the kernels' launch counts of that
+    run.  With a BatchNorm in the model, its running averages in
+    ``best_modal.npz`` must have moved and be finite, and ``inference.main
+    --weights`` must reproduce the best epoch's Test metrics."""
     import tempfile
 
     import numpy as np
@@ -832,15 +991,15 @@ def phase_train(card: dict, path: str = "deformpathomic") -> dict:
     from sml_tpu_torch.data.loader import Loader, build_datasets
     from sml_tpu_torch.models.factory import define_net
     from sml_tpu_torch.train.evaluate import batch_to_device
-    from sml_tpu_torch.train.steps import make_grad_step, make_train_step
+    from sml_tpu_torch.train.steps import make_grad_step
 
     flags = _flags(path, synthetic_size=32 if path == "transmil" else 64,
-                   fixdim=MAIN_FIXDIM, epochs=1)
+                   fixdim=MAIN_FIXDIM, epochs=1, **(extra or {}))
     config = Config(**flags)
     steps = len(Loader(build_datasets(config, "Train"), config.batch_size, drop_last=True))
     with tempfile.TemporaryDirectory() as ckpt:
         rc, printed, total, eval_l, wall_s = _train_entry(flags, ckpt)
-        train_m = ast.literal_eval(printed.split(" train=")[1].splitlines()[0])
+        train_m, _, test_m = _epoch_metrics(printed)
         train_l = {k: total[k] - eval_l[k] for k in total}
         want = {k: TRAIN_LAUNCHES[path].get(k, 0) * steps for k in total}
         if rc != 0 or train_l != want:
@@ -859,6 +1018,15 @@ def phase_train(card: dict, path: str = "deformpathomic") -> dict:
         if rc != 0 or not all(math.isfinite(v) for v in served.values()):
             raise AssertionError(f"inference --weights best_modal.npz: rc={rc} {served}")
         n_leaves = len(np.load(weights).files)
+        stats = _batch_stats(weights)
+        served_err = None
+        if stats:
+            # one epoch: its Test metrics are the best epoch's
+            served_err = {k: abs(served[k] - test_m[k]) for k in test_m}
+            if not all(finite and moved for finite, moved in stats.values()) or \
+                    set(served) != set(test_m) or max(served_err.values()) > 1e-5:
+                raise AssertionError(f"BatchNorm statistics {stats}; served {served} vs "
+                                     f"Test {test_m}")
 
     # one train step's loss and gradients, through the kernels and the plain versions
     dev = torch.device("cuda")
@@ -885,22 +1053,11 @@ def phase_train(card: dict, path: str = "deformpathomic") -> dict:
           and all(bool(torch.isfinite(g).all()) for g in g_k.values()))
 
     # time per train step on a device-resident batch (optimizer step included)
-    from sml_tpu_torch.models.factory import define_optimizer
-    from sml_tpu_torch.ops.common import DropoutRNG
-    from sml_tpu_torch.train.state import TrainState
-
-    optimizer, scheduler = define_optimizer(config, model, steps)
-    state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(1, dev))
-    train_step = make_train_step(config, model)
-    for _ in range(2):
-        train_step(state, batch)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = statistics.median(_host_ms(lambda: train_step(state, batch))
-                                for _ in range(10))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    _line("tm-train" if path == "transmil" else "train", fixdim=MAIN_FIXDIM,
-          batch=config.batch_size, dtype="bfloat16",
+    step_ms, peak_gb = _train_step_ms(config, model, batch, steps)
+    _line(label or LABELS[path][1], run="train", fixdim=MAIN_FIXDIM,
+          batch=config.batch_size, dtype="bfloat16", flags=extra or {},
           steps=steps, train_metrics=train_m, served_metrics=served, weight_leaves=n_leaves,
+          batch_stats=stats, served_vs_test_abs_err=served_err,
           launches_total=total, launches_train_steps=train_l, launches_eval=eval_l,
           entry_point_wall_s=round(wall_s, 2), loss_kernel=m_k, loss_plain=m_p,
           loss_abs_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
@@ -914,9 +1071,11 @@ def phase_train(card: dict, path: str = "deformpathomic") -> dict:
     return total
 
 
-def phase_bucketed(card: dict) -> dict:
-    """TransMIL trained for one epoch on bucketed masked bags, then Val and Test;
-    returns the kernels' launch counts of that run."""
+def phase_bucketed(card: dict, path: str = "transmil", label: str = "bucketed") -> dict:
+    """TransMIL (or deformpathomic) trained for one epoch on bucketed masked
+    bags, then Val and Test; returns the kernels' launch counts of that run.
+    TransMIL's masked chains run the span forms; deformpathomic zeroes its
+    masked tokens and runs its forms without a span."""
     import tempfile
     import warnings
 
@@ -924,7 +1083,7 @@ def phase_bucketed(card: dict) -> dict:
     from sml_tpu_torch.data.loader import BucketedLoader, build_datasets
     from sml_tpu_torch.train import loop
 
-    flags = _flags("transmil", synthetic_size=48, fixdim=MAIN_FIXDIM, epochs=1,
+    flags = _flags(path, synthetic_size=48, fixdim=MAIN_FIXDIM, epochs=1,
                    variable_bags=True, bucket_sizes="1024,2500")
     config = Config(**flags)
     train_ds = build_datasets(config, "Train")
@@ -966,28 +1125,84 @@ def phase_bucketed(card: dict) -> dict:
         warnings.simplefilter("ignore")
         rc, printed, total, eval_l, wall_s = _train_entry(flags, ckpt)
     train_l = {k: total[k] - eval_l[k] for k in total}
-    per_step = TRAIN_LAUNCHES["transmil"]
-    want = {k: per_step.get(k, 0) * steps for k in total}
-    want["deform_attention_fwd_span"] = want["deform_attention_bwd_span"] = 4 * steps
+    span = BUCKETED_SPAN[path]
+    want = {k: (TRAIN_LAUNCHES[path].get(k, 0) + span.get(k, 0)) * steps for k in total}
+    eval_batches = len(finite["eval"])
+    want_eval = {k: (SERVE_LAUNCHES[path].get(k, 0) + (span.get(k, 0) if "_fwd" in k else 0))
+                 * eval_batches for k in total}
+    eval_ok = eval_batches > 0 and eval_l == want_eval
     all_finite = {k: len(v) > 0 and bool(torch.stack(v).all()) for k, v in finite.items()}
-    train_m = ast.literal_eval(printed.split(" train=")[1].splitlines()[0])
-    evals = printed.split(" val=")[1]
-    val_m = ast.literal_eval(evals.split(" test=")[0])
-    test_m = ast.literal_eval(evals.split(" test=")[1].split(" elapsed_sec")[0])
-    ok = (rc == 0 and train_l == want and eval_l["deform_attention_fwd_span"] > 0
-          and eval_l["deform_attention_fwd_span"] == eval_l["deform_attention_fwd"]
-          and all(all_finite.values())
+    train_m, val_m, test_m = _epoch_metrics(printed)
+    ok = (rc == 0 and train_l == want and eval_ok and all(all_finite.values())
           and all(math.isfinite(v) for m in (train_m, val_m, test_m) for v in m.values()))
-    _line("bucketed", buckets=config.bucket_list(), steps=steps,
+    _line(label, run="train", path=path, buckets=config.bucket_list(), steps=steps,
+          eval_batches=eval_batches,
           train_batches_per_bucket=per_bucket, launches_total=total,
           launches_train_steps=train_l, expected_train_launches=want,
-          launches_eval=eval_l, batches_finite=all_finite,
+          launches_eval=eval_l, expected_eval_launches=want_eval, batches_finite=all_finite,
           batches_checked={k: len(v) for k, v in finite.items()}, train_metrics=train_m,
           val_metrics=val_m, test_metrics=test_m, entry_point_wall_s=round(wall_s, 2),
           ok=ok, card=card["nvidia_smi"])
     if not ok:
-        raise AssertionError("bucketed TransMIL run: see the [bucketed] line")
+        raise AssertionError(f"bucketed {path} run: see the [{label}] line")
     return total
+
+
+# the modes that run no kernel: (name, flags), one short epoch each
+MODES = (("omic", {"mode": "omic"}),
+         ("path-abmil", {"mode": "path"}),
+         ("path-abmil-bucketed", {"mode": "path", "variable_bags": True,
+                                  "bucket_sizes": "1024,2500", "synthetic_size": 48}),
+         ("pathomic", {"mode": "pathomic"}),
+         ("pathomic-pofusion", {"mode": "pathomic", "fusion_type": "pofusion"}),
+         ("pathomic_original", {"mode": "pathomic_original"}))
+
+
+def phase_modes(card: dict) -> None:
+    """omic, path with ABMIL (fixed and bucketed bags), pathomic (concat and
+    pofusion) and pathomic_original: one short epoch each through
+    ``main.main`` at fixdim 2500 (B = 8, bf16), no kernel launch, finite
+    metrics, and a train step's time on a device-resident batch."""
+    import tempfile
+    import warnings
+
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
+    from sml_tpu_torch.models.factory import define_net
+    from sml_tpu_torch.train.evaluate import batch_to_device
+
+    failures = []
+    for name, extra in MODES:
+        flags = _flags("", **{"synthetic_size": 16, "fixdim": MAIN_FIXDIM, "epochs": 1,
+                              **extra})
+        config = Config(**flags)
+        with tempfile.TemporaryDirectory() as ckpt, warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # a bucket smaller than a batch never trains
+            rc, printed, total, _, wall_s = _train_entry(flags, ckpt)
+            loader_cls = BucketedLoader if config.bucket_list() else Loader
+            loader = loader_cls(build_datasets(config, "Train"), config.batch_size,
+                                shuffle=True, drop_last=True, seed=config.seed)
+            steps = len(loader)
+            batch = next(iter(loader))
+        train_m, val_m, test_m = _epoch_metrics(printed)
+        batch.pop("sample_mask")
+        model = define_net(config, "cuda", train=True)
+        step_ms, peak_gb = _train_step_ms(config, model,
+                                          batch_to_device(config, batch, torch.device("cuda")),
+                                          steps, iters=5)
+        ok = (rc == 0 and steps > 0 and not any(total.values())
+              and all(math.isfinite(v) for m in (train_m, val_m, test_m) for v in m.values()))
+        _line("modes", run=name, flags=extra, steps=steps, launches=total,
+              train_metrics=train_m, val_metrics=val_m, test_metrics=test_m,
+              entry_point_wall_s=round(wall_s, 2), train_step_ms=step_ms,
+              bags_per_s=config.batch_size / (step_ms / 1e3), peak_mem_gb=peak_gb, ok=ok,
+              card=card["nvidia_smi"])
+        if not ok:
+            failures.append(name)
+        del model
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"modes without kernels: {failures}")
 
 
 def _host_ms(fn) -> float:
@@ -1022,6 +1237,14 @@ CHAIN_KERNELS = (
     ("deform_attention_bwd_span", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:958",
      "deform_attention_bwd_span", "bucketed"),
 )
+# the f32-bias forms of the 1-D path: (entry name, source, replaces, launch-count
+# key, the run whose counts they report: the deform-1d train run)
+F32_BIAS_KERNELS = (
+    ("deform_attention_fwd_f32bias", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:1016",
+     "deform_attention_fwd_f32bias", "deform-1d"),
+    ("deform_attention_bwd_f32bias", "sml_tpu_torch/csrc/deform_attn_bwd.cu",
+     f"{PALLAS}:1044", "deform_attention_bwd_f32bias", "deform-1d"),
+)
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # every bf16 kernel (every entry of the kernels line is bf16) runs on the tensor
 # cores (csrc/mma.cuh); the f32 twins run on the CUDA cores
@@ -1047,6 +1270,17 @@ def main() -> int:
     chains = phase_chains()
     tm_serving = {fixdim: phase_slice(fixdim, card, "transmil") for fixdim in SHAPES}
     runs = {"tm-train": phase_train(card, "transmil"), "bucketed": phase_bucketed(card)}
+    # 11. deform-masked: bucketed bags (J = 64 / 144), then a non-square fixdim
+    # (2000 patches padded to 45 x 45, J = 121)
+    phase_bucketed(card, "deformpathomic", "deform-masked")
+    phase_slice(2000, card, label="deform-masked")
+    # 12. deform-1d: attn_dim 1 at 2500 patches (N = 2501, J = 625)
+    d1_serving = phase_slice(MAIN_FIXDIM, card, "deform1d")
+    runs["deform-1d"] = phase_train(card, "deform1d")
+    # 13. deform-fusion: BilinearFusion and its BatchNorm statistics
+    phase_train(card, extra={"fusion_type": "pofusion"}, label="deform-fusion")
+    # 14. modes: the modes that run no kernel
+    phase_modes(card)
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]
@@ -1066,6 +1300,14 @@ def main() -> int:
                         "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
                         "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",
                                    **{k: e1[k] for k in _TIMES}}})
+    for name, source, replaces, count, run in F32_BIAS_KERNELS:
+        e = entries[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": runs[run][count],
+                        "launches_run": run, **{k: e[k] for k in _TIMES},
+                        "design": DESIGN,
+                        "launches_serving_1d": d1_serving.get(count, 0),
+                        "shape": f"BG={BG} N={e['n']} J={e['j']} bf16, bias f32"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

@@ -3,10 +3,13 @@
 
     python3 scripts/profile_torch_eval.py [--step eval|train] [--fixdim 2500 4096]
         [--batch_size 8] [--steps 10] [--trace_dir build/profiles]
-        [--mode deformpathomic | --mode path --path_arch transmil]
+        [--mode deformpathomic | --mode path --path_arch transmil | --mode omic
+         | --mode pathomic | --mode pathomic_original] [--attn_dim 1]
+        [--fusion_type pofusion]
 
-Builds the model (deformpathomic by default, or TransMIL; seeded weights,
-bf16, synthetic batch already on the card), warms up, then runs ``--steps`` eval steps (or train steps:
+Builds the model (deformpathomic by default, with ``--attn_dim 1`` its 1-D
+attention, with ``--fusion_type`` its fusion; or TransMIL, ABMIL or another
+mode; seeded weights, bf16, synthetic batch already on the card), warms up, then runs ``--steps`` eval steps (or train steps:
 forward with dropout, backward, gradient modulation, Adam) under
 ``torch.profiler``.  Prints one JSON line per fixdim with the step time (host
 clock around synchronised steps), the kernel time and kernel launches per
@@ -73,11 +76,12 @@ def _make_step(kind: str, config: Config):
 
 
 def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
-                trace_dir: str, mode: str = "deformpathomic", path_arch: str = "abmil"
-                ) -> dict:
+                trace_dir: str, mode: str = "deformpathomic", path_arch: str = "abmil",
+                attn_dim: int = 2, fusion_type: str = "concat") -> dict:
     config = Config(dataset="synthetic", synthetic_size=4 * batch_size,
                     batch_size=batch_size, compute_dtype="bfloat16", fixdim=fixdim,
-                    mode=mode, path_arch=path_arch)
+                    mode=mode, path_arch=path_arch, attn_dim=attn_dim,
+                    return_vgrid=attn_dim == 2, fusion_type=fusion_type)
     run = _make_step(kind, config)
     for _ in range(3):
         run()
@@ -94,6 +98,8 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
         torch.cuda.synchronize()
     os.makedirs(trace_dir, exist_ok=True)
     name = mode if mode != "path" else path_arch
+    if mode == "deformpathomic" and (attn_dim, fusion_type) != (2, "concat"):
+        name = f"{mode}_{attn_dim}d_{fusion_type}"
     prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{name}_{kind}_{fixdim}.json"))
     busy, start, end = _busy_us(prof)
 
@@ -124,9 +130,11 @@ def main(argv=None) -> int:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--trace_dir", default="build/profiles")
-    parser.add_argument("--mode", choices=("deformpathomic", "path"),
-                        default="deformpathomic")
+    parser.add_argument("--mode", choices=("deformpathomic", "path", "omic", "pathomic",
+                                           "pathomic_original"), default="deformpathomic")
     parser.add_argument("--path_arch", default="abmil", help="transmil with --mode path")
+    parser.add_argument("--attn_dim", type=int, choices=(1, 2), default=2)
+    parser.add_argument("--fusion_type", default="concat")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device available", file=sys.stderr)
@@ -136,7 +144,8 @@ def main(argv=None) -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     for fixdim in args.fixdim:
         print(json.dumps(profile_one(args.step, fixdim, args.batch_size, args.steps, card,
-                                     args.trace_dir, args.mode, args.path_arch)), flush=True)
+                                     args.trace_dir, args.mode, args.path_arch,
+                                     args.attn_dim, args.fusion_type)), flush=True)
     return 0
 
 

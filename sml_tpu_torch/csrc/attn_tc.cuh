@@ -45,11 +45,17 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float exp_f(float x) { return exp2f(x * kLog2e); }
 
-// elements (r, j) and (r, j + 1), j even, of a row-major (rows, J) bf16
-// matrix at p = &m[r][j]; j + 1 may be J when J is odd
+// elements (r, j) and (r, j + 1), j even, of a row-major (rows, J) bf16 or
+// f32 matrix at p = &m[r][j]; j + 1 may be J when J is odd.  The bias (and
+// dbias) comes in bf16 beside bf16 q, k, v, or in f32 (the 1-D deformable
+// attention's, whose CPB1D runs in f32).
 __device__ __forceinline__ float2 load_pair(const bf16* p, int j, int J) {
   if (!(J & 1)) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   return make_float2(__bfloat162float(p[0]), j + 1 < J ? __bfloat162float(p[1]) : 0.f);
+}
+__device__ __forceinline__ float2 load_pair(const float* p, int j, int J) {
+  if (!(J & 1)) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], j + 1 < J ? p[1] : 0.f);
 }
 __device__ __forceinline__ void store_pair(bf16* p, float x, float y, int j, int J) {
   if (!(J & 1)) {
@@ -59,6 +65,16 @@ __device__ __forceinline__ void store_pair(bf16* p, float x, float y, int j, int
   p[0] = __float2bfloat16(x);
   if (j + 1 < J) p[1] = __float2bfloat16(y);
 }
+__device__ __forceinline__ void store_pair(float* p, float x, float y, int j, int J) {
+  if (!(J & 1)) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    return;
+  }
+  p[0] = x;
+  if (j + 1 < J) p[1] = y;
+}
+__device__ __forceinline__ float bias_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float bias_f32(float x) { return x; }
 
 // Stage rows [r0, r0 + kBlock) of an (n, 64) bf16 matrix a in the swizzled
 // tile sa by cp.async, rows >= n zero-filled; THREADS threads take part.
@@ -127,9 +143,9 @@ __device__ __forceinline__ void product_nn(float (&acc)[8][4], const uint32_t (&
 
 // The masked scores of one 32-key half from key j0: s[i][2h + w] is row
 // row[h], key j0 + 8 i + col + w.  Adds the bias (bias_bg: the bag's (N, J)
-// rows), applies the span mask, and gives keys >= J -f32max.
-template <bool HAS_BIAS, bool HAS_SPAN>
-__device__ __forceinline__ void mask_scores(float (&s)[4][4], const bf16* bias_bg, int N,
+// rows, bf16 or f32), applies the span mask, and gives keys >= J -f32max.
+template <bool HAS_BIAS, bool HAS_SPAN, typename BT>
+__device__ __forceinline__ void mask_scores(float (&s)[4][4], const BT* bias_bg, int N,
                                             int J, const int (&row)[2], int j0, int col,
                                             const SpanMask& mask, const bool (&uniform)[2]) {
 #pragma unroll

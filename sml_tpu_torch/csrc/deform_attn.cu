@@ -3,7 +3,8 @@
 //   out[bg, i] = dropout(softmax_j(mask(q[bg, i] . k[bg, j] + bias[bg, i, j]))) @ v[bg]
 //
 // q (BG, N, DH) is already scaled; k, v (BG, J, DH); bias (BG, N, J) in q's
-// dtype or absent; out (BG, N, DH) in q's dtype.  Replaces the Pallas kernel
+// dtype, or f32 beside bf16 q, k, v (the 1-D deformable attention's bias, from
+// the f32 CPB1D; no span, no dropout), or absent; out (BG, N, DH) in q's dtype.  Replaces the Pallas kernel
 // _fused_attn_fwd_call (sml_tpu/ops/pallas/deform_attn.py, body
 // _attn_fwd_kernel) in every compiled form: with or without the bias
 // (HAS_BIAS), the span mask (HAS_SPAN) and dropout (DROP).
@@ -57,11 +58,13 @@
 // 256 rows per bag: 4 row blocks x BG, about 2 blocks of 4 warps per SM at BG
 // = 64 (the keys are not split yet), so it is latency-bound there.
 //
-// C entry: deform_attn_fwd(dtype, q, k, v, bias, span, out, BG, N, J, DH,
-//                          keep_prob, inv_keep, seed, device, stream)
+// C entry: deform_attn_fwd(dtype, bias_dtype, q, k, v, bias, span, out, BG, N,
+//                          J, DH, keep_prob, inv_keep, seed, device, stream)
 //          -> cudaGetLastError().
-// dtype: 0 = float, 1 = bfloat16 for q, k, v, bias and out.  bias and span
-// may be null.  DH must be 64.  The library carries its own CUDA runtime, so
+// dtype: 0 = float, 1 = bfloat16 for q, k, v and out; bias_dtype the same
+// codes for the bias: dtype's, or 0 with dtype 1 in the form without span and
+// dropout (any other pair is cudaErrorInvalidValue).  bias and span may be
+// null.  DH must be 64.  The library carries its own CUDA runtime, so
 // the entry selects `device` itself.
 
 #include <cuda_bf16.h>
@@ -209,10 +212,11 @@ constexpr int kFwdMinBlocks = 512 / kFwdThreads;
 // Block (row tile, bg), warp w owns rows row0 + 16 w .. + 15, lane (g, t) the
 // rows g and g + 8 of them and, in each n8 tile of keys, the columns 2t and
 // 2t + 1; in the output, the columns 8 n + 2t, 8 n + 2t + 1 of n8 tile n.
-template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+// BT: the bias's element type, bf16 or f32.
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ bias,
+            const bf16* __restrict__ v, const BT* __restrict__ bias,
             const int* __restrict__ span, bf16* __restrict__ out, int N, int J,
             float keep_prob, float inv_keep, unsigned long long seed) {
   __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
@@ -226,7 +230,7 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            HAS_SPAN && mask.uniform(row[1])};
   const bf16* kg = k + (size_t)bg * J * 64;
   const bf16* vg = v + (size_t)bg * J * 64;
-  const bf16* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  const BT* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
   const int nt = (J + kBlock - 1) / kBlock;
   auto stage = [&](int it) {  // pass 1 reads K only, pass 2 K and V
     if (it < nt)
@@ -315,16 +319,16 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = tc::bf16>
 cudaError_t launch_tc(const Args& a) {
   using tc::bf16;
-  auto kernel = tc::attn_fwd_tc<HAS_BIAS, HAS_SPAN, DROP>;
+  auto kernel = tc::attn_fwd_tc<HAS_BIAS, HAS_SPAN, DROP, BT>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.N + tc::kFwdRows - 1) / tc::kFwdRows, a.BG), tc::kFwdThreads, 0,
            a.stream>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.bias),
+                       static_cast<const bf16*>(a.v), static_cast<const BT*>(a.bias),
                        a.span, static_cast<bf16*>(a.out), a.N, a.J, a.keep_prob,
                        a.inv_keep, a.seed);
   return cudaGetLastError();
@@ -364,15 +368,21 @@ cudaError_t dispatch(const Args& a) {
 
 }  // namespace
 
-extern "C" int deform_attn_fwd(int dtype, const void* q, const void* k, const void* v,
-                               const void* bias, const void* span, void* out, int BG,
-                               int N, int J, int DH, float keep_prob, float inv_keep,
+extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const void* k,
+                               const void* v, const void* bias, const void* span, void* out,
+                               int BG, int N, int J, int DH, float keep_prob, float inv_keep,
                                unsigned long long seed, int device, void* stream) {
   if (DH != 64) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{q, k, v, bias, static_cast<const int*>(span), out, BG, N, J, keep_prob,
                inv_keep, seed, static_cast<cudaStream_t>(stream)};
+  if (bias != nullptr && bias_dtype != dtype) {
+    // the f32 bias beside bf16 q, k, v: the one form the 1-D path runs
+    if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))
+      return launch_tc<true, false, false, float>(a);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;

@@ -74,12 +74,14 @@
 // J <= 256 (one pass over them for both passes), and taking lse from the
 // forward so that pass 1 drops out.
 //
-// C entry: deform_attn_bwd(dtype, q, k, v, bias, span, dout, dq, dk, dv, dbias,
-//                          lse, delta, BG, N, J, DH, keep_prob, inv_keep, seed,
-//                          device, stream) -> cudaGetLastError().
-// dtype: 0 = float, 1 = bfloat16 for q, k, v, bias, dout and every output but
-// lse and delta (f32 scratch of (BG, N)).  bias / dbias and span may be null.
-// DH must be 64.
+// C entry: deform_attn_bwd(dtype, bias_dtype, q, k, v, bias, span, dout, dq,
+//                          dk, dv, dbias, lse, delta, BG, N, J, DH, keep_prob,
+//                          inv_keep, seed, device, stream) -> cudaGetLastError().
+// dtype: 0 = float, 1 = bfloat16 for q, k, v, dout, dq, dk and dv (lse and
+// delta: f32 scratch of (BG, N)); bias_dtype the same codes for bias and
+// dbias: dtype's, or 0 with dtype 1 in the form without span and dropout (the
+// 1-D deformable attention's f32 bias; any other pair is
+// cudaErrorInvalidValue).  bias / dbias and span may be null.  DH must be 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -399,12 +401,13 @@ constexpr int kBiasLd = kBlock + 8;       // keys kernel: padded row of the bias
 // lane (g, t) the rows g and g + 8 of them and, in each n8 tile of keys, the
 // columns 2t and 2t + 1.  K and V stream in 64-key tiles through a two-stage
 // cp.async ring, walked twice (pass 1: statistics; pass 2: ds, dbias, dq).
-template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+// BT: the element type of bias and dbias, bf16 or f32.
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const bf16* __restrict__ v, const BT* __restrict__ bias,
                  const int* __restrict__ span, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dq, bf16* __restrict__ dbias, float* __restrict__ lse,
+                 bf16* __restrict__ dq, BT* __restrict__ dbias, float* __restrict__ lse,
                  float* __restrict__ delta, int N, int J, float keep_prob, float inv_keep,
                  unsigned long long seed) {
   __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
@@ -432,7 +435,7 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma::load_a_global(qa[ks], q + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
     mma::load_a_global(oa[ks], dout + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
   }
-  const bf16* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  const BT* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
   RowStats st;  // pass 1: lane-local statistics, folded over the lane quad at its end
   float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
   float dq_acc[8][4];
@@ -520,11 +523,11 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             __floats2bfloat162_rn(dq_acc[n][2 * h], dq_acc[n][2 * h + 1]);
 }
 
-template <bool HAS_BIAS>
+template <bool HAS_BIAS, typename BT>
 constexpr size_t keys_smem_bytes() {
-  return 2 * 2 * kTile * sizeof(bf16)                             // q, dout stages
-         + 2 * 2 * kBlock * sizeof(float)                         // lse, delta stages
-         + (HAS_BIAS ? 2 * kBlock * kBiasLd * sizeof(bf16) : 0);  // bias stages
+  return 2 * 2 * kTile * sizeof(bf16)                           // q, dout stages
+         + 2 * 2 * kBlock * sizeof(float)                       // lse, delta stages
+         + (HAS_BIAS ? 2 * kBlock * kBiasLd * sizeof(BT) : 0);  // bias stages
 }
 
 // Keys kernel: block (key tile, bg), warp w owns keys key0 + 16 w .. + 15 as
@@ -533,10 +536,10 @@ constexpr size_t keys_smem_bytes() {
 // q, dout, lse, delta (and the bias tile) stream in 64-row tiles through a
 // two-stage ring, each tile in four 16-row steps: dv += (p m)^T dout and
 // dk += ds^T q, summed over all rows in this block in row order.
-template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                 const bf16* __restrict__ v, const BT* __restrict__ bias,
                  const int* __restrict__ span, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int J, float keep_prob,
@@ -546,7 +549,7 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* s_do = s_q + 2 * kTile;                               // [2][kTile]
   float* s_lse = reinterpret_cast<float*>(s_do + 2 * kTile);  // [2][kBlock]
   float* s_dl = s_lse + 2 * kBlock;                           // [2][kBlock]
-  bf16* s_b = reinterpret_cast<bf16*>(s_dl + 2 * kBlock);     // [2][kBlock][kBiasLd]
+  BT* s_b = reinterpret_cast<BT*>(s_dl + 2 * kBlock);         // [2][kBlock][kBiasLd]
 
   const int bg = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -558,17 +561,19 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qg = q + (size_t)bg * N * 64;
   const bf16* dog = dout + (size_t)bg * N * 64;
   const int nr = (N + kBlock - 1) / kBlock;
-  const bool bias_vec = (J & 7) == 0;  // 16-byte rows segments of the bias
+  constexpr int kVec = 16 / sizeof(BT);      // bias elements in 16 bytes
+  const bool bias_vec = J % kVec == 0;       // 16-byte row segments of the bias
   auto stage = [&](int it) {
     const int r0 = it * kBlock, buf = it & 1;
     stage_pair(qg, dog, s_q + buf * kTile, s_do + buf * kTile, r0, N);
     if (HAS_BIAS) {
-      bf16* sb = s_b + buf * kBlock * kBiasLd;
+      BT* sb = s_b + buf * kBlock * kBiasLd;
       if (bias_vec) {
-        for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
-          const int r = i >> 3, c = 8 * (i & 7);
+        constexpr int kSegs = kBlock / kVec;   // 16-byte segments of a tile row
+        for (int i = threadIdx.x; i < kBlock * kSegs; i += kThreads) {
+          const int r = i / kSegs, c = kVec * (i % kSegs);
           const bool ok = r0 + r < N && key_blk + c < J;
-          const bf16* src =
+          const BT* src =
               bias + ((size_t)bg * N + (ok ? r0 + r : 0)) * J + (ok ? key_blk + c : 0);
           mma::cp_async16(mma::smem_u32(sb + r * kBiasLd + c), src, ok);
         }
@@ -577,7 +582,7 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int r = i / kBlock, c = i - r * kBlock;
           const bool ok = r0 + r < N && key_blk + c < J;
           sb[r * kBiasLd + c] =
-              ok ? bias[((size_t)bg * N + r0 + r) * J + key_blk + c] : __float2bfloat16(0.f);
+              ok ? bias[((size_t)bg * N + r0 + r) * J + key_blk + c] : static_cast<BT>(0.f);
         }
       }
     }
@@ -617,7 +622,7 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* sdo = s_do + buf * kTile;
     const float* slse = s_lse + buf * kBlock;
     const float* sdl = s_dl + buf * kBlock;
-    const bf16* sb = s_b + buf * kBlock * kBiasLd;
+    const BT* sb = s_b + buf * kBlock * kBiasLd;
 #pragma unroll 1  // unrolled, the bias-less form spills
     for (int rs = 0; rs < kBlock; rs += 16) {
       // s^T and dp^T of this warp's 16 keys x rows rs .. rs + 15 of the tile
@@ -669,7 +674,7 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float pd = 0.f, ds = 0.f;
             if (r < N && j < J) {
               float x = st[i][2 * h + w];
-              if (HAS_BIAS) x += __bfloat162float(sb[rl * kBiasLd + bcol[h]]);
+              if (HAS_BIAS) x += bias_f32(sb[rl * kBiasLd + bcol[h]]);
               const float p = exp_f(mask_score<HAS_SPAN>(x, mask, uni, j) - slse[rl]);
               const float m =
                   !DROP ? 1.f : ((kept >> (4 * h + 2 * i + w)) & 1u ? inv_keep : 0.f);
@@ -718,25 +723,25 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = tc::bf16>
 cudaError_t launch_tc(const Args& a) {
   using tc::bf16;
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* bias = static_cast<const bf16*>(a.bias);
+  const BT* bias = static_cast<const BT*>(a.bias);
   const bf16* dout = static_cast<const bf16*>(a.dout);
-  auto rows = tc::attn_bwd_rows_tc<HAS_BIAS, HAS_SPAN, DROP>;
+  auto rows = tc::attn_bwd_rows_tc<HAS_BIAS, HAS_SPAN, DROP, BT>;
   cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   rows<<<dim3((a.N + tc::kBlock - 1) / tc::kBlock, a.BG), tc::kThreads, 0, a.stream>>>(
-      q, k, v, bias, a.span, dout, static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dbias),
+      q, k, v, bias, a.span, dout, static_cast<bf16*>(a.dq), static_cast<BT*>(a.dbias),
       a.lse, a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto keys = tc::attn_bwd_keys_tc<HAS_BIAS, HAS_SPAN, DROP>;
-  constexpr int keys_smem = static_cast<int>(tc::keys_smem_bytes<HAS_BIAS>());
+  auto keys = tc::attn_bwd_keys_tc<HAS_BIAS, HAS_SPAN, DROP, BT>;
+  constexpr int keys_smem = static_cast<int>(tc::keys_smem_bytes<HAS_BIAS, BT>());
   err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize, keys_smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(keys, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -794,18 +799,24 @@ cudaError_t dispatch(const Args& a) {
 
 }  // namespace
 
-extern "C" int deform_attn_bwd(int dtype, const void* q, const void* k, const void* v,
-                               const void* bias, const void* span, const void* dout,
-                               void* dq, void* dk, void* dv, void* dbias, void* lse,
-                               void* delta, int BG, int N, int J, int DH, float keep_prob,
-                               float inv_keep, unsigned long long seed, int device,
-                               void* stream) {
+extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const void* k,
+                               const void* v, const void* bias, const void* span,
+                               const void* dout, void* dq, void* dk, void* dv, void* dbias,
+                               void* lse, void* delta, int BG, int N, int J, int DH,
+                               float keep_prob, float inv_keep, unsigned long long seed,
+                               int device, void* stream) {
   if (DH != 64) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{q, k, v, bias, static_cast<const int*>(span), dout, dq, dk, dv, dbias,
                static_cast<float*>(lse), static_cast<float*>(delta), BG, N, J, keep_prob,
                inv_keep, seed, static_cast<cudaStream_t>(stream)};
+  if (bias != nullptr && bias_dtype != dtype) {
+    // the f32 bias (and dbias) beside bf16 q, k, v: the one form the 1-D path runs
+    if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))
+      return launch_tc<true, false, false, float>(a);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;

@@ -1,23 +1,34 @@
-"""DeformPathomicNet, the paper's dual-subspace genomic-guided deformable model, with
-2-D deformable attention (counterpart of ``sml_tpu/models/deform.py``).
+"""DeformPathomicNet, the paper's dual-subspace genomic-guided deformable model
+(counterpart of ``sml_tpu/models/deform.py``).
 
 Two branches (tumor / immune genes), each MaxNet -> per-token fusion with the
-path bag -> deformable cross-attention -> pooled vector; concat -> classifier,
-plus per-branch heads; for survival the heads are sigmoided in the model.
-Submodules carry the flax tree's names so the weight bridge maps leaf by leaf.
+path bag -> deformable cross-attention -> pooled vector; the two vectors are
+concatenated (``fusion_type`` concat) or fused by ``BilinearFusion`` (any
+other ``fusion_type``, gates 1 and 1) -> classifier, plus per-branch heads;
+for survival the heads are sigmoided in the model.  Submodules carry the flax
+tree's names so the weight bridge maps leaf by leaf.
+
+``attn_dim`` 2 pads a bag to the next square grid (its padded tokens masked),
+runs ``DeformCrossAttention2D`` and pools the tokens under the mask;
+``attn_dim`` 1 prepends a learned cls token to both streams (and a valid
+entry to the mask), runs ``DeformCrossAttention1D`` and reads the cls token
+after a final LayerNorm.  ``remat`` (the JAX model's rematerialised branches)
+is not ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sml_tpu_torch.models.maxnet import MaxNet
 from sml_tpu_torch.ops.common import Dense, DropoutRNG
-from sml_tpu_torch.ops.deformable import DeformCrossAttention2D
-from sml_tpu_torch.ops.fusion import FusionNet
+from sml_tpu_torch.ops.deformable import DeformCrossAttention1D, DeformCrossAttention2D
+from sml_tpu_torch.ops.fusion import BilinearFusion, FusionNet
 from sml_tpu_torch.ops.pooling import Pooler
 
 
@@ -32,21 +43,29 @@ def _norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class DeformCrossTransLayer(nn.Module):
     """Pre-norm deformable cross-attention residual block; ONE LayerNorm shared by
-    both streams."""
+    both streams.  ``attn_dim`` 1 takes no dropout (as in the JAX layer)."""
 
-    def __init__(self, dim: int = 128, dropout: float = 0.1,
+    def __init__(self, dim: int = 128, attn_dim: int = 2, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.attn_dim = attn_dim
         self.norm = _layer_norm(dim)
-        self.attn2d = DeformCrossAttention2D(dim, dim_head=64, heads=8, dropout=dropout,
-                                             downsample_factor=4, offset_scale=4.0,
-                                             offset_groups=8, offset_kernel_size=6,
-                                             dtype=dtype)
+        if attn_dim == 1:
+            self.attn1d = DeformCrossAttention1D(dim, downsample_factor=4, offset_scale=2.0,
+                                                 offset_kernel_size=6, dtype=dtype)
+        else:
+            self.attn2d = DeformCrossAttention2D(dim, dim_head=64, heads=8, dropout=dropout,
+                                                 downsample_factor=4, offset_scale=4.0,
+                                                 offset_groups=8, offset_kernel_size=6,
+                                                 dtype=dtype)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor,
-                rng: Optional[DropoutRNG] = None):
-        out, vgrid = self.attn2d(_norm_f32(self.norm, x1), _norm_f32(self.norm, x2),
-                                 return_vgrid=True, rng=rng)
+                rng: Optional[DropoutRNG] = None, mask: Optional[torch.Tensor] = None):
+        """(x1 + attention, vgrid); the 1-D attention has no vgrid (None)."""
+        n1, n2 = _norm_f32(self.norm, x1), _norm_f32(self.norm, x2)
+        if self.attn_dim == 1:
+            return x1 + self.attn1d(n1, n2, mask=mask), None
+        out, vgrid = self.attn2d(n1, n2, return_vgrid=True, rng=rng, mask=mask)
         return x1 + out, vgrid
 
 
@@ -54,44 +73,78 @@ class DeformCrossTransMIL(nn.Module):
     """Pathomic fusion MIL block of one branch."""
 
     def __init__(self, input_path_dim: int, omic_dim: int, n_classes: int = 4,
-                 path_dim: int = 128, return_vgrid: bool = True, dropout: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 path_dim: int = 128, attn_dim: int = 2, return_vgrid: bool = True,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.return_vgrid = return_vgrid
+        self.attn_dim, self.return_vgrid = attn_dim, return_vgrid
         self.fc1 = Dense(input_path_dim, path_dim, dtype=dtype)
         self.fusion_layer = FusionNet(path_dim, omic_dim, path_dim, dtype=dtype)
-        self.layer3 = DeformCrossTransLayer(path_dim, dropout, dtype=dtype)
+        self.layer3 = DeformCrossTransLayer(path_dim, attn_dim, dropout, dtype=dtype)
+        if attn_dim == 1:
+            self.cls_token = nn.Parameter(torch.empty(1, 1, path_dim))
         self.norm = _layer_norm(path_dim)
-        self.pooler = Pooler(path_dim, dtype=dtype)
+        if attn_dim == 2:
+            self.pooler = Pooler(path_dim, dtype=dtype)
         self.fc2 = Dense(path_dim, n_classes, dtype=dtype)
         self.multimodal_projection = Dense(path_dim, path_dim, dtype=dtype)
 
+    def init_raw_params(self, generator: torch.Generator) -> None:
+        """``cls_token``: flax's normal(1.0)."""
+        if self.attn_dim == 1:
+            with torch.no_grad():
+                self.cls_token.normal_(0.0, 1.0, generator=generator)
+
     def forward(self, path: torch.Tensor, omic: torch.Tensor,
-                rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
-        # a non-square bag raises in layer3 (the masked bag path is not ported yet)
+                rng: Optional[DropoutRNG] = None,
+                mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """path (B, N, input_path_dim); omic (B, omic_dim); mask (B, N) marks the
+        real patches."""
+        b, n, _ = path.shape
         path = torch.relu(self.fc1(path))                          # (B, N, path_dim)
+        if self.attn_dim == 2:
+            # a bag that is no square grid: zero tokens to the next square, masked
+            side = math.isqrt(n - 1) + 1
+            add = side * side - n
+            if add:
+                path = F.pad(path, (0, 0, 0, add))
+                if mask is None:
+                    mask = torch.ones(b, n, dtype=torch.bool, device=path.device)
+                mask = F.pad(mask.bool(), (0, add))
         h = self.fusion_layer(path, omic)
-        h, vgrid = self.layer3(h, path, rng)
-        h = self.pooler(_norm_f32(self.norm, h))
+        vgrid = None
+        if self.attn_dim == 1:
+            cls = self.cls_token.expand(b, 1, -1).to(h.dtype)
+            h = torch.cat([cls, h], dim=1)
+            path = torch.cat([cls.to(path.dtype), path], dim=1)
+            if mask is not None:                                   # the cls token is valid
+                mask = torch.cat([mask.new_ones(b, 1).bool(), mask.bool()], dim=1)
+            h, _ = self.layer3(h, path, rng, mask)
+            h = _norm_f32(self.norm, h)[:, 0]
+        else:
+            h, vgrid = self.layer3(h, path, rng, mask)
+            h = self.pooler(_norm_f32(self.norm, h), mask)
         out = {"features": self.multimodal_projection(h), "logits": self.fc2(h)}
-        if self.return_vgrid:
+        if self.return_vgrid and vgrid is not None:
             out["omic"] = omic                                     # (B, omic_dim)
             out["vgrid"] = vgrid                                   # (B, g, Hd, Wd, 2)
         return out
 
 
 class DeformPathomicNet(nn.Module):
-    """Flagship model, ``attn_dim=2`` and ``fusion_type='concat'``."""
+    """Flagship model."""
 
     def __init__(self, label_dim: int = 4, input_size_omic_tumor: int = 59,
                  input_size_omic_immune: int = 361, input_path_dim: int = 1024,
-                 path_dim: int = 128, omic_dim: int = 128,
-                 dropout_rate: float = 0.1, return_vgrid: bool = True,
-                 task_type: str = "diag2021", init_max: bool = True,
+                 path_dim: int = 128, omic_dim: int = 128, mmhid: int = 128,
+                 dropout_rate: float = 0.1, attn_dim: int = 2, return_vgrid: bool = True,
+                 fusion_type: str = "concat", cut_fuse_grad: bool = False,
+                 task_type: str = "diag2021", init_max: bool = True, skip: int = 0,
+                 use_bilinear: int = 1, path_scale: int = 1, omic_scale: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_vgrid = return_vgrid
         self.task_type = task_type
+        self.fusion_type, self.cut_fuse_grad = fusion_type, cut_fuse_grad
         for name, gene_dim in (("tumor", input_size_omic_tumor),
                                ("immune", input_size_omic_immune)):
             self.add_module(f"omic_net_{name}",
@@ -99,25 +152,38 @@ class DeformPathomicNet(nn.Module):
                                    init_max=init_max, dtype=dtype))
             self.add_module(f"pathomic_net_{name}",
                             DeformCrossTransMIL(input_path_dim, omic_dim, label_dim,
-                                                path_dim, return_vgrid, dropout_rate,
-                                                dtype=dtype))
-        self.classifier = Dense(2 * path_dim, label_dim, dtype=dtype)
+                                                path_dim, attn_dim, return_vgrid,
+                                                dropout_rate, dtype=dtype))
+        if fusion_type == "concat":
+            fused = 2 * path_dim
+        else:
+            # both branches' vectors are path_dim wide; BilinearFusion takes
+            # dim1 = path_dim and dim2 = omic_dim, as in the JAX model
+            self.fusion = BilinearFusion(skip, use_bilinear, 1, 1, path_dim, omic_dim,
+                                         path_scale, omic_scale, mmhid, dropout_rate,
+                                         dtype=dtype, in1=path_dim, in2=path_dim)
+            fused = mmhid
+        self.classifier = Dense(fused, label_dim, dtype=dtype)
         self.classifier_tumor = Dense(path_dim, label_dim, dtype=dtype)
         self.classifier_immune = Dense(path_dim, label_dim, dtype=dtype)
 
     def forward(self, x_path: torch.Tensor, x_omic_tumor: torch.Tensor,
                 x_omic_immune: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
-        """``rng`` (training mode with dropout_rate > 0) feeds every dropout."""
-        if mask is not None:
-            raise NotImplementedError("masked (bucketed) deformpathomic bags are not "
-                                      "ported yet")
+        """``rng`` (training mode with dropout_rate > 0) feeds every dropout;
+        ``mask`` (B, N) marks the real patches of padded (bucketed) bags."""
         tumor = self.pathomic_net_tumor(
-            x_path, self.omic_net_tumor(x_omic_tumor, rng)["features"], rng)
+            x_path, self.omic_net_tumor(x_omic_tumor, rng)["features"], rng, mask)
         immune = self.pathomic_net_immune(
-            x_path, self.omic_net_immune(x_omic_immune, rng)["features"], rng)
+            x_path, self.omic_net_immune(x_omic_immune, rng)["features"], rng, mask)
 
-        features = torch.cat([tumor["features"], immune["features"]], dim=1)
+        v_t, v_i = tumor["features"], immune["features"]
+        if self.cut_fuse_grad:
+            v_t, v_i = v_t.detach(), v_i.detach()
+        if self.fusion_type == "concat":
+            features = torch.cat([v_t, v_i], dim=1)
+        else:
+            features = self.fusion(v_t, v_i, rng)
         hazard = self.classifier(features)
         hazard_t = self.classifier_tumor(tumor["features"])
         hazard_i = self.classifier_immune(immune["features"])

@@ -1,6 +1,9 @@
-"""Model and optimizer factory for ``mode=deformpathomic`` and ``mode=path``
-with ``path_arch=transmil`` (counterpart of ``sml_tpu/models/factory.py``:
-``define_net``, ``model_inputs``, ``make_lr_schedule``, ``define_optimizer``).
+"""Model and optimizer factory (counterpart of ``sml_tpu/models/factory.py``:
+``define_net``, ``model_inputs``, ``make_lr_schedule``, ``define_optimizer``)
+for the ported modes: deformpathomic (both ``attn_dim``s, every
+``fusion_type``), path (ABMIL, the default ``path_arch``, and TransMIL), omic
+(MaxNet alone), pathomic and pathomic_original.  mcat, cmta and ``remat``
+raise.
 
 The JAX factory turns its kernels off unless the backend is a TPU; the port
 has no such switch: its kernel wrappers launch their CUDA kernels whenever the
@@ -17,11 +20,16 @@ from torch import nn
 
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.models.deform import DeformPathomicNet
-from sml_tpu_torch.models.mil import TransMIL
+from sml_tpu_torch.models.maxnet import MaxNet
+from sml_tpu_torch.models.mil import ABMIL, TransMIL
+from sml_tpu_torch.models.pathomic import PathomicNet, PathomicNetOriginal
 from sml_tpu_torch.ops.common import dtype_of, init_params
 
 # which batch keys each ported mode's forward consumes
 MODE_INPUTS = {"path": ("x_path",),
+               "omic": ("x_omic",),
+               "pathomic": ("x_path", "x_omic"),
+               "pathomic_original": ("x_path", "x_omic"),
                "deformpathomic": ("x_path", "x_omic_tumor", "x_omic_immune")}
 # modes whose models take a per-patch validity mask (padded / bucketed bags)
 MASKABLE_MODES = ("path", "deformpathomic")
@@ -53,23 +61,40 @@ def define_net(config: Config, device: str | torch.device = "cuda",
     float32."""
     if config.init_type not in ("max", "none"):
         raise NotImplementedError(f"init_type {config.init_type!r} is not ported yet")
-    if config.mode == "path":
-        if config.path_arch != "transmil":
-            raise NotImplementedError(f"path_arch {config.path_arch!r} is not ported yet")
+    if config.remat:
+        raise NotImplementedError("remat (rematerialised branches) is not ported yet")
+    dtype, init_max = compute_dtype(config), config.init_type == "max"
+    if config.mode == "path" and config.path_arch == "transmil":
         model = TransMIL(label_dim=config.label_dim, path_dim=config.path_dim,
-                         input_path_dim=config.input_path_dim,
-                         dtype=compute_dtype(config))
+                         input_path_dim=config.input_path_dim, dtype=dtype)
+    elif config.mode == "path":
+        model = ABMIL(label_dim=config.label_dim, path_dim=config.path_dim,
+                      input_path_dim=config.input_path_dim, dtype=dtype)
+    elif config.mode == "omic":
+        model = MaxNet(config.input_size_omic, config.omic_dim, config.dropout_rate,
+                       config.label_dim, init_max=init_max, dtype=dtype)
+    elif config.mode in ("pathomic", "pathomic_original"):
+        cls = PathomicNet if config.mode == "pathomic" else PathomicNetOriginal
+        model = cls(label_dim=config.label_dim, input_size_omic=config.input_size_omic,
+                    input_path_dim=config.input_path_dim, path_dim=config.path_dim,
+                    omic_dim=config.omic_dim, mmhid=config.mmhid,
+                    dropout_rate=config.dropout_rate, fusion_type=config.fusion_type,
+                    cut_fuse_grad=config.cut_fuse_grad, skip=config.skip,
+                    use_bilinear=config.use_bilinear, gate1=config.path_gate,
+                    gate2=config.omic_gate, path_scale=config.path_scale,
+                    omic_scale=config.omic_scale, init_max=init_max, dtype=dtype)
     elif config.mode == "deformpathomic":
-        if config.attn_dim != 2 or config.fusion_type != "concat":
-            raise NotImplementedError("the port runs attn_dim=2 with concat fusion only")
         model = DeformPathomicNet(
             label_dim=config.label_dim,
             input_size_omic_tumor=config.input_size_omic_tumor,
             input_size_omic_immune=config.input_size_omic_immune,
             input_path_dim=config.input_path_dim, path_dim=config.path_dim,
-            omic_dim=config.omic_dim, dropout_rate=config.dropout_rate,
-            return_vgrid=config.return_vgrid, task_type=config.task_type,
-            init_max=config.init_type == "max", dtype=compute_dtype(config))
+            omic_dim=config.omic_dim, mmhid=config.mmhid,
+            dropout_rate=config.dropout_rate, attn_dim=config.attn_dim,
+            return_vgrid=config.return_vgrid, fusion_type=config.fusion_type,
+            cut_fuse_grad=config.cut_fuse_grad, task_type=config.task_type,
+            init_max=init_max, skip=config.skip, use_bilinear=config.use_bilinear,
+            path_scale=config.path_scale, omic_scale=config.omic_scale, dtype=dtype)
     else:
         raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
     init_params(model, config.seed if seed is None else seed)

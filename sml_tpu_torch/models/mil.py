@@ -1,13 +1,19 @@
-"""TransMIL over pre-extracted patch-feature bags (counterpart of
-``sml_tpu/models/mil.py``: ``TransLayer``, ``TransMIL``).
+"""MIL models over pre-extracted patch-feature bags (counterpart of
+``sml_tpu/models/mil.py``: ``ABMIL``, ``GatedABMIL``, ``TransLayer``,
+``TransMIL``).
 
+ABMIL: a two-layer tanh attention scorer over the patches (masked patches
+take -inf before the softmax), the softmax-weighted bag sum, then the
+classifier (logits) and the multimodal projection (features).  GatedABMIL
+scores with tanh(V x) * sigmoid(U x); no mode of either package uses it.
+
+TransMIL:
 fc1 (input -> 512) + ReLU, square-pad the bag by wrapping its first tokens,
 prepend the cls token, two pre-norm Nystrom TransLayers (8 heads of 64, 256
 landmarks, 6 pinv iterations) with the PPEG positional convolutions between
 them, then LayerNorm of the cls token -> fc2 (logits) and the multimodal
 projection (features).  Submodules carry the flax tree's names, so the weight
-bridge maps leaf by leaf.  ABMIL (``path_arch: abmil``) runs no kernel and
-comes with the other modes.
+bridge maps leaf by leaf.  Neither ABMIL form runs a kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +27,49 @@ from torch import nn
 from sml_tpu_torch.ops.common import Dense, DropoutRNG
 from sml_tpu_torch.ops.conv import PPEG
 from sml_tpu_torch.ops.nystrom import NystromAttention
+
+
+class ABMIL(nn.Module):
+    def __init__(self, label_dim: int = 4, path_dim: int = 128,
+                 input_path_dim: int = 1024, attn_hidden: int = 128,
+                 n_attn_heads: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention_0 = Dense(input_path_dim, attn_hidden, dtype=dtype)
+        self.attention_1 = Dense(attn_hidden, n_attn_heads, dtype=dtype)
+        self.classifier = Dense(n_attn_heads * input_path_dim, label_dim, dtype=dtype)
+        self.multimodal_projection = Dense(n_attn_heads * input_path_dim, path_dim,
+                                           dtype=dtype)
+
+    def forward(self, x_path: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
+        """x_path (B, N, L); mask (B, N) marks real patches.  ``rng`` is
+        unused (ABMIL has no dropout)."""
+        b = x_path.shape[0]
+        a = self.attention_1(torch.tanh(self.attention_0(x_path))).transpose(1, 2)
+        if mask is not None:             # padded patches get zero attention
+            a = a.masked_fill(~mask.bool()[:, None, :], float("-inf"))
+        a = torch.softmax(a, dim=-1)                               # (B, K, N)
+        m = (a @ x_path.to(a.dtype)).reshape(b, -1)                # (B, K*L)
+        return {"features": self.multimodal_projection(m), "logits": self.classifier(m),
+                "attention": a}
+
+
+class GatedABMIL(nn.Module):
+    def __init__(self, label_dim: int = 2, input_path_dim: int = 1024,
+                 attn_hidden: int = 128, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention_V = Dense(input_path_dim, attn_hidden, dtype=dtype)
+        self.attention_U = Dense(input_path_dim, attn_hidden, dtype=dtype)
+        self.attention_weights = Dense(attn_hidden, 1, dtype=dtype)
+        self.classifier = Dense(input_path_dim, label_dim, dtype=dtype)
+
+    def forward(self, x_path: torch.Tensor) -> Dict[str, torch.Tensor]:
+        a = self.attention_weights(torch.tanh(self.attention_V(x_path))
+                                   * torch.sigmoid(self.attention_U(x_path)))
+        a = torch.softmax(a.transpose(1, 2), dim=-1)               # (B, 1, N)
+        m = (a @ x_path.to(a.dtype)).reshape(x_path.shape[0], -1)
+        logits = self.classifier(m)
+        return {"logits": logits, "probs": torch.sigmoid(logits), "attention": a}
 
 
 class TransLayer(nn.Module):

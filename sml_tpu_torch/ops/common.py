@@ -1,11 +1,12 @@
 """Layers that compute in a given dtype, and the JAX package's initializers.
 
-``Dense`` and ``Conv`` follow flax's ``dtype=`` rule: input, weight and bias are
-cast to the compute dtype; on the card a bf16 product accumulates in f32 and
-returns bf16.  Both keep torch's parameter layout (``weight`` (out, in) and
-(out, in/groups, kh, kw)); ``sml_tpu_torch.bridge`` transposes the flax
-kernels into it.  ``Conv`` takes and returns channels-last (N, H, W, C)
-tensors, the JAX package's layout.
+``Dense``, ``Conv`` and ``Conv1`` follow flax's ``dtype=`` rule: input, weight
+and bias are cast to the compute dtype; on the card a bf16 product
+accumulates in f32 and returns bf16.  They keep torch's parameter layout
+(``weight`` (out, in), (out, in/groups, kh, kw) and (out, in/groups, k));
+``sml_tpu_torch.bridge`` transposes the flax kernels into it (``Bilinear``'s
+(out, in1, in2) is flax's own).  ``Conv`` takes and returns channels-last (N, H, W, C) tensors and
+``Conv1`` channels-last (N, L, C), the JAX package's layouts.
 
 ``DropoutRNG`` carries the two generators of training-mode dropout, and
 ``dropout`` is flax's inverted dropout drawn from one of them.
@@ -14,7 +15,8 @@ Initializers (``init_params``) draw from an explicit ``torch.Generator`` with
 the JAX initializers' distributions: ``torch_kernel_init`` is
 U(+-1/sqrt(fan_in)); ``max_kernel_init`` is a normal truncated at two standard
 deviations with variance 1/fan_in (JAX's ``variance_scaling(1, fan_in,
-"normal")``); biases are zero.
+"normal")``); ``Bilinear`` takes U(+-1/sqrt(in1)) (``torch_bilinear_init``);
+biases are zero.
 """
 
 from __future__ import annotations
@@ -101,6 +103,38 @@ class Conv(nn.Conv2d):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
+class Conv1(nn.Conv1d):
+    """``nn.Conv1d`` on channels-last (N, L, C) tensors, computing in ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, groups=groups, bias=bias)
+        self.compute_dtype = dtype
+        self.kernel_init = "torch"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(cdt)
+        y = F.conv1d(x.to(cdt).transpose(1, 2), self.weight.to(cdt), b, self.stride,
+                     self.padding, 1, self.groups)
+        return y.transpose(1, 2).contiguous()
+
+
+class Bilinear(nn.Bilinear):
+    """torch ``nn.Bilinear``, out_o = x1^T W_o x2 + b_o (the JAX package's
+    ``ops/fusion.py:Bilinear``, whose ``weight`` has torch's (out, in1, in2)
+    layout).  That module takes no compute dtype: its einsum promotes bf16
+    inputs to the f32 parameters, and so does this one.  It takes the JAX
+    einsum (two batched products) rather than ``F.bilinear``, which on CUDA
+    runs a matrix product per output feature in a train step."""
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return torch.einsum("bi,oij,bj->bo", x1.to(w.dtype), w, x2.to(w.dtype)) + self.bias
+
+
 def torch_kernel_init_(w: torch.Tensor, fan_in: int,
                        generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(fan_in)
@@ -120,12 +154,15 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init of every parameter, module by module in registration order."""
     g = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (Dense, Conv)):
+        if isinstance(module, (Dense, Conv, Conv1)):
             fan_in = module.weight[0].numel()
             init = max_kernel_init_ if module.kernel_init == "max" else torch_kernel_init_
             init(module.weight, fan_in, g)
             if module.bias is not None:
                 nn.init.zeros_(module.bias)
+        elif isinstance(module, Bilinear):
+            torch_kernel_init_(module.weight, module.weight.shape[1], g)
+            nn.init.zeros_(module.bias)
         elif isinstance(module, nn.LayerNorm):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)

@@ -14,8 +14,10 @@ KERNELS = (cpb_bias, cpb_bias_bwd, deform_attention_fwd, deform_attention_bwd)
 _FORMS = ((deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropout"),
           (deform_attention_fwd, "nobias_launches", "deform_attention_fwd_nobias"),
           (deform_attention_fwd, "span_launches", "deform_attention_fwd_span"),
+          (deform_attention_fwd, "f32bias_launches", "deform_attention_fwd_f32bias"),
           (deform_attention_bwd, "nobias_launches", "deform_attention_bwd_nobias"),
-          (deform_attention_bwd, "span_launches", "deform_attention_bwd_span"))
+          (deform_attention_bwd, "span_launches", "deform_attention_bwd_span"),
+          (deform_attention_bwd, "f32bias_launches", "deform_attention_bwd_f32bias"))
 
 
 def reset_launch_counts() -> None:
@@ -27,7 +29,8 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """{wrapper name: launches}, and the attention wrappers' launches by form:
-    with dropout, without a bias, with a span."""
+    with dropout, without a bias, with a span, with an f32 bias beside bf16
+    q, k, v."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({key: getattr(fn, attr) for fn, attr, key in _FORMS})
     return counts

@@ -9,7 +9,10 @@ Replaces the Pallas kernels ``_fused_attn_fwd_call``
 VJP ``deform_attention_trainable`` (``:1099``), in every compiled form:
 ``out = dropout(softmax(mask(q k^T + bias))) @ v`` with or without the bias
 (the deformable attention has one; the Nystrom chains have none), with or
-without the span mask, with or without dropout.
+without the span mask, with or without dropout.  The bias comes in q's dtype,
+or in f32 beside bf16 q, k, v: the 1-D deformable attention's, from its f32
+``CPB1D`` (``sml_tpu/ops/deformable.py:687-691`` hands Pallas the same), in the
+form without span and dropout that its path runs; dbias then comes in f32.
 
 ``span`` (BG, 4) int32 holds per-bag ``[row_start, row_end, col_start,
 col_end)`` over the unpadded rows and columns (``_span_valid`` ``:843``):
@@ -72,12 +75,12 @@ def _library(name: str):
         lib = _build.load(name)
         if name == "deform_attn":
             lib.deform_attn_fwd.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_fwd.restype = ctypes.c_int
         else:
             lib.deform_attn_bwd.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_bwd.restype = ctypes.c_int
         _libs[name] = lib
@@ -122,13 +125,25 @@ def _check_dropout(keep_prob: float, seed: int) -> None:
         raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
 
 
-def _check_kernel(name, q, bias, span, tensors):
+def _f32_bias(q, bias) -> bool:
+    """Whether this is the form with an f32 bias beside bf16 q, k, v."""
+    return bias is not None and bias.dtype == torch.float32 and q.dtype == torch.bfloat16
+
+
+def _bias_code(q, bias) -> int:
+    """The bias's dtype code for the C entries (q's without a bias)."""
+    return _DTYPE_CODE[(q if bias is None else bias).dtype]
+
+
+def _check_kernel(name, q, bias, span, keep_prob, tensors):
+    if bias is not None and bias.dtype != q.dtype and not (
+            _f32_bias(q, bias) and span is None and keep_prob >= 1.0):
+        raise TypeError(f"the {name} kernel takes the bias in q's dtype, or in f32 beside "
+                        "bf16 q without span and dropout")
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
     if q.shape[-1] != KERNEL_DH:
         raise ValueError(f"{name} kernel takes dh={KERNEL_DH}, not {q.shape[-1]}")
-    if bias is not None and bias.dtype != q.dtype:
-        raise TypeError(f"the {name} kernel takes the bias in q's dtype")
     if span is not None and span.dtype != torch.int32:
         raise TypeError(f"the {name} kernel takes the span in int32")
     for t in tensors:
@@ -185,10 +200,12 @@ def deform_attention_fwd_plain(q, k, v, bias=None, keep=None, keep_prob=1.0, spa
     return torch.einsum("bnj,bjd->bnd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _count(fn, bias, span, keep_prob) -> None:
+def _count(fn, q, bias, span, keep_prob) -> None:
     fn.launches += 1
     if bias is None:
         fn.nobias_launches += 1
+    if _f32_bias(q, bias):
+        fn.f32bias_launches += 1
     if span is not None:
         fn.span_launches += 1
     if keep_prob < 1.0:
@@ -203,7 +220,8 @@ def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
     span (BG, 4) int32 per-bag validity intervals or None.  With
     ``keep_prob < 1`` each probability is kept with that probability (by
     Philox on ``seed``) and scaled by 1/keep_prob.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which takes the bias in q's dtype.
+    version; CUDA tensors launch the kernel, which takes the bias in q's dtype,
+    or in f32 beside bf16 q without span and dropout.
     """
     bg, n, j, dh = _check(q, k, v, bias, span)
     _check_dropout(keep_prob, seed)
@@ -211,18 +229,19 @@ def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
         return deform_attention_fwd_plain(
             q, k, v, bias, _keep_mask(keep_prob, seed, bg, n, j, q.device), keep_prob,
             span)
-    _check_kernel("deform_attention_fwd", q, bias, span, (q, k, v, bias, span))
+    _check_kernel("deform_attention_fwd", q, bias, span, keep_prob, (q, k, v, bias, span))
     out = torch.empty_like(q)
     lib = _library("deform_attn")
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.deform_attn_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                                 v.data_ptr(), ptr(bias), ptr(span), out.data_ptr(),
+        rc = lib.deform_attn_fwd(_DTYPE_CODE[q.dtype], _bias_code(q, bias), q.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(), ptr(bias), ptr(span),
+                                 out.data_ptr(),
                                  bg, n, j, dh, keep_prob, 1.0 / keep_prob, seed,
                                  q.device.index, stream)
     _build.check(rc, "deform_attention_fwd")
-    _count(deform_attention_fwd, bias, span, keep_prob)
+    _count(deform_attention_fwd, q, bias, span, keep_prob)
     return out
 
 
@@ -266,7 +285,8 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
         return deform_attention_bwd_plain(
             q, k, v, bias, dout, _keep_mask(keep_prob, seed, bg, n, j, q.device),
             keep_prob, span)
-    _check_kernel("deform_attention_bwd", q, bias, span, (q, k, v, bias, span, dout))
+    _check_kernel("deform_attention_bwd", q, bias, span, keep_prob,
+                  (q, k, v, bias, span, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = None if bias is None else torch.empty_like(bias)
     stats = torch.empty((2, bg, n), dtype=torch.float32, device=q.device)  # lse, delta
@@ -274,19 +294,21 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.deform_attn_bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                                 v.data_ptr(), ptr(bias), ptr(span), dout.data_ptr(),
+        rc = lib.deform_attn_bwd(_DTYPE_CODE[q.dtype], _bias_code(q, bias), q.data_ptr(),
+                                 k.data_ptr(), v.data_ptr(), ptr(bias), ptr(span),
+                                 dout.data_ptr(),
                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(dbias),
                                  stats[0].data_ptr(), stats[1].data_ptr(), bg, n, j, dh,
                                  keep_prob, 1.0 / keep_prob, seed, q.device.index,
                                  stream)
     _build.check(rc, "deform_attention_bwd")
-    _count(deform_attention_bwd, bias, span, keep_prob)
+    _count(deform_attention_bwd, q, bias, span, keep_prob)
     return dq, dk, dv, dbias
 
 
 for _fn in (deform_attention_fwd, deform_attention_bwd):
     _fn.launches = _fn.nobias_launches = _fn.span_launches = _fn.dropout_launches = 0
+    _fn.f32bias_launches = 0
 
 
 class DeformAttentionTrainable(torch.autograd.Function):

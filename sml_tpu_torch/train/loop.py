@@ -5,7 +5,8 @@ With ``bucket_sizes`` set, the loaders are ``BucketedLoader``s (one bucket per
 batch).  Per epoch: the seeded shuffled train batches, one train step each, then Test
 and Val evaluation, the ``epoch i/n val=... test=...`` line, and best-on-val
 weights written as ``<checkpoints>/best_modal.npz`` (the flattened flax
-parameter tree, which ``python -m sml_tpu_torch.inference --weights`` reads).
+parameter tree and the BatchNorms' ``batch_stats``, which ``python -m
+sml_tpu_torch.inference --weights`` reads).
 The train metrics of an epoch stay on the device and are fetched once, at its
 end.
 """
@@ -19,7 +20,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from sml_tpu_torch.bridge import export_flax_params, flatten_params
+from sml_tpu_torch.bridge import (STATS, export_flax_batch_stats, export_flax_params,
+                                  flatten_params)
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
 from sml_tpu_torch.models.factory import define_net, define_optimizer, resolve_device
@@ -59,8 +61,10 @@ def _is_better(config: Config, val: Dict[str, float], best: Dict[str, float]) ->
 
 
 def save_weights(model: torch.nn.Module, path: str) -> None:
-    """The model's parameters as an ``.npz`` of the flattened flax tree."""
-    np.savez(path, **flatten_params(export_flax_params(model)))
+    """The model's parameters as an ``.npz`` of the flattened flax tree, and a
+    BatchNorm's running averages under ``batch_stats/``."""
+    stats = flatten_params(export_flax_batch_stats(model), STATS)
+    np.savez(path, **flatten_params(export_flax_params(model)), **stats)
 
 
 def train(config: Config, device: str | torch.device = "cuda"

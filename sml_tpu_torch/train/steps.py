@@ -1,13 +1,17 @@
-"""Train and eval steps of mode=deformpathomic and mode=path (counterpart of
+"""Train and eval steps of the ported modes (counterpart of
 ``sml_tpu/train/steps.py``: ``make_train_step``, ``modulate_classifier_grads``
-(deformpathomic only), ``make_eval_step`` and those modes' branches of
+(deformpathomic with concat fusion only), ``make_eval_step`` and the
+deformpathomic, path, omic, pathomic and pathomic_original branches of
 ``compute_mode_loss``).  Losses are taken in f32 on the model's outputs.
 
 A train step is the forward in training mode (dropout from the state's
-``DropoutRNG``), ``backward``, the gradient modulation of the fused
-classifier, then ``optimizer.step()`` and the learning-rate scheduler.  The
-JAX classifier kernel is (2*hs, L) and splits by rows; torch's ``weight`` is
-(L, 2*hs), so its tumor / immune halves are its columns."""
+``DropoutRNG``; a BatchNorm normalizes by the batch and moves its running
+averages, as the JAX step's mutable ``batch_stats``), ``backward``, the
+gradient modulation of the fused classifier, then ``optimizer.step()`` and
+the learning-rate scheduler.  The eval step runs the model in eval mode (the
+BatchNorms' running averages).  The JAX classifier kernel is (2*hs, L) and
+splits by rows; torch's ``weight`` is (L, 2*hs), so its tumor / immune halves
+are its columns."""
 
 from __future__ import annotations
 
@@ -36,12 +40,12 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
                       labels: torch.Tensor, train: bool = True,
                       sample_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss.  ``mode=path``: the task loss, or for survival the
-    survival loss on ``sigmoid(logits)``.  ``mode=deformpathomic``: the task
-    loss plus, with ``return_vgrid``, the mean of the two branches'
-    batch-similarity losses.  (``batchloss_grad_scale`` only rescales the
-    gradient, not this value.)"""
-    if config.mode == "path":
+    """Total loss.  Modes path, omic, pathomic and pathomic_original: the task
+    loss, or for survival the survival loss on ``sigmoid(logits)``.
+    ``mode=deformpathomic``: the task loss plus, with ``return_vgrid``, the
+    mean of the two branches' batch-similarity losses.
+    (``batchloss_grad_scale`` only rescales the gradient, not this value.)"""
+    if config.mode in ("path", "omic", "pathomic", "pathomic_original"):
         logits = out["logits"].float()
         if config.task_type == "survival":
             hazards = torch.sigmoid(logits)

@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import jax
@@ -65,6 +66,54 @@ def test_bridge_raises_on_missing_or_extra_leaf(change):
     model = define_net(Config(**SMALL), "cpu", seed=0)
     with pytest.raises(ValueError, match="missing|unused"):
         load_flax_params(model, unflatten_params(flat))
+
+
+@pytest.mark.parametrize("extra", [dict(fusion_type="pofusion"),
+                                   dict(fusion_type="pofusion", attn_dim=1,
+                                        return_vgrid=False)])
+def test_bridge_round_trips_batch_stats_and_the_new_leaf_kinds(extra, tmp_path):
+    """A deformpathomic model with a BilinearFusion head (BatchNorm scale / bias
+    and its ``batch_stats``, ``Bilinear`` weights) and, with ``attn_dim`` 1,
+    the 1-D convolutions, ``CPB1D``'s raw weights and the cls tokens: the JAX
+    variables tree loads leaf by leaf, exports back equal, and survives
+    ``save_weights`` -> ``load_npz``."""
+    from sml_tpu_torch.bridge import export_flax_batch_stats, load_npz
+    from sml_tpu_torch.train.loop import save_weights
+
+    cfg = JConfig(**SMALL, mmhid=32, **extra)
+    model = j_define_net(cfg)
+    batch = next(iter(JLoader(j_build_datasets(cfg, "Test"), cfg.batch_size)))
+    batch.pop("sample_mask")
+    variables = jax.tree_util.tree_map(
+        np.asarray, j_init_model(cfg, model, jax.random.PRNGKey(3), batch))
+    assert set(variables) == {"params", "batch_stats"}
+    stats = jax.tree_util.tree_map(lambda v: v + np.arange(v.size, dtype=v.dtype) * 1e-3,
+                                   variables["batch_stats"])
+    flat = flatten_params(variables["params"])
+    kinds = {k.rsplit("/", 1)[-1] for k in flat}
+    assert {"scale", "weight", "kernel", "bias"} <= kinds
+    if extra.get("attn_dim") == 1:
+        assert flat["pathomic_net_tumor/layer3/attn1d/offset_conv/kernel"].ndim == 3
+        assert "pathomic_net_tumor/cls_token" in flat
+    torch_model = define_net(Config(**SMALL, mmhid=32, **extra), "cpu", seed=0)
+    load_flax_params(torch_model, {"params": variables["params"], "batch_stats": stats})
+    exported = flatten_params(export_flax_params(torch_model))
+    assert exported.keys() == flat.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(exported[k], v, err_msg=k)
+    want_stats = flatten_params(stats)
+    got_stats = flatten_params(export_flax_batch_stats(torch_model))
+    assert got_stats.keys() == want_stats.keys() == {
+        "fusion/bn1/mean", "fusion/bn1/var", "fusion/bn2/mean", "fusion/bn2/var"}
+    for k, v in want_stats.items():
+        np.testing.assert_array_equal(got_stats[k], v, err_msg=k)
+    save_weights(torch_model, str(tmp_path / "w.npz"))
+    again = define_net(Config(**SMALL, mmhid=32, **extra), "cpu", seed=1)
+    load_npz(again, str(tmp_path / "w.npz"))
+    for (name, a), b in zip(torch_model.state_dict().items(), again.state_dict().values()):
+        assert torch.equal(a, b), name
+    with pytest.raises(ValueError, match="batch_stats"):
+        load_flax_params(again, variables["params"])         # the statistics are missing
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sml_tpu", "yaml", "sklearn",

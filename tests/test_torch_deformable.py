@@ -99,5 +99,5 @@ def test_group_ungroup_round_trip_matches_jax():
 def test_non_square_bag_raises():
     mod = tdef.DeformCrossAttention2D(DIM)
     x = torch.zeros(1, 50, DIM)
-    with pytest.raises(NotImplementedError, match="perfect square"):
+    with pytest.raises(ValueError, match="perfect square"):
         mod(x, x)

@@ -253,6 +253,47 @@ def test_plain_deform_attention_bwd_matches_pallas_interpret_vjp(bg, n, j, keep_
     assert max(_attn_bwd_errors(no_ds, want)[name] for name in ("dq", "dk")) > 1.0
 
 
+@pytest.mark.parametrize("bg,n,j", [(3, 100, 16), (2, 64, 8), (3, 100, 20), (3, 100, 72),
+                                    (2, 65, 16), (3, 100, 37)])
+def test_plain_deform_attention_f32_bias_matches_pallas_interpret_vjp(bg, n, j):
+    """bf16 q, k, v beside an f32 bias: the form of the 1-D deformable
+    attention (``sml_tpu/ops/deformable.py:687-691``; no span, no dropout; the
+    plain versions take no span here as the port's 1-D path passes none).
+    N = 65 with J = 16 is a 64-token bag with its cls token.  The forward: at
+    least 99.9% of the elements equal to the interpret-mode Pallas kernel's and
+    none more than 1/16 of a bf16 ulp of the output's scale away (p * m is
+    rounded to bf16 where Pallas rounds it).  The backward: dq, dk, dv in bf16
+    within ``_bf16_rounding_bound`` (ds rounded to bf16 before dq and dk, p
+    before dv); dbias in f32, unrounded, within 1e-5 of its scale plus 1e-5
+    of each element (the f32 sums of dp run in another order); the control,
+    dbias rounded to bf16 as the bf16-bias form returns it, misses that."""
+    q, k, v, bias, dout = _attn_inputs(n + j + 7, bg, n, j)
+    fn = lambda q_, k_, v_, b_: j_attn_trainable(q_, k_, v_, b_, None, None, None, 1.0, True)
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                       jnp.asarray(bias, jnp.float32))
+    grads = vjp(jnp.asarray(dout, jnp.bfloat16))
+    assert grads[3].dtype == jnp.float32
+    want_out = np.asarray(out.astype(jnp.float32))
+    want = [np.asarray(g.astype(jnp.float32)) for g in grads]
+    tq, tk, tv, td = (t.bfloat16() for t in _t((q, k, v, dout)))
+    tb = torch.from_numpy(bias)
+
+    got_out = deform_attention_fwd_plain(tq, tk, tv, tb)
+    assert got_out.dtype == torch.bfloat16
+    got_out = got_out.float().numpy()
+    assert (got_out == want_out).mean() >= 0.999, (got_out == want_out).mean()
+    assert np.abs(got_out - want_out).max() <= _bf16_ulp_of_scale(want_out) / 16
+
+    got = deform_attention_bwd_plain(tq, tk, tv, tb, td)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
+    errors = _attn_bwd_errors(got[:3], want[:3])
+    assert max(errors.values()) <= 1.0, errors
+    dbias_bound = 1e-5 * np.abs(want[3]).max() + 1e-5 * np.abs(want[3])
+    assert (np.abs(got[3].numpy() - want[3]) <= dbias_bound).all()
+    rounded = got[3].bfloat16().float().numpy()
+    assert not (np.abs(rounded - want[3]) <= dbias_bound).all()
+
+
 def test_cpb_bias_trainable_on_cpu_is_the_plain_backward():
     args = _t(_cpb_inputs(3, 2, 4, 5, 8, 16))
     leaves = [a.clone().requires_grad_(True) for a in args]
@@ -461,3 +502,54 @@ def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob):
                                                                          atol=2e-2)
     for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
         torch.testing.assert_close(g.float(), w_.float(), msg=name, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,j", [(100, 144), (100, 37), (2501, 625)])
+def test_cuda_deform_attention_f32_bias_matches_plain(n, j):
+    """The f32-bias form (bf16 q, k, v; no span, no dropout) forward and
+    backward against their plain versions, one count each of the form, and
+    a second launch bit for bit; N = 2501, J = 625 is the 1-D path's shape
+    at fixdim 2500.  Forward within one bf16 ulp of the output's scale;
+    dq, dk, dv at the bf16 tolerance above; dbias (f32) within 1e-2 of its
+    scale (the kernel's ds sums dp in another order)."""
+    dev = _cuda()
+    q, k, v, bias, dout = (torch.from_numpy(a).to(dev) for a in _attn_inputs(3, 2, n, j))
+    q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    before = (deform_attention_fwd.f32bias_launches, deform_attention_bwd.f32bias_launches)
+    out = deform_attention_fwd(q, k, v, bias)
+    got = deform_attention_bwd(q, k, v, bias, dout)
+    torch.cuda.synchronize()
+    assert (deform_attention_fwd.f32bias_launches,
+            deform_attention_bwd.f32bias_launches) == (before[0] + 1, before[1] + 1)
+    want = deform_attention_fwd_plain(q, k, v, bias).float()
+    assert (out.float() - want).abs().max().item() <= _bf16_ulp_of_scale(want.cpu().numpy())
+    assert got[3].dtype == torch.float32
+    for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got,
+                           deform_attention_bwd_plain(q, k, v, bias, dout)):
+        g, w_ = g.float(), w_.float()
+        assert (g - w_).abs().max().item() <= 1e-2 * w_.abs().max().item(), name
+    assert torch.equal(deform_attention_fwd(q, k, v, bias), out)
+    for name, g, g2 in zip(("dq", "dk", "dv", "dbias"), got,
+                           deform_attention_bwd(q, k, v, bias, dout)):
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.parametrize("form", ["span", "dropout", "f32_q", "built"])
+def test_f32_bias_kernel_form_is_only_the_1d_one(form):
+    """The wrappers hand a kernel an f32 bias beside bf16 q only without span
+    and dropout (the form that is built); f32 q with a bf16 bias is refused
+    too.  The dtype check comes before the device check, so meta tensors show
+    it here: the built form gets past it and fails on the device alone."""
+    from sml_tpu_torch.ops.kernels.deform_attn import _check_kernel
+
+    f32_q = form == "f32_q"
+    q = torch.empty(2, 8, 64, dtype=torch.float32 if f32_q else torch.bfloat16, device="meta")
+    bias = torch.empty(2, 8, 4, dtype=torch.bfloat16 if f32_q else torch.float32,
+                       device="meta")
+    span = torch.zeros(2, 4, dtype=torch.int32, device="meta") if form == "span" else None
+    keep_prob = 0.9 if form == "dropout" else 1.0
+    error, match = (ValueError, "runs on cpu or cuda") if form == "built" else (TypeError,
+                                                                                "f32 beside")
+    with pytest.raises(error, match=match):
+        _check_kernel("deform_attention_fwd", q, bias, span, keep_prob, ())

@@ -249,13 +249,11 @@ def test_train_cli_two_bucketed_epochs(tmp_path, capsys):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="path_arch"):
-        define_net(Config(**dict(SMALL, path_arch="abmil")), CPU)
-    model = define_net(Config(dataset="synthetic", fixdim=64, input_path_dim=32,
-                              path_dim=16), CPU)
-    with pytest.raises(NotImplementedError, match="masked"):
-        model(torch.zeros(1, 64, 32), torch.zeros(1, 59), torch.zeros(1, 361),
-              mask=torch.ones(1, 64, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="mcat"):
+        define_net(Config(**dict(SMALL, mode="mcat")), CPU)
+    with pytest.raises(NotImplementedError, match="remat"):
+        define_net(Config(dataset="synthetic", fixdim=64, input_path_dim=32, path_dim=16,
+                          remat=True), CPU)
     with pytest.raises(NotImplementedError, match="return_attn"):
         define_net(Config(**SMALL), CPU).layer1.attn(torch.zeros(1, 8, 512),
                                                     return_attn=True)
