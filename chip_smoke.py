@@ -86,8 +86,30 @@ The other deformpathomic configurations and the modes without a kernel:
             running averages moved, finite, written to ``best_modal.npz`` and
             read back by ``inference.main --weights``;
 14. modes   omic, path with ABMIL (fixed and bucketed bags), pathomic
-            (concat and pofusion) and pathomic_original: one short epoch
-            each, no kernel launch, finite metrics, a train step's time.
+            (concat and pofusion), pathomic_original and MCAT (survival,
+            concat and bilinear co-attention fusion): one short epoch each,
+            no kernel launch, finite metrics, a train step's time.
+
+CMTA (``--mode cmta``, survival, f32 as the config default: 256-wide
+TransLayers of 8 heads x 32 with 128 landmarks), whose two Nystrom chains per
+TransLayer of its two TransformerP (4 layers) run the f32 dh = 32 form of the
+attention kernels:
+
+15. cmta-kernels  the dh = 32 forward and backward at chain 3 (128 landmark
+            rows x 2560 keys) and chain 1 (2560 rows x 128 landmark keys) of a
+            2500-patch bag (BG = 64) and at the ragged (N, J) of phase 3,
+            against their plain versions (KERNEL_TOL and GRAD_RTOL in f32),
+            repeated bit for bit and timed beside the plain version and
+            F.scaled_dot_product_attention in f32; every other dh = 32 form
+            (bf16, a bias, a span, dropout) must raise in the wrapper and be
+            refused by the C entries;
+16. cmta    ``inference.main`` and ``main.main`` at 2500 patches (B = 8, f32):
+            exactly 8 dh = 32 forward launches per eval batch, 8 forward and 8
+            backward per train step, finite losses and C-index, one batch and
+            one train step's loss and gradients through the kernels against
+            the plain versions (SLICE_TOL and TRAIN_TOL in f32), the step
+            times, bags/s and peak memory; then a bf16 CMTA epoch, where the
+            gate admits no chain (32 x 2 bytes < 128): no launch.
 
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -125,7 +147,10 @@ KERNEL_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 # typical output (chain 3 at 4352 keys: ~0.02, max ~0.1) and would pass a 20%
 # error; the two differ by one rounding of p or of out, one ulp of the largest
 FWD_ULPS = 4
-SLICE_TOL = (3e-2, 2e-2)    # bf16 model through kernels vs through plain versions
+# the model through the kernels vs through the plain versions, by compute
+# dtype: bf16 outputs are rounded at other points in the two paths; the f32
+# model (CMTA's dh = 32 chains) sums the chains in f32, in another order
+SLICE_TOL = {"bfloat16": (3e-2, 2e-2), "float32": (1e-3, 1e-3)}
 # gradients: |kernel - plain| <= rtol * max|plain| per tensor (sums in another order;
 # bf16 outputs both rounded from f32)
 GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -135,11 +160,16 @@ GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # dz1 by a whole w1 dz2: in f32 at S2500 both lie ~2.5e-4 (d_dx, scale 8e-3) and
 # ~1.5e-3 (dw1, scale 1.8) from a float64 evaluation, so no per-element bound holds.
 CPB_GRAD_L2 = 1e-2
-# one bf16 train step through the kernels vs through the plain versions, same
-# batch and generators: |loss terms| within 2e-2, and every parameter gradient
-# within 5e-2 relative L2 (bf16 roundings at other points in the two paths),
-# gradients under 1e-3 of the largest norm relative to that floor
-TRAIN_LOSS_TOL, TRAIN_GRAD_L2 = 2e-2, 5e-2
+# one train step through the kernels vs through the plain versions, same batch
+# and generators, by compute dtype: (|loss terms|, every parameter gradient's
+# relative L2), gradients under 1e-3 of the largest norm relative to that
+# floor.  bf16 roundings fall at other points in the two paths; f32 sums run
+# in another order
+TRAIN_TOL = {"bfloat16": (2e-2, 5e-2), "float32": (1e-3, 1e-3)}
+# CMTA's Nystrom chains: 256-wide TransLayers, 8 heads of 32 and 128 landmarks;
+# 2500 patches + cls = 2501 tokens, front-padded to 2560
+CMTA_M, CMTA_DH, CMTA_NPAD = 128, 32, 2560
+CMTA_FLAGS = {"mode": "cmta", "task_type": "survival", "compute_dtype": "float32"}
 KEEP_PROB, SEED = 0.9, 20240611       # the attention dropout of the training path
 # TransMIL's Nystrom chains: 256 landmarks; bag + cls token front-padded to a
 # multiple of them
@@ -150,12 +180,18 @@ TM_FLAGS = {"mode": "path", "path_arch": "transmil"}
 # of the stride-4 offset conv; its bias is f32 beside bf16 q, k, v
 D1_FLAGS = {"attn_dim": 1, "return_vgrid": False}
 D1_N, D1_J = 2501, 625
-PATH_FLAGS = {"transmil": TM_FLAGS, "deform1d": D1_FLAGS}
+PATH_FLAGS = {"transmil": TM_FLAGS, "deform1d": D1_FLAGS, "cmta": CMTA_FLAGS}
 LABELS = {"deformpathomic": ("slice", "train"), "transmil": ("tm-slice", "tm-train"),
-          "deform1d": ("deform-1d", "deform-1d")}
+          "deform1d": ("deform-1d", "deform-1d"), "cmta": ("cmta", "cmta")}
+
+
+_START = time.perf_counter()
 
 
 def _line(phase: str, **fields) -> None:
+    """One result line; ``at_s`` is the script's wall time so far (the phases'
+    share of the run's time limit)."""
+    fields["at_s"] = round(time.perf_counter() - _START, 1)
     print(f"[{phase}] " + json.dumps(fields), flush=True)
 
 
@@ -757,6 +793,123 @@ def phase_chains() -> dict:
     return entries
 
 
+def _refusals() -> dict:
+    """Every dh = 32 form but CMTA's (f32, no bias, span or dropout) at a
+    ragged shape: the wrapper must raise, and the C entries, called directly,
+    must return cudaErrorInvalidValue (1) before launching anything."""
+    from sml_tpu_torch.ops.kernels import deform_attention_bwd, deform_attention_fwd
+    from sml_tpu_torch.ops.kernels.deform_attn import _library
+
+    n, j, f32 = 100, 20, torch.float32
+    q, k, v, dout = (torch.randn(BG, r, CMTA_DH, device="cuda") for r in (n, j, j, n))
+    bias = torch.randn(BG, n, j, device="cuda")
+    span = _interval_spans(n, j)
+    cases = {"bf16": ((q, k, v, dout), None, None, 1.0),
+             "bias": ((q, k, v, dout), bias, None, 1.0),
+             "span": ((q, k, v, dout), None, span, 1.0),
+             "dropout": ((q, k, v, dout), None, None, KEEP_PROB)}
+    result = {}
+    fwd_lib, bwd_lib = _library("deform_attn"), _library("deform_attn_bwd")
+    scratch = torch.empty(2, BG, n, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for form, (tensors, b, sp, keep_prob) in cases.items():
+        if form == "bf16":
+            tensors = tuple(t.to(torch.bfloat16) for t in tensors)
+        qq, kk, vv, do = tensors
+        raised = []
+        for call in (lambda: deform_attention_fwd(qq, kk, vv, b, keep_prob, SEED, sp),
+                     lambda: deform_attention_bwd(qq, kk, vv, b, do, keep_prob, SEED, sp)):
+            try:
+                call()
+                raised.append(False)
+            except ValueError:
+                raised.append(True)
+        code = 1 if form == "bf16" else 0
+        ptr = lambda t: None if t is None else t.data_ptr()
+        rc_fwd = fwd_lib.deform_attn_fwd(code, code, qq.data_ptr(), kk.data_ptr(),
+                                         vv.data_ptr(), ptr(b), ptr(sp), do.data_ptr(),
+                                         BG, n, j, CMTA_DH, keep_prob, 1.0 / keep_prob, SEED,
+                                         q.device.index, stream)
+        rc_bwd = bwd_lib.deform_attn_bwd(code, code, qq.data_ptr(), kk.data_ptr(),
+                                         vv.data_ptr(), ptr(b), ptr(sp), do.data_ptr(),
+                                         do.data_ptr(), do.data_ptr(), do.data_ptr(), None,
+                                         scratch[0].data_ptr(), scratch[1].data_ptr(),
+                                         BG, n, j, CMTA_DH, keep_prob, 1.0 / keep_prob,
+                                         SEED, q.device.index, stream)
+        result[form] = {"wrapper_raised": raised, "c_entry_rc": [rc_fwd, rc_bwd],
+                        "ok": all(raised) and rc_fwd == rc_bwd == 1}
+    torch.cuda.synchronize()
+    return result
+
+
+def phase_cmta_kernels() -> dict:
+    """The f32 dh = 32 forms (no bias, span or dropout) of the attention
+    forward and backward at CMTA's chain 3 and chain 1 of a 2500-patch bag and
+    at the ragged (N, J) of phase 3, against their plain versions, repeated bit
+    for bit; timed at the chains beside the plain versions and
+    F.scaled_dot_product_attention in f32 without a mask; then the refusals
+    of every other dh = 32 form.  Returns the chains' entries by (name,
+    chain)."""
+    from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
+                                           deform_attention_fwd, deform_attention_fwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    f32, dh, size = torch.float32, CMTA_DH, 4
+    entries, failures = {}, []
+    cases = [("chain3", CMTA_M, CMTA_NPAD), ("chain1", CMTA_NPAD, CMTA_M)] + [
+        ("ragged", n, j) for n, j in RAGGED]
+    for chain, n, j in cases:
+        q = torch.randn(BG, n, dh, device="cuda", generator=g) * dh ** -0.5
+        k, v = torch.randn(2, BG, j, dh, device="cuda", generator=g)
+        dout = torch.randn(BG, n, dh, device="cuda", generator=g) * 1e-2
+        timed = chain != "ragged"
+        pairs = BG * n * j
+        fwd = lambda: (deform_attention_fwd(q, k, v),)
+        out = fwd()
+        torch.cuda.synchronize()
+        plain = deform_attention_fwd_plain(q, k, v)
+        fwd_e = {"name": "deform_attention_fwd_dh32", "pass": "fwd",
+                 **_compare_fwd(out[0], plain), "repeats": _repeats(fwd, out)}
+        bwd = lambda: deform_attention_bwd(q, k, v, None, dout)
+        got = bwd()
+        torch.cuda.synchronize()
+        want = deform_attention_bwd_plain(q, k, v, None, dout)
+        bwd_e = {"name": "deform_attention_bwd_dh32", "pass": "bwd",
+                 **_compare_grads(got[:3], want[:3], GRAD_RTOL[f32]),
+                 "repeats": _repeats(bwd, got)}
+        if got[3] is not None:
+            failures.append("the dh = 32 backward returned a bias gradient")
+        if timed:
+            lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, None)
+            bound_ms, bound_by = _bound(size * (2 * BG * n * dh + 2 * BG * j * dh),
+                                        4 * dh * pairs, f32)
+            fwd_e.update(ms=_time_ms(lambda: deform_attention_fwd(q, k, v)),
+                         plain_ms=_time_ms(lambda: deform_attention_fwd_plain(q, k, v),
+                                           iters=5),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_fwd)
+            bound_ms, bound_by = _bound(size * (3 * BG * n * dh + 4 * BG * j * dh),
+                                        10 * dh * pairs, f32)
+            bwd_e.update(ms=_time_ms(lambda: deform_attention_bwd(q, k, v, None, dout)),
+                         plain_ms=_time_ms(lambda: deform_attention_bwd_plain(
+                             q, k, v, None, dout), iters=5),
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_bwd)
+        for e in (fwd_e, bwd_e):
+            e.update(chain=chain, dtype="float32", dh=dh, bg=BG, n=n, j=j)
+            _line("cmta-kernels", **e)
+            if not (e["ok"] and e["repeats"]):
+                failures.append(f"{e['pass']} {chain} N={n} J={j}")
+            if timed:
+                entries[(e["name"], chain)] = e
+        del q, k, v, dout, out, plain, got, want
+        torch.cuda.empty_cache()
+    refused = _refusals()
+    _line("cmta-kernels", refusals=refused)
+    failures += [f"dh 32 {form} not refused" for form, r in refused.items() if not r["ok"]]
+    if failures:
+        raise AssertionError(f"dh = 32 attention kernels: {failures}")
+    return entries
+
+
 def _finite(tree) -> bool:
     return all(bool(torch.isfinite(t.float()).all()) for t in tree.values())
 
@@ -798,14 +951,19 @@ def _plain_kernels():
 SERVE_LAUNCHES = {
     "deformpathomic": {"cpb_bias": 2, "deform_attention_fwd": 2},
     "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4},
-    "deform1d": {"deform_attention_fwd": 2, "deform_attention_fwd_f32bias": 2}}
+    "deform1d": {"deform_attention_fwd": 2, "deform_attention_fwd_f32bias": 2},
+    "cmta": {"deform_attention_fwd": 8, "deform_attention_fwd_nobias": 8,
+             "deform_attention_fwd_dh32": 8}}
 TRAIN_LAUNCHES = {
     "deformpathomic": {"cpb_bias": 2, "cpb_bias_bwd": 2, "deform_attention_fwd": 2,
                        "deform_attention_bwd": 2, "deform_attention_fwd_dropout": 2},
     "transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4,
                  "deform_attention_bwd": 4, "deform_attention_bwd_nobias": 4},
     "deform1d": {"deform_attention_fwd": 2, "deform_attention_bwd": 2,
-                 "deform_attention_fwd_f32bias": 2, "deform_attention_bwd_f32bias": 2}}
+                 "deform_attention_fwd_f32bias": 2, "deform_attention_bwd_f32bias": 2},
+    "cmta": {"deform_attention_fwd": 8, "deform_attention_fwd_nobias": 8,
+             "deform_attention_fwd_dh32": 8, "deform_attention_bwd": 8,
+             "deform_attention_bwd_nobias": 8, "deform_attention_bwd_dh32": 8}}
 # the span forms that a masked bag adds to TRAIN_LAUNCHES per train step (and,
 # the forward's, to SERVE_LAUNCHES per eval batch): TransMIL's four masked
 # chains; deformpathomic zeroes its masked tokens and passes no span
@@ -813,9 +971,11 @@ BUCKETED_SPAN = {"transmil": {"deform_attention_fwd_span": 4, "deform_attention_
                  "deformpathomic": {}}
 OUTPUTS = {"deformpathomic": ("logits", "logits_tumor", "logits_immune", "features"),
            "transmil": ("logits", "features"),
-           "deform1d": ("logits", "logits_tumor", "logits_immune", "features")}
+           "deform1d": ("logits", "logits_tumor", "logits_immune", "features"),
+           "cmta": ("logits", "hazards", "S", "P", "P_hat", "G", "G_hat")}
 TRAIN_METRICS = {"deformpathomic": {"loss", "loss3", "batch_sim_loss"},
-                 "transmil": {"loss", "loss3"}, "deform1d": {"loss", "loss3"}}
+                 "transmil": {"loss", "loss3"}, "deform1d": {"loss", "loss3"},
+                 "cmta": {"loss", "loss3", "alignment_loss"}}
 
 
 def _flags(path: str, **extra) -> dict:
@@ -871,8 +1031,9 @@ def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic",
         res_plain = step(batch)
     if not (_finite(out) and _finite(res)):
         raise AssertionError("non-finite model outputs")
-    checks = {k: _compare(out[k], out_plain[k], SLICE_TOL) for k in OUTPUTS[path]}
-    checks.update({f"step_{k}": _compare(res[k], res_plain[k], SLICE_TOL) for k in res})
+    tol = SLICE_TOL[config.compute_dtype]
+    checks = {k: _compare(out[k], out_plain[k], tol) for k in OUTPUTS[path]}
+    checks.update({f"step_{k}": _compare(res[k], res_plain[k], tol) for k in res})
     bad = [k for k, c in checks.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels vs plain versions disagree on {bad}: {checks}")
@@ -885,10 +1046,11 @@ def phase_slice(fixdim: int, card: dict, path: str = "deformpathomic",
     step_ms = statistics.median(_host_ms(lambda: step(batch)) for _ in range(10))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     _line(label or LABELS[path][0], run="serve", fixdim=fixdim,
-          batch=config.batch_size, dtype="bfloat16", metrics=metrics, launches=launches,
+          batch=config.batch_size, dtype=config.compute_dtype, metrics=metrics,
+          launches=launches,
           expected_launches=want, entry_point_wall_s=round(wall_s, 2),
           max_abs_err={k: c["max_abs_err"] for k, c in checks.items()},
-          tol=SLICE_TOL, eval_step_ms=step_ms,
+          tol=tol, eval_step_ms=step_ms,
           bags_per_s=config.batch_size / (step_ms / 1e3), h2d_ms=h2d_ms,
           peak_mem_gb=peak_gb, card=card["nvidia_smi"])
     return launches
@@ -1048,20 +1210,21 @@ def phase_train(card: dict, path: str = "deformpathomic", extra: dict | None = N
            for n in g_k}
     worst = max(rel, key=rel.get)
     top = dict(sorted(rel.items(), key=lambda kv: -kv[1])[:5])
-    ok = (all(e <= TRAIN_LOSS_TOL for e in loss_err.values())
-          and all(r <= TRAIN_GRAD_L2 for r in rel.values())
+    loss_tol, grad_tol = TRAIN_TOL[config.compute_dtype]
+    ok = (all(e <= loss_tol for e in loss_err.values())
+          and all(r <= grad_tol for r in rel.values())
           and all(bool(torch.isfinite(g).all()) for g in g_k.values()))
 
     # time per train step on a device-resident batch (optimizer step included)
     step_ms, peak_gb = _train_step_ms(config, model, batch, steps)
     _line(label or LABELS[path][1], run="train", fixdim=MAIN_FIXDIM,
-          batch=config.batch_size, dtype="bfloat16", flags=extra or {},
+          batch=config.batch_size, dtype=config.compute_dtype, flags=extra or {},
           steps=steps, train_metrics=train_m, served_metrics=served, weight_leaves=n_leaves,
           batch_stats=stats, served_vs_test_abs_err=served_err,
           launches_total=total, launches_train_steps=train_l, launches_eval=eval_l,
           entry_point_wall_s=round(wall_s, 2), loss_kernel=m_k, loss_plain=m_p,
-          loss_abs_err=loss_err, loss_tol=TRAIN_LOSS_TOL,
-          grad_rel_l2_top5=top, grad_floor=floor, grad_tol=TRAIN_GRAD_L2,
+          loss_abs_err=loss_err, loss_tol=loss_tol,
+          grad_rel_l2_top5=top, grad_floor=floor, grad_tol=grad_tol,
           grads_compared=len(rel), ok=ok, train_step_ms=step_ms,
           bags_per_s=config.batch_size / (step_ms / 1e3), peak_mem_gb=peak_gb,
           card=card["nvidia_smi"])
@@ -1155,14 +1318,21 @@ MODES = (("omic", {"mode": "omic"}),
                                   "bucket_sizes": "1024,2500", "synthetic_size": 48}),
          ("pathomic", {"mode": "pathomic"}),
          ("pathomic-pofusion", {"mode": "pathomic", "fusion_type": "pofusion"}),
-         ("pathomic_original", {"mode": "pathomic_original"}))
+         ("pathomic_original", {"mode": "pathomic_original"}),
+         ("mcat", {"mode": "mcat", "task_type": "survival"}),
+         ("mcat-bilinear", {"mode": "mcat", "task_type": "survival",
+                            "coattn_fusion": "bilinear"}))
+# CMTA in bf16: the Nystrom gate admits no chain at dh = 32 (64 bytes a row);
+# one train step of 8 bags (full width), to keep the run within its time
+CMTA_BF16 = (("cmta-bf16", {"mode": "cmta", "task_type": "survival", "synthetic_size": 8}),)
 
 
-def phase_modes(card: dict) -> None:
-    """omic, path with ABMIL (fixed and bucketed bags), pathomic (concat and
-    pofusion) and pathomic_original: one short epoch each through
-    ``main.main`` at fixdim 2500 (B = 8, bf16), no kernel launch, finite
-    metrics, and a train step's time on a device-resident batch."""
+def phase_modes(card: dict, modes=MODES, label: str = "modes") -> None:
+    """``modes`` (default: omic, path with ABMIL (fixed and bucketed bags),
+    pathomic (concat and pofusion), pathomic_original and MCAT (concat and
+    bilinear)): one short epoch each through ``main.main`` at fixdim 2500 (B
+    = 8, bf16), no kernel launch, finite metrics, and a train step's time on a
+    device-resident batch."""
     import tempfile
     import warnings
 
@@ -1172,7 +1342,7 @@ def phase_modes(card: dict) -> None:
     from sml_tpu_torch.train.evaluate import batch_to_device
 
     failures = []
-    for name, extra in MODES:
+    for name, extra in modes:
         flags = _flags("", **{"synthetic_size": 16, "fixdim": MAIN_FIXDIM, "epochs": 1,
                               **extra})
         config = Config(**flags)
@@ -1192,7 +1362,7 @@ def phase_modes(card: dict) -> None:
                                           steps, iters=5)
         ok = (rc == 0 and steps > 0 and not any(total.values())
               and all(math.isfinite(v) for m in (train_m, val_m, test_m) for v in m.values()))
-        _line("modes", run=name, flags=extra, steps=steps, launches=total,
+        _line(label, run=name, flags=extra, steps=steps, launches=total,
               train_metrics=train_m, val_metrics=val_m, test_metrics=test_m,
               entry_point_wall_s=round(wall_s, 2), train_step_ms=step_ms,
               bags_per_s=config.batch_size / (step_ms / 1e3), peak_mem_gb=peak_gb, ok=ok,
@@ -1202,7 +1372,7 @@ def phase_modes(card: dict) -> None:
         del model
         torch.cuda.empty_cache()
     if failures:
-        raise AssertionError(f"modes without kernels: {failures}")
+        raise AssertionError(f"{label} runs without kernels: {failures}")
 
 
 def _host_ms(fn) -> float:
@@ -1245,10 +1415,18 @@ F32_BIAS_KERNELS = (
     ("deform_attention_bwd_f32bias", "sml_tpu_torch/csrc/deform_attn_bwd.cu",
      f"{PALLAS}:1044", "deform_attention_bwd_f32bias", "deform-1d"),
 )
+# the dh = 32 forms of CMTA's chains: (entry name, source, replaces, launch-count
+# key, the run whose counts they report: the cmta train run)
+DH32_KERNELS = (
+    ("deform_attention_fwd_dh32", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:1016",
+     "deform_attention_fwd_dh32", "cmta"),
+    ("deform_attention_bwd_dh32", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:1044",
+     "deform_attention_bwd_dh32", "cmta"),
+)
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-# every bf16 kernel (every entry of the kernels line is bf16) runs on the tensor
-# cores (csrc/mma.cuh); the f32 twins run on the CUDA cores
-DESIGN = "mma.sync"
+# the bf16 entries run on the tensor cores (csrc/mma.cuh); the f32 dh = 32
+# forms on the CUDA cores (the f32 twins: fused multiply-adds)
+DESIGN_BF16, DESIGN_F32 = "mma.sync", "CUDA-core"
 
 
 def main() -> int:
@@ -1281,13 +1459,18 @@ def main() -> int:
     phase_train(card, extra={"fusion_type": "pofusion"}, label="deform-fusion")
     # 14. modes: the modes that run no kernel
     phase_modes(card)
+    # 15. cmta-kernels, 16. cmta: the f32 dh = 32 forms, then CMTA in f32 and bf16
+    dh32 = phase_cmta_kernels()
+    cmta_serving = phase_slice(MAIN_FIXDIM, card, "cmta")
+    runs["cmta"] = phase_train(card, "cmta")
+    phase_modes(card, CMTA_BF16, label="cmta")
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[count],
                         **{k: e[k] for k in _TIMES},
-                        "design": DESIGN,
+                        "design": DESIGN_BF16,
                         "launches_serving_s2500": serving[MAIN_FIXDIM].get(name, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16"})
     for name, source, replaces, count, run in CHAIN_KERNELS:
@@ -1295,7 +1478,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[run][count],
                         "launches_run": run, **{k: e[k] for k in _TIMES},
-                        "design": DESIGN,
+                        "design": DESIGN_BF16,
                         "launches_tm_serving_s2500": tm_serving[MAIN_FIXDIM].get(count, 0),
                         "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
                         "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",
@@ -1305,9 +1488,19 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": runs[run][count],
                         "launches_run": run, **{k: e[k] for k in _TIMES},
-                        "design": DESIGN,
+                        "design": DESIGN_BF16,
                         "launches_serving_1d": d1_serving.get(count, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16, bias f32"})
+    for name, source, replaces, count, run in DH32_KERNELS:
+        e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": runs[run][count],
+                        "launches_run": run, **{k: e[k] for k in _TIMES},
+                        "design": DESIGN_F32,
+                        "launches_cmta_serving": cmta_serving.get(count, 0),
+                        "shape": f"f32 dh=32, chain 3: BG={BG} N={e['n']} J={e['j']}",
+                        "chain1": {"shape": f"f32 dh=32, BG={BG} N={e1['n']} J={e1['j']}",
+                                   **{k: e1[k] for k in _TIMES}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

@@ -2,24 +2,27 @@
 """Device time of the attention kernels, forward and backward, form by form, on one CUDA card.
 
     python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
+                                        [--dtype bfloat16|float32]
 
 Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
 the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
 sources and their shared headers, such as another commit's, compares them in
 the same call) into ``build/profile_attn/<tag>/`` and prints, for each kernel
 instantiation of the two builds, its registers and spill stores from the
-ptxas log.  Then, at the main path's shapes (BG=64, bf16): for the forward
+ptxas log.  Then, at the main path's shapes (BG=64, in ``--dtype``: bf16, the
+tensor-core kernels, or f32, the CUDA-core twins): for the forward
 (``"pass": "fwd"``) in every form the main paths run (the bias form without
 and with dropout at S2500 / S4096, the bias-less and span Nystrom chains 1 and
 3 at S2500 / S4096, the span form with bias and dropout at S2500), the largest
 error against the plain version, whether a second launch repeats the first
-bit for bit, and the median device time of one launch over ``--iters``
+bit for bit, a digest of the output's bits, and the median device time of one launch over ``--iters``
 CUDA-event timings; for the backward (``"pass": "bwd"``: the bias form without
 and with dropout, the bias-less chains), the largest gradient error against
 the plain version relative to that tensor's max, a digest of the gradients'
 bits (equal digests of two trees: equal results), and the device time per
 launch of the rows and keys kernels under ``torch.profiler`` (mean of
-``--iters`` launches).  One line per item, prefixed with ``--tag``, so that
+``--iters`` launches).  In f32 both passes also run CMTA's two chains on the
+dh = 32 form (BG = 64, 128 landmarks, n_pad 2560).  One line per item, prefixed with ``--tag``, so that
 runs of two trees can be told apart.
 """
 
@@ -62,6 +65,8 @@ BWD_CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144
              "bias_s4096": (4096, 256, True, 1.0), "bias_drop_s4096": (4096, 256, True, 0.9),
              "ch3_s2500": (256, 2560, False, 1.0), "ch1_s2500": (2560, 256, False, 1.0),
              "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
+# f32 only: CMTA's chains on the dh = 32 form, name: (N, J)
+DH32_CASES = {"ch3_dh32_s2500": (128, 2560), "ch1_dh32_s2500": (2560, 128)}
 KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn_fwd_kernel"
                     r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
 
@@ -77,7 +82,9 @@ def ptxas(tag: str) -> None:
             if k:
                 bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
                 dtype = "f32" if k.group(2).startswith("f") else "bf16"
-                name = f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
+                dh = re.search(r"Li(\d+)E", k.group(2))
+                name = (f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
+                        + (f" dh={dh.group(1)}" if dh else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             spill = int(m.group(1))
@@ -115,8 +122,14 @@ def _spans(n: int, j: int) -> torch.Tensor:
     return span.to(torch.int32).cuda()
 
 
-def forward(tag: str, iters: int, g: torch.Generator) -> None:
-    bf = torch.bfloat16
+def _digest(tensors) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bits."""
+    return hashlib.sha256(b"".join(
+        a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32).cpu().numpy()
+        .tobytes() for a in tensors if a is not None)).hexdigest()[:16]
+
+
+def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
     for name, (n, j, has_bias, keep_prob, has_span) in FWD_CASES.items():
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
@@ -131,18 +144,30 @@ def forward(tag: str, iters: int, g: torch.Generator) -> None:
         print(json.dumps({"tag": tag, "pass": "fwd", "case": name,
                           "max_abs_err": (out.float() - want).abs().max().item(),
                           "equal_share": (out.float() == want).float().mean().item(),
-                          "repeats": torch.equal(out, again),
+                          "repeats": torch.equal(out, again), "digest": _digest([out]),
                           "ms": _time_ms(run, iters)}), flush=True)
         del q, k, v, bias, out, again, keep, want
         torch.cuda.empty_cache()
+    for name, (n, j) in (DH32_CASES.items() if bf == torch.float32 else ()):
+        q = torch.randn(BG, n, 32, device="cuda", generator=g) * 32 ** -0.5
+        k, v = torch.randn(2, BG, j, 32, device="cuda", generator=g)
+        run = lambda: deform_attention_fwd(q, k, v)
+        out = run()
+        print(json.dumps({"tag": tag, "pass": "fwd", "case": name,
+                          "max_abs_err": (out - deform_attention_fwd_plain(q, k, v)).abs()
+                          .max().item(), "repeats": torch.equal(out, run()),
+                          "digest": _digest([out]), "ms": _time_ms(run, iters)}), flush=True)
 
 
-def backward(tag: str, iters: int, g: torch.Generator) -> None:
-    bf = torch.bfloat16
-    for name, (n, j, has_bias, keep_prob) in BWD_CASES.items():
+def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
+    cases = [(name, n, j, has_bias, keep_prob, DH)
+             for name, (n, j, has_bias, keep_prob) in BWD_CASES.items()]
+    if bf == torch.float32:
+        cases += [(name, n, j, False, 1.0, 32) for name, (n, j) in DH32_CASES.items()]
+    for name, n, j, has_bias, keep_prob, dh in cases:
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
-        q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
-        dout = rn(BG, n, DH, scale=1e-2)
+        q, k, v = rn(BG, n, dh, scale=dh ** -0.5), rn(BG, j, dh), rn(BG, j, dh)
+        dout = rn(BG, n, dh, scale=1e-2)
         bias = rn(BG, n, j) if has_bias else None
         run = lambda: deform_attention_bwd(q, k, v, bias, dout, keep_prob, SEED)
         got = run()
@@ -153,8 +178,7 @@ def backward(tag: str, iters: int, g: torch.Generator) -> None:
                   for a, b in zip(got, want) if a is not None)
         again = run()
         repeats = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
-        digest = hashlib.sha256(b"".join(a.view(torch.int16).cpu().numpy().tobytes()
-                                         for a in got if a is not None)).hexdigest()[:16]
+        digest = _digest(got)
         del want, keep, again
         for _ in range(3):
             run()
@@ -180,6 +204,7 @@ def main() -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--csrc", default=str(_build.CSRC))
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_attn_bwd: no CUDA device", file=sys.stderr)
@@ -189,11 +214,13 @@ def main() -> int:
     _build.build(SOURCES)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"tag": args.tag, "card": card, "csrc": str(_build.CSRC)}), flush=True)
+    print(json.dumps({"tag": args.tag, "card": card, "csrc": str(_build.CSRC),
+                      "dtype": args.dtype}), flush=True)
     ptxas(args.tag)
     g = torch.Generator(device="cuda").manual_seed(0)
-    forward(args.tag, args.iters, g)
-    backward(args.tag, args.iters, g)
+    dtype = getattr(torch, args.dtype)
+    forward(args.tag, args.iters, g, dtype)
+    backward(args.tag, args.iters, g, dtype)
     return 0
 
 

@@ -4,12 +4,15 @@
     python3 scripts/profile_torch_eval.py [--step eval|train] [--fixdim 2500 4096]
         [--batch_size 8] [--steps 10] [--trace_dir build/profiles]
         [--mode deformpathomic | --mode path --path_arch transmil | --mode omic
-         | --mode pathomic | --mode pathomic_original] [--attn_dim 1]
-        [--fusion_type pofusion]
+         | --mode pathomic | --mode pathomic_original | --mode mcat | --mode cmta]
+        [--attn_dim 1] [--fusion_type pofusion] [--coattn_fusion bilinear]
+        [--task_type survival] [--compute_dtype bfloat16|float32]
 
 Builds the model (deformpathomic by default, with ``--attn_dim 1`` its 1-D
 attention, with ``--fusion_type`` its fusion; or TransMIL, ABMIL or another
-mode; seeded weights, bf16, synthetic batch already on the card), warms up, then runs ``--steps`` eval steps (or train steps:
+mode, mcat and cmta with ``--coattn_fusion``; seeded weights, bf16 unless
+``--compute_dtype`` says otherwise, synthetic batch already on the card),
+warms up, then runs ``--steps`` eval steps (or train steps:
 forward with dropout, backward, gradient modulation, Adam) under
 ``torch.profiler``.  Prints one JSON line per fixdim with the step time (host
 clock around synchronised steps), the kernel time and kernel launches per
@@ -77,11 +80,14 @@ def _make_step(kind: str, config: Config):
 
 def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
                 trace_dir: str, mode: str = "deformpathomic", path_arch: str = "abmil",
-                attn_dim: int = 2, fusion_type: str = "concat") -> dict:
+                attn_dim: int = 2, fusion_type: str = "concat",
+                coattn_fusion: str = "concat", task_type: str = "diag2021",
+                compute_dtype: str = "bfloat16") -> dict:
     config = Config(dataset="synthetic", synthetic_size=4 * batch_size,
-                    batch_size=batch_size, compute_dtype="bfloat16", fixdim=fixdim,
+                    batch_size=batch_size, compute_dtype=compute_dtype, fixdim=fixdim,
                     mode=mode, path_arch=path_arch, attn_dim=attn_dim,
-                    return_vgrid=attn_dim == 2, fusion_type=fusion_type)
+                    return_vgrid=attn_dim == 2, fusion_type=fusion_type,
+                    coattn_fusion=coattn_fusion, task_type=task_type)
     run = _make_step(kind, config)
     for _ in range(3):
         run()
@@ -100,6 +106,8 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
     name = mode if mode != "path" else path_arch
     if mode == "deformpathomic" and (attn_dim, fusion_type) != (2, "concat"):
         name = f"{mode}_{attn_dim}d_{fusion_type}"
+    if mode in ("mcat", "cmta"):
+        name = f"{mode}_{coattn_fusion}_{compute_dtype}"
     prof.export_chrome_trace(os.path.join(trace_dir, f"profile_{name}_{kind}_{fixdim}.json"))
     busy, start, end = _busy_us(prof)
 
@@ -114,7 +122,7 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
     # the profiler slows the host, so the busy share of its window understates the
     # device's share of an unprofiled step; device_ms / step_ms gives that one
     return {"model": name, "step": kind, "fixdim": fixdim, "batch": batch_size,
-            "dtype": "bfloat16",
+            "dtype": compute_dtype,
             "card": card,
             "step_ms": step_ms, "device_ms_per_step": device_total,
             "device_share_of_step": device_total / step_ms,
@@ -131,21 +139,30 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--trace_dir", default="build/profiles")
     parser.add_argument("--mode", choices=("deformpathomic", "path", "omic", "pathomic",
-                                           "pathomic_original"), default="deformpathomic")
+                                           "pathomic_original", "mcat", "cmta"),
+                        default="deformpathomic")
     parser.add_argument("--path_arch", default="abmil", help="transmil with --mode path")
     parser.add_argument("--attn_dim", type=int, choices=(1, 2), default=2)
     parser.add_argument("--fusion_type", default="concat")
+    parser.add_argument("--coattn_fusion", default="concat", help="mcat / cmta fusion")
+    parser.add_argument("--task_type", default="diag2021")
+    parser.add_argument("--compute_dtype", choices=("bfloat16", "float32"),
+                        default="bfloat16")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_eval: no CUDA device available", file=sys.stderr)
         return 1
+    # f32 products and convolutions in full f32, as the port's CLIs set them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     for fixdim in args.fixdim:
         print(json.dumps(profile_one(args.step, fixdim, args.batch_size, args.steps, card,
                                      args.trace_dir, args.mode, args.path_arch,
-                                     args.attn_dim, args.fusion_type)), flush=True)
+                                     args.attn_dim, args.fusion_type, args.coattn_fusion,
+                                     args.task_type, args.compute_dtype)), flush=True)
     return 0
 
 

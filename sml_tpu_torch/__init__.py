@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of sml_tpu: the deformpathomic serving path on an NVIDIA H100.
+"""PyTorch/CUDA port of sml_tpu on an NVIDIA H100: all seven modes, served and trained.
 
 The JAX package ``sml_tpu`` is the reference; this package imports none of it
 (nor JAX, yaml, sklearn, h5py or pandas) and keeps its own copies of what it

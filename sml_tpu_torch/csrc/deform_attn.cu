@@ -47,9 +47,13 @@
 // Each warp owns query rows; per tile and row its lanes take the keys lane +
 // 32 t, reduce the tile's max and sum of exponentials with shuffles, and
 // update the row's running max, running sum and rescaled accumulator (online
-// softmax; the accumulator is f32 in shared memory, two output columns per
-// lane).  A masked column's -f32max keeps a first all-masked tile from
+// softmax; the accumulator is f32 in shared memory, DH / 32 output columns
+// per lane).  A masked column's -f32max keeps a first all-masked tile from
 // poisoning the sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
+// It is the one kernel of the dh = 32 form (f32, no bias, span or dropout:
+// CMTA's Nystrom chains, 8 heads of 32 with 128 landmarks), where a lane owns
+// one output column; bf16 never reaches dh = 32 (the Nystrom gate asks for
+// dh * itemsize >= 128 bytes).
 //
 // What bounds it: at the Nystrom chains (J or N of 2560 / 4352, dh 64, bf16)
 // about 4 * DH FLOP per pair against q, K, V and out read or written once:
@@ -64,8 +68,9 @@
 // dtype: 0 = float, 1 = bfloat16 for q, k, v and out; bias_dtype the same
 // codes for the bias: dtype's, or 0 with dtype 1 in the form without span and
 // dropout (any other pair is cudaErrorInvalidValue).  bias and span may be
-// null.  DH must be 64.  The library carries its own CUDA runtime, so
-// the entry selects `device` itself.
+// null.  DH is 64, or 32 with dtype 0 and no bias, span or dropout (any other
+// dh 32 form is cudaErrorInvalidValue).  The library carries its own CUDA
+// runtime, so the entry selects `device` itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +104,8 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ bias,
                        const int* __restrict__ span, T* __restrict__ out, int N, int J,
                        float keep_prob, float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64, "each lane owns DH / 32 = 2 output columns");
+  static_assert(DH == 32 || DH == 64, "each lane owns DH / 32 output columns");
+  constexpr int CPL = DH / 32;
   constexpr int LD = row_stride<T>(DH);
   constexpr int NT = kTile / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -168,19 +174,21 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       es = warp_sum(es);
       __syncwarp();  // p is written, and every lane has read s_m[r]
 
-      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
-      float2 a = *acc;
-      a.x *= scale;
-      a.y *= scale;
-      const T* vcol = s_v + 2 * lane;
+      float* acc = s_acc + r * DH + CPL * lane;
+      float a[CPL];
+      load_cols<CPL>(acc, a);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) a[c] *= scale;
+      const T* vcol = s_v + CPL * lane;
 #pragma unroll 4
       for (int jj = 0; jj < len; ++jj) {
         const float pj = p[jj];
-        const float2 vv = load2(vcol + jj * LD);
-        a.x = fmaf(pj, vv.x, a.x);
-        a.y = fmaf(pj, vv.y, a.y);
+        float vv[CPL];
+        load_cols<CPL>(vcol + jj * LD, vv);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) a[c] = fmaf(pj, vv[c], a[c]);
       }
-      *acc = a;
+      store_cols<CPL>(acc, a);
       if (lane == 0) {
         s_m[r] = m_new;
         s_l[r] = s_l[r] * scale + es;
@@ -189,10 +197,12 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   for (int r = warp; r < rows; r += kWarps) {
-    const float2 a = reinterpret_cast<const float2*>(s_acc + r * DH)[lane];
+    float a[CPL];
+    load_cols<CPL>(s_acc + r * DH + CPL * lane, a);
     const float inv = 1.f / s_l[r];
-    store2(out + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
-           make_float2(a.x * inv, a.y * inv));
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) a[c] *= inv;
+    store_cols<CPL>(out + ((size_t)bg * N + row0 + r) * DH + CPL * lane, a);
   }
 }
 
@@ -335,12 +345,11 @@ cudaError_t launch_tc(const Args& a) {
 }
 
 // bf16 to the tensor-core kernel, f32 to the CUDA-core twin
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP, int DH = 64>
 cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
   } else {
-    constexpr int DH = 64;
     constexpr size_t smem = smem_bytes<T, DH>();
     auto kernel = deform_attn_fwd_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -372,11 +381,15 @@ extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const v
                                const void* v, const void* bias, const void* span, void* out,
                                int BG, int N, int J, int DH, float keep_prob, float inv_keep,
                                unsigned long long seed, int device, void* stream) {
-  if (DH != 64) return cudaErrorInvalidValue;
+  // dh 32: the f32 form without bias, span or dropout (CMTA's Nystrom chains)
+  const bool dh32 = DH == 32 && dtype == 0 && bias == nullptr && span == nullptr &&
+                    !(keep_prob < 1.f);
+  if (DH != 64 && !dh32) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{q, k, v, bias, static_cast<const int*>(span), out, BG, N, J, keep_prob,
                inv_keep, seed, static_cast<cudaStream_t>(stream)};
+  if (dh32) return launch<float, false, false, false, 32>(a);
   if (bias != nullptr && bias_dtype != dtype) {
     // the f32 bias beside bf16 q, k, v: the one form the 1-D path runs
     if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))

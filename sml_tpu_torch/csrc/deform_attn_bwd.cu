@@ -67,7 +67,15 @@
 // shared memory), one block per 16 keys in the keys kernel, products as f32
 // fused multiply-adds, and the keys kernel's q . k and dout . v sums in the
 // rows kernel's order, so p and ds are the rows kernel's to the last bit; they
-// are the exact-arithmetic reference of the port on the card.
+// are the exact-arithmetic reference of the port on the card.  They are also
+// the kernels of the dh = 32 form (f32, no bias, span or dropout: CMTA's
+// Nystrom chains): a rows-kernel lane owns one column of dq, and a keys-kernel
+// thread 2 columns of dk and 2 of dv, not 4.  The keys kernel keeps its 16
+// keys per block, so its pair phase (one thread per row and 4-key Philox
+// group) and its row order are those of dh = 64, and only the sum phase
+// halves; 32 keys per block would need 512 threads for the pair phase, or two
+// rows per thread, for the same sums.  At CMTA's chain 1 (J = 128 landmark
+// keys) that is 8 blocks per bag, 512 at BG = 64, each walking 2560 rows.
 //
 // Left for later: wgmma and TMA (a warpgroup product of 64-row tiles would
 // reach past mma.sync's rate), keeping K and V whole in shared memory when
@@ -81,7 +89,9 @@
 // delta: f32 scratch of (BG, N)); bias_dtype the same codes for bias and
 // dbias: dtype's, or 0 with dtype 1 in the form without span and dropout (the
 // 1-D deformable attention's f32 bias; any other pair is
-// cudaErrorInvalidValue).  bias / dbias and span may be null.  DH must be 64.
+// cudaErrorInvalidValue).  bias / dbias and span may be null.  DH is 64, or 32
+// with dtype 0 and no bias, span or dropout (any other dh 32 form is
+// cudaErrorInvalidValue).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,7 +131,8 @@ attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dq, T* __restrict__ dbias, float* __restrict__ lse,
                      float* __restrict__ delta, int N, int J, float keep_prob,
                      float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64, "each lane owns DH / 32 = 2 columns of dq");
+  static_assert(DH == 32 || DH == 64, "each lane owns DH / 32 columns of dq");
+  constexpr int CPL = DH / 32;
   constexpr int LD = row_stride<T>(DH);
   constexpr int NT = kTile / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -247,23 +258,27 @@ attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncwarp();  // d is written
 
-      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
-      float2 a = *acc;
-      const T* kcol = s_k + 2 * lane;
+      float* acc = s_acc + r * DH + CPL * lane;
+      float a[CPL];
+      load_cols<CPL>(acc, a);
+      const T* kcol = s_k + CPL * lane;
 #pragma unroll 4
       for (int jj = 0; jj < len; ++jj) {
         const float dj = d[jj];
-        const float2 kk = load2(kcol + jj * LD);
-        a.x = fmaf(dj, kk.x, a.x);
-        a.y = fmaf(dj, kk.y, a.y);
+        float kk[CPL];
+        load_cols<CPL>(kcol + jj * LD, kk);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) a[c] = fmaf(dj, kk[c], a[c]);
       }
-      *acc = a;
+      store_cols<CPL>(acc, a);
       __syncwarp();  // the next row rewrites d and the multipliers
     }
   }
-  for (int r = warp; r < rows; r += kWarps)
-    store2(dq + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
-           reinterpret_cast<const float2*>(s_acc + r * DH)[lane]);
+  for (int r = warp; r < rows; r += kWarps) {
+    float a[CPL];
+    load_cols<CPL>(s_acc + r * DH + CPL * lane, a);
+    store_cols<CPL>(dq + ((size_t)bg * N + row0 + r) * DH + CPL * lane, a);
+  }
 }
 
 struct KeysSmem {
@@ -285,7 +300,11 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int N, int J,
                      float keep_prob, float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64 && kKeys * DH == 4 * kThreads, "4 dk and 4 dv per thread");
+  // the sum phase: 16 threads per key, each owning CPT columns of its dk and dv
+  // (4 at dh 64, 2 at dh 32; the pair phase and the row order stay those of dh 64)
+  constexpr int CPT = kKeys * DH / kThreads;
+  static_assert((DH == 32 || DH == 64) && CPT * kThreads == kKeys * DH,
+                "4 (dh 64) or 2 (dh 32) dk and dv per thread");
   static_assert(kChunk * (kKeys / 4) == kThreads, "one thread per (row, key group)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KeysSmem& sm = *reinterpret_cast<KeysSmem*>(smem_raw);
@@ -307,8 +326,10 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int pr = t >> 2;            // pair phase: chunk row
   const int grp = t & 3;            //             key group (4 keys)
   const int kl = t >> 4;            // sum phase:  key
-  const int c4 = (t & 15) * 4;      //             4 columns
-  float dk_acc[4] = {0.f, 0.f, 0.f, 0.f}, dv_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const int c0 = (t & 15) * CPT;    //             CPT columns
+  float dk_acc[CPT], dv_acc[CPT];
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) dk_acc[e] = dv_acc[e] = 0.f;
 
   for (int r0 = 0; r0 < N; r0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed (and the keys are staged)
@@ -366,23 +387,20 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
     for (int rr = 0; rr < kChunk; ++rr) {
       const float ds = sm.ds[rr][kl], pd = sm.pd[rr][kl];
-      const float4 qv = *reinterpret_cast<const float4*>(&sm.q[rr][c4]);
-      const float4 ov = *reinterpret_cast<const float4*>(&sm.dout[rr][c4]);
-      dk_acc[0] = fmaf(ds, qv.x, dk_acc[0]);
-      dk_acc[1] = fmaf(ds, qv.y, dk_acc[1]);
-      dk_acc[2] = fmaf(ds, qv.z, dk_acc[2]);
-      dk_acc[3] = fmaf(ds, qv.w, dk_acc[3]);
-      dv_acc[0] = fmaf(pd, ov.x, dv_acc[0]);
-      dv_acc[1] = fmaf(pd, ov.y, dv_acc[1]);
-      dv_acc[2] = fmaf(pd, ov.z, dv_acc[2]);
-      dv_acc[3] = fmaf(pd, ov.w, dv_acc[3]);
+      float qv[CPT], ov[CPT];
+      load_cols<CPT>(&sm.q[rr][c0], qv);
+      load_cols<CPT>(&sm.dout[rr][c0], ov);
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) dk_acc[e] = fmaf(ds, qv[e], dk_acc[e]);
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) dv_acc[e] = fmaf(pd, ov[e], dv_acc[e]);
     }
   }
   const int j = j0 + kl;
   if (j < J) {
-    const size_t at = ((size_t)bg * J + j) * DH + c4;
+    const size_t at = ((size_t)bg * J + j) * DH + c0;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < CPT; ++e) {
       store1(dk + at + e, dk_acc[e]);
       store1(dv + at + e, dv_acc[e]);
     }
@@ -754,12 +772,11 @@ cudaError_t launch_tc(const Args& a) {
 }
 
 // bf16 to the tensor-core kernels, f32 to the CUDA-core twins
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP, int DH = 64>
 cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
   } else {
-    constexpr int DH = 64;
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
@@ -805,12 +822,16 @@ extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const v
                                void* lse, void* delta, int BG, int N, int J, int DH,
                                float keep_prob, float inv_keep, unsigned long long seed,
                                int device, void* stream) {
-  if (DH != 64) return cudaErrorInvalidValue;
+  // dh 32: the f32 form without bias, span or dropout (CMTA's Nystrom chains)
+  const bool dh32 = DH == 32 && dtype == 0 && bias == nullptr && span == nullptr &&
+                    !(keep_prob < 1.f);
+  if (DH != 64 && !dh32) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{q, k, v, bias, static_cast<const int*>(span), dout, dq, dk, dv, dbias,
                static_cast<float*>(lse), static_cast<float*>(delta), BG, N, J, keep_prob,
                inv_keep, seed, static_cast<cudaStream_t>(stream)};
+  if (dh32) return launch<float, false, false, false, 32>(a);
   if (bias != nullptr && bias_dtype != dtype) {
     // the f32 bias (and dbias) beside bf16 q, k, v: the one form the 1-D path runs
     if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))

@@ -6,8 +6,10 @@ Usage:
     python -m sml_tpu_torch.inference --mode path --path_arch transmil ...
         [--variable_bags true --bucket_sizes 1024,2500,4096]
 
-``--mode`` is deformpathomic (the default) or path with ``--path_arch
-transmil``; with ``--bucket_sizes`` the Test split is batched per bucket.
+``--mode`` is any of the seven (deformpathomic by default; path with
+``--path_arch transmil`` for TransMIL; mcat and cmta, the survival models
+of ``--task_type survival``); with ``--bucket_sizes`` the Test split is
+batched per bucket.
 
 ``--weights`` is an ``.npz`` of the flattened flax parameter tree ('/'-joined
 keys, see ``sml_tpu_torch.bridge``); without it the model takes a seeded init

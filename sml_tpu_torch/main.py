@@ -6,11 +6,13 @@ Usage:
     python -m sml_tpu_torch.main --mode path --path_arch transmil ...
         [--variable_bags true --bucket_sizes 1024,2500,4096]
 
-Every ``Config`` field is a flag; ``--mode`` is deformpathomic (the default)
-or path with ``--path_arch transmil``, and ``--bucket_sizes`` batches every
-split per bag-size bucket.  Runs on ``cuda`` unless ``--device cpu`` is
-given; asking for cuda without a card raises.  Prints the mean train metrics
-and the ``epoch i/n val=... test=...`` line of each epoch, writes the
+Every ``Config`` field is a flag; ``--mode`` is any of the seven
+(deformpathomic by default; path with ``--path_arch transmil`` for TransMIL;
+mcat and cmta, the survival models of ``--task_type survival``), and
+``--bucket_sizes`` batches every split per bag-size bucket.  Runs on
+``cuda`` unless ``--device cpu`` is given; asking for cuda without a card
+raises.  Prints the mean train metrics and the ``epoch i/n val=...
+test=...`` line of each epoch, writes the
 best-on-val weights to ``<checkpoints>/best_modal.npz`` and ends with
 ``best (val): {...}``.
 """

@@ -1,9 +1,9 @@
 """Model and optimizer factory (counterpart of ``sml_tpu/models/factory.py``:
 ``define_net``, ``model_inputs``, ``make_lr_schedule``, ``define_optimizer``)
-for the ported modes: deformpathomic (both ``attn_dim``s, every
+for all seven modes: deformpathomic (both ``attn_dim``s, every
 ``fusion_type``), path (ABMIL, the default ``path_arch``, and TransMIL), omic
-(MaxNet alone), pathomic and pathomic_original.  mcat, cmta and ``remat``
-raise.
+(MaxNet alone), pathomic, pathomic_original, mcat and cmta (both
+``coattn_fusion``s).  ``remat`` raises.
 
 The JAX factory turns its kernels off unless the backend is a TPU; the port
 has no such switch: its kernel wrappers launch their CUDA kernels whenever the
@@ -19,19 +19,24 @@ import torch
 from torch import nn
 
 from sml_tpu_torch.config import Config
+from sml_tpu_torch.models.cmta import CMTA
 from sml_tpu_torch.models.deform import DeformPathomicNet
+from sml_tpu_torch.models.mcat import MCATSurv
 from sml_tpu_torch.models.maxnet import MaxNet
 from sml_tpu_torch.models.mil import ABMIL, TransMIL
 from sml_tpu_torch.models.pathomic import PathomicNet, PathomicNetOriginal
 from sml_tpu_torch.ops.common import dtype_of, init_params
 
-# which batch keys each ported mode's forward consumes
+# which batch keys each mode's forward consumes
 MODE_INPUTS = {"path": ("x_path",),
                "omic": ("x_omic",),
                "pathomic": ("x_path", "x_omic"),
                "pathomic_original": ("x_path", "x_omic"),
+               "mcat": ("x_path", "x_omic"),
+               "cmta": ("x_path", "x_omic"),
                "deformpathomic": ("x_path", "x_omic_tumor", "x_omic_immune")}
-# modes whose models take a per-patch validity mask (padded / bucketed bags)
+# modes whose models take a per-patch validity mask (padded / bucketed bags);
+# the others see a bucketed bag's padding, as in the JAX package
 MASKABLE_MODES = ("path", "deformpathomic")
 
 
@@ -83,6 +88,12 @@ def define_net(config: Config, device: str | torch.device = "cuda",
                     use_bilinear=config.use_bilinear, gate1=config.path_gate,
                     gate2=config.omic_gate, path_scale=config.path_scale,
                     omic_scale=config.omic_scale, init_max=init_max, dtype=dtype)
+    elif config.mode == "mcat":
+        model = MCATSurv(label_dim=config.label_dim, input_path_dim=config.input_path_dim,
+                         fusion=config.coattn_fusion, dtype=dtype)
+    elif config.mode == "cmta":
+        model = CMTA(label_dim=config.label_dim, input_path_dim=config.input_path_dim,
+                     fusion=config.coattn_fusion, dtype=dtype)
     elif config.mode == "deformpathomic":
         model = DeformPathomicNet(
             label_dim=config.label_dim,
@@ -96,7 +107,7 @@ def define_net(config: Config, device: str | torch.device = "cuda",
             init_max=init_max, skip=config.skip, use_bilinear=config.use_bilinear,
             path_scale=config.path_scale, omic_scale=config.omic_scale, dtype=dtype)
     else:
-        raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
+        raise ValueError(f"unknown mode {config.mode!r}")
     init_params(model, config.seed if seed is None else seed)
     device = resolve_device(device)
     return model.to(device).train(train)

@@ -9,7 +9,8 @@ accumulates in f32 and returns bf16.  They keep torch's parameter layout
 ``Conv1`` channels-last (N, L, C), the JAX package's layouts.
 
 ``DropoutRNG`` carries the two generators of training-mode dropout, and
-``dropout`` is flax's inverted dropout drawn from one of them.
+``dropout`` is flax's inverted dropout drawn from one of them (``Dropout``,
+the same as a module holding its rate).
 
 Initializers (``init_params``) draw from an explicit ``torch.Generator`` with
 the JAX initializers' distributions: ``torch_kernel_init`` is
@@ -63,6 +64,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         raise ValueError("training-mode dropout needs a DropoutRNG generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """:func:`dropout` at ``rate``, in the module's training mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator)
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -13,6 +13,10 @@ without the span mask, with or without dropout.  The bias comes in q's dtype,
 or in f32 beside bf16 q, k, v: the 1-D deformable attention's, from its f32
 ``CPB1D`` (``sml_tpu/ops/deformable.py:687-691`` hands Pallas the same), in the
 form without span and dropout that its path runs; dbias then comes in f32.
+The head dim is 64, or 32 in f32 without a bias, span or dropout: CMTA's
+Nystrom chains (8 heads of 32, 128 landmarks), which the JAX gate sends to
+Pallas in f32 only (``sml_tpu/ops/nystrom.py:174-183``); in bf16 (64 bytes a
+row) it never does, and the kernels refuse it.
 
 ``span`` (BG, 4) int32 holds per-bag ``[row_start, row_end, col_start,
 col_end)`` over the unpadded rows and columns (``_span_valid`` ``:843``):
@@ -48,7 +52,8 @@ every product of both runs on the tensor cores (warp-level ``mma.sync``,
 own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
 checked bit for bit on the card: the forward returns no lse); the f32
 forms keep CUDA-core twins (the forward one warp per row with an online
-softmax), the exact-arithmetic reference on the card.
+softmax), the exact-arithmetic reference on the card, which are also the
+dh = 32 kernels.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -64,6 +69,7 @@ from sml_tpu_torch.ops.kernels import _build
 from sml_tpu_torch.ops.kernels.philox import philox_keep_mask
 
 KERNEL_DH = 64
+DH32 = 32            # the f32 form without bias, span or dropout (CMTA's chains)
 NEG_MAX = -3.4028234663852886e38     # -finfo(f32).max, the masked-column fill
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
@@ -142,8 +148,15 @@ def _check_kernel(name, q, bias, span, keep_prob, tensors):
                         "bf16 q without span and dropout")
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
-    if q.shape[-1] != KERNEL_DH:
-        raise ValueError(f"{name} kernel takes dh={KERNEL_DH}, not {q.shape[-1]}")
+    dh = q.shape[-1]
+    if dh == DH32:
+        if q.dtype != torch.float32 or bias is not None or span is not None or \
+                keep_prob < 1.0:
+            raise ValueError(f"{name} kernel takes dh={DH32} only for float32 q, k, v "
+                             "without bias, span or dropout")
+    elif dh != KERNEL_DH:
+        raise ValueError(f"{name} kernel takes dh={KERNEL_DH} (or {DH32} in float32), "
+                         f"not {dh}")
     if span is not None and span.dtype != torch.int32:
         raise TypeError(f"the {name} kernel takes the span in int32")
     for t in tensors:
@@ -210,6 +223,8 @@ def _count(fn, q, bias, span, keep_prob) -> None:
         fn.span_launches += 1
     if keep_prob < 1.0:
         fn.dropout_launches += 1
+    if q.shape[-1] == DH32:
+        fn.dh32_launches += 1
 
 
 def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
@@ -308,7 +323,7 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
 
 for _fn in (deform_attention_fwd, deform_attention_bwd):
     _fn.launches = _fn.nobias_launches = _fn.span_launches = _fn.dropout_launches = 0
-    _fn.f32bias_launches = 0
+    _fn.f32bias_launches = _fn.dh32_launches = 0
 
 
 class DeformAttentionTrainable(torch.autograd.Function):

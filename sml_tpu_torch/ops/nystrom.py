@@ -15,8 +15,10 @@ as ``attn1 @ (pinv @ (attn3 @ v))``: the (b, h, n, m) probabilities never
 reach device memory in either direction.  A mask becomes two per-bag spans
 (``landmark_spans``).  Otherwise the module takes the XLA formulation
 ``(attn1 @ pinv) @ (attn3 @ v)``.  The JAX gate's VMEM-fit test belongs to
-the TPU and is left out; the CUDA kernels take dh = 64 and raise on another
-dh that the gate admits.
+the TPU and is left out.  The gate admits dh = 64 (TransMIL, f32 and bf16)
+and dh = 32 in f32 only (CMTA's 256-wide layers); the CUDA kernels take both,
+dh = 32 in its f32 form without bias, span or dropout, and raise on any other
+dh.
 
 The masked softmaxes of the landmark kernel and of the XLA chains fill in
 f32: in bf16, -f32max rounds to -inf and a fully masked landmark row is NaN

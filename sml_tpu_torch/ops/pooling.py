@@ -1,14 +1,33 @@
-"""Mean-pooler head (counterpart of ``sml_tpu/ops/pooling.py:Pooler``): masked mean
-over tokens -> Dense -> tanh."""
+"""Attention pooling heads (counterpart of ``sml_tpu/ops/pooling.py``): the
+gated scorer ``AttnNetGated`` of MCAT, tanh(a x) * sigmoid(b x) -> c, and the
+mean-pooler ``Pooler``, masked mean over tokens -> Dense -> tanh."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from sml_tpu_torch.ops.common import Dense
+from sml_tpu_torch.ops.common import Dense, Dropout
+
+
+class AttnNetGated(nn.Module):
+    """Returns ``(scores, x)``: scores (..., 1) raw (the caller takes the
+    softmax); a and b each take their own dropout draw (rate 0.25, MCAT's)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attention_a = Dense(dim, dim, dtype=dtype)
+        self.attention_b = Dense(dim, dim, dtype=dtype)
+        self.attention_c = Dense(dim, 1, dtype=dtype)
+        self.drop = Dropout(0.25)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = self.drop(torch.tanh(self.attention_a(x)), generator)
+        b = self.drop(torch.sigmoid(self.attention_b(x)), generator)
+        return self.attention_c(a * b), x
 
 
 class Pooler(nn.Module):

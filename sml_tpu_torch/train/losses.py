@@ -1,7 +1,8 @@
-"""Losses of the deformpathomic eval path (counterpart of ``sml_tpu/train/losses.py``):
-class-weighted cross entropy, the discrete-hazard survival NLL and the subspace
-batch-similarity loss, each with the eval ``sample_mask`` that excludes the
-wrap-padded rows of the final batch."""
+"""The loss zoo (counterpart of ``sml_tpu/train/losses.py``): class-weighted
+cross entropy, the discrete-hazard survival NLL and cross entropy, the Cox
+partial likelihood, the subspace batch-similarity loss, and CMTA's alignment
+losses (L1, KL, cosine, subspace orthogonality), each with the eval
+``sample_mask`` that excludes the wrap-padded rows of the final batch."""
 
 from __future__ import annotations
 
@@ -64,6 +65,73 @@ def nll_surv_loss(hazards: torch.Tensor, s: Optional[torch.Tensor], y: torch.Ten
     censored = -c * torch.log(s_padded.gather(1, y + 1).clamp_min(eps))
     loss = (1.0 - alpha) * (censored + uncensored) + alpha * uncensored
     return _masked_mean(loss, sample_mask)
+
+
+def ce_surv_loss(hazards: torch.Tensor, s: Optional[torch.Tensor], y: torch.Tensor,
+                 c: torch.Tensor, alpha: float = 0.4, eps: float = 1e-7,
+                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy survival loss on S at the event bin, with the NLL's
+    uncensored term as a regulariser weighted ``alpha``."""
+    y = y.long()[:, None]
+    c = c.to(hazards.dtype)[:, None]
+    if s is None:
+        s = torch.cumprod(1.0 - hazards, dim=1)
+    s_padded = torch.cat([torch.ones_like(c), s], dim=1)
+    reg = -(1.0 - c) * (torch.log(s_padded.gather(1, y) + eps)
+                        + torch.log(hazards.gather(1, y).clamp_min(eps)))
+    s_y = s.gather(1, y)
+    ce_l = -c * torch.log(s_y.clamp_min(eps)) - (1.0 - c) * torch.log((1.0 - s_y).clamp_min(eps))
+    return _masked_mean((1.0 - alpha) * ce_l + alpha * reg, sample_mask)
+
+
+def cox_loss(survtime: torch.Tensor, censor: torch.Tensor, hazard_pred: torch.Tensor,
+             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Negative Cox partial log-likelihood of the risk ``hazard_pred`` (B,);
+    ``censor`` is 1 for an observed event.  The risk set of sample i is every
+    (valid) j with survtime_j >= survtime_i."""
+    r_mat = (survtime[None, :] >= survtime[:, None]).to(hazard_pred.dtype)
+    theta = hazard_pred.reshape(-1)
+    if sample_mask is not None:
+        r_mat = r_mat * sample_mask.to(r_mat.dtype)[None, :]
+    ll = (theta - torch.log((theta.exp() * r_mat).sum(dim=1).clamp_min(1e-30))) * censor
+    return -_masked_mean(ll, sample_mask)
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor,
+            sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean((a - b).abs(), sample_mask)
+
+
+def kl_loss(y: torch.Tensor, y_hat: torch.Tensor,
+            sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """torch ``F.kl_div(y_hat.softmax().log(), y.softmax(), reduction='sum')``
+    over the valid rows."""
+    p = torch.softmax(y, dim=-1)
+    per_row = (p * (torch.log(p.clamp_min(1e-12)) - F.log_softmax(y_hat, dim=-1))).sum(dim=-1)
+    if sample_mask is not None:
+        per_row = per_row * sample_mask.to(per_row.dtype)
+    return per_row.sum()
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Row-wise cosine similarity, the norms' product floored at ``eps``."""
+    den = torch.linalg.norm(a, dim=1) * torch.linalg.norm(b, dim=1)
+    return (a * b).sum(dim=1) / den.clamp_min(eps)
+
+
+def cosine_loss(y: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
+    return 1.0 - _cos(y, y_hat)
+
+
+def orthogonal_loss(p: torch.Tensor, p_hat: torch.Tensor, g: torch.Tensor,
+                    g_hat: torch.Tensor, gamma: float = 0.5) -> torch.Tensor:
+    """Per-row subspace orthogonality loss: each translated token aligned with
+    its (detached) source, the two modalities and the crossed pairs pushed
+    apart, weighted ``gamma``."""
+    pd, gd = p.detach(), g.detach()
+    pos = (1.0 - _cos(pd, p_hat).abs()) + (1.0 - _cos(gd, g_hat).abs())
+    neg = _cos(p, g).abs() + _cos(pd, g_hat).abs() + _cos(gd, p_hat).abs()
+    return pos + gamma * neg
 
 
 def batch_similarity_loss(omic: torch.Tensor, vgrid: torch.Tensor,

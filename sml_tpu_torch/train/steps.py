@@ -1,8 +1,8 @@
 """Train and eval steps of the ported modes (counterpart of
 ``sml_tpu/train/steps.py``: ``make_train_step``, ``modulate_classifier_grads``
-(deformpathomic with concat fusion only), ``make_eval_step`` and the
-deformpathomic, path, omic, pathomic and pathomic_original branches of
-``compute_mode_loss``).  Losses are taken in f32 on the model's outputs.
+(deformpathomic with concat fusion only), ``make_eval_step`` and
+``compute_mode_loss`` for every mode, with every ``survival_loss`` and CMTA's
+alignment term).  Losses are taken in f32 on the model's outputs.
 
 A train step is the forward in training mode (dropout from the state's
 ``DropoutRNG``; a BatchNorm normalizes by the batch and moves its running
@@ -29,45 +29,70 @@ from sml_tpu_torch.train.state import TrainState
 
 def _survival_loss(config: Config, hazards: torch.Tensor, s: torch.Tensor,
                    labels: torch.Tensor, sample_mask=None) -> torch.Tensor:
+    """``nll_surv`` (and its ``nll_surv_*`` variants) and ``ce_surv`` on the
+    hazards; ``cox_surv`` ranks the risk -sum(S)."""
     name = config.survival_loss
+    y, c = labels[:, 8], labels[:, 9]
+    if name == "ce_surv":
+        return losses.ce_surv_loss(hazards, s, y, c, alpha=0.0, sample_mask=sample_mask)
+    if name == "cox_surv":
+        return losses.cox_loss(labels[:, 11], 1.0 - c, -s.sum(dim=1), sample_mask=sample_mask)
     if name == "nll_surv" or name.startswith("nll_surv_"):
-        return losses.nll_surv_loss(hazards, s, labels[:, 8], labels[:, 9], alpha=0.0,
-                                    sample_mask=sample_mask)
-    raise NotImplementedError(f"survival_loss {name!r} is not ported yet")
+        return losses.nll_surv_loss(hazards, s, y, c, alpha=0.0, sample_mask=sample_mask)
+    raise ValueError(f"unknown survival_loss {name!r}")
+
+
+def _cmta_alignment(config: Config, out: Dict[str, torch.Tensor],
+                    sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CMTA's alignment of the decoders' cls tokens with the (detached)
+    encoders': L1 by default, or the auxiliary loss a ``survival_loss``
+    variant ``nll_surv_{kl,mse,l1,cos,ol}`` names."""
+    p, p_hat, g, g_hat = (out[k].float() for k in ("P", "P_hat", "G", "G_hat"))
+    name = config.survival_loss if config.task_type == "survival" else "nll_surv"
+    if name == "nll_surv_ol":
+        return losses._masked_mean(losses.orthogonal_loss(p, p_hat, g, g_hat, gamma=0.5),
+                                   sample_mask)
+    pair = {
+        "nll_surv_kl": lambda a, b: losses.kl_loss(a, b, sample_mask=sample_mask),
+        "nll_surv_mse": lambda a, b: losses._masked_mean((a - b) ** 2, sample_mask),
+        "nll_surv_cos": lambda a, b: losses._masked_mean(losses.cosine_loss(a, b),
+                                                         sample_mask),
+    }.get(name, lambda a, b: losses.l1_loss(a, b, sample_mask=sample_mask))
+    return 0.5 * (pair(p.detach(), p_hat) + pair(g.detach(), g_hat))
+
+
+def _hazards_and_s(config: Config, out: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hazards, S) in f32: the model's own where it returns them (mcat,
+    cmta), else from the logits (deformpathomic's logits are hazards)."""
+    logits = out["logits"].float()
+    if "hazards" in out:
+        return out["hazards"].float(), out["S"].float()
+    hazards = logits if config.mode == "deformpathomic" else torch.sigmoid(logits)
+    return hazards, torch.cumprod(1.0 - hazards, dim=1)
 
 
 def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
                       labels: torch.Tensor, train: bool = True,
                       sample_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss.  Modes path, omic, pathomic and pathomic_original: the task
-    loss, or for survival the survival loss on ``sigmoid(logits)``.
-    ``mode=deformpathomic``: the task loss plus, with ``return_vgrid``, the
-    mean of the two branches' batch-similarity losses.
+    """Total loss: the task loss, or for survival the survival loss (on the
+    model's hazards and S for mcat and cmta, else from the logits).
+    ``mode=cmta`` adds the alignment term; ``mode=deformpathomic`` adds, with
+    ``return_vgrid``, the mean of the two branches' batch-similarity losses.
     (``batchloss_grad_scale`` only rescales the gradient, not this value.)"""
-    if config.mode in ("path", "omic", "pathomic", "pathomic_original"):
-        logits = out["logits"].float()
-        if config.task_type == "survival":
-            hazards = torch.sigmoid(logits)
-            loss3 = _survival_loss(config, hazards, torch.cumprod(1.0 - hazards, dim=1),
-                                   labels, sample_mask)
-        else:
-            loss3 = losses.task_loss(logits, labels, config.task_type, train=train,
-                                     sample_mask=sample_mask)
-        return loss3, {"loss3": loss3}
-    if config.mode != "deformpathomic":
-        raise NotImplementedError(f"mode {config.mode!r} is not ported yet")
-    main = out["logits"].float()
     if config.task_type == "survival":
-        # the model applied the sigmoid: logits are hazards
-        loss3 = _survival_loss(config, main, torch.cumprod(1.0 - main, dim=1), labels,
-                               sample_mask)
+        hazards, s = _hazards_and_s(config, out)
+        loss3 = _survival_loss(config, hazards, s, labels, sample_mask)
     else:
-        loss3 = losses.task_loss(main, labels, config.task_type, train=train,
-                                 sample_mask=sample_mask)
+        loss3 = losses.task_loss(out["logits"].float(), labels, config.task_type,
+                                 train=train, sample_mask=sample_mask)
     aux = {"loss3": loss3}
     total = loss3
-    if config.return_vgrid:
+    if config.mode == "cmta":
+        aux["alignment_loss"] = _cmta_alignment(config, out, sample_mask)
+        total = loss3 + aux["alignment_loss"]
+    if config.mode == "deformpathomic" and config.return_vgrid:
         bs = [losses.batch_similarity_loss(out[f"omic_{b}"].float(),
                                            out[f"vgrid_{b}"].float(),
                                            sample_mask=sample_mask,
@@ -90,9 +115,7 @@ def make_eval_step(config: Config, model: torch.nn.Module
         logits = out["logits"].float()
         result: Dict[str, torch.Tensor] = {}
         if config.task_type == "survival":
-            # deformpathomic sigmoids in the model: its logits are hazards
-            hazards = logits if config.mode == "deformpathomic" else torch.sigmoid(logits)
-            result["risk"] = -torch.cumprod(1.0 - hazards, dim=1).sum(dim=1)
+            result["risk"] = -_hazards_and_s(config, out)[1].sum(dim=1)
         else:
             result["probs"] = torch.softmax(logits, dim=1)
         result["loss"], _ = compute_mode_loss(config, out, batch["labels"], train=False,
