@@ -95,14 +95,21 @@ TransLayers of 8 heads x 32 with 128 landmarks), whose two Nystrom chains per
 TransLayer of its two TransformerP (4 layers) run the f32 dh = 32 form of the
 attention kernels:
 
-15. cmta-kernels  the dh = 32 forward and backward at chain 3 (128 landmark
-            rows x 2560 keys) and chain 1 (2560 rows x 128 landmark keys) of a
-            2500-patch bag (BG = 64) and at the ragged (N, J) of phase 3,
-            against their plain versions (KERNEL_TOL and GRAD_RTOL in f32),
-            repeated bit for bit and timed beside the plain version and
-            F.scaled_dot_product_attention in f32; every other dh = 32 form
-            (bf16, a bias, a span, dropout) must raise in the wrapper and be
-            refused by the C entries;
+15. cmta-kernels  the registers of the dh = 32 backward's kernels (3xTF32
+            on the tensor cores), then the dh = 32 forward and backward at
+            chain 3 (128 landmark rows x 2560 keys) and chain 1 (2560 rows x
+            128 landmark keys) of a 2500-patch bag (BG = 64), at both chains
+            of the bucketed bags (1152 and 4224 tokens) and at the ragged
+            (N, J) of phase 3 and their transposes, against their plain
+            versions (KERNEL_TOL and GRAD_RTOL in f32; the backward's largest
+            error of each gradient's max also beside DH32_ERR_AIM, and both
+            the kernel's and the plain version's against float64), repeated
+            bit for bit; at the chains timed beside the plain version and
+            F.scaled_dot_product_attention in f32, the backward's rows, keys
+            and combine kernels timed apart (also at the bucketed chains),
+            its bound on the CUDA cores and at 3xTF32; every other dh = 32
+            form (bf16, a bias, a span, dropout) must raise in the wrapper
+            and be refused by the C entries;
 16. cmta    ``inference.main`` and ``main.main`` at 2500 patches (B = 8, f32):
             exactly 8 dh = 32 forward launches per eval batch, 8 forward and 8
             backward per train step, finite losses and C-index, one batch and
@@ -136,6 +143,7 @@ import torch
 # published H100 SXM peaks (dense): HBM bytes/s and FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12     # the tf32 tensor cores, three of whose products make one f32 (3xTF32)
 BG, DM, DH = 64, 32, 64
 SHAPES = {2500: (50, 144), 4096: (64, 256)}            # fixdim -> (query side, J)
 MAIN_FIXDIM = 2500                                     # config/config_mine.yaml fixdim
@@ -169,6 +177,11 @@ TRAIN_TOL = {"bfloat16": (2e-2, 5e-2), "float32": (1e-3, 1e-3)}
 # CMTA's Nystrom chains: 256-wide TransLayers, 8 heads of 32 and 128 landmarks;
 # 2500 patches + cls = 2501 tokens, front-padded to 2560
 CMTA_M, CMTA_DH, CMTA_NPAD = 128, 32, 2560
+# bucketed CMTA bags: 1024 and 4096 patches + cls, front-padded to 1152 / 4224
+CMTA_BUCKETED = (1152, 4224)
+# the aim (not a pass rule: that stays GRAD_RTOL) for the dh = 32 backward's
+# largest gradient error, relative to each gradient's max
+DH32_ERR_AIM = 2e-6
 CMTA_FLAGS = {"mode": "cmta", "task_type": "survival", "compute_dtype": "float32"}
 KEEP_PROB, SEED = 0.9, 20240611       # the attention dropout of the training path
 # TransMIL's Nystrom chains: 256 landmarks; bag + cls token front-padded to a
@@ -833,7 +846,7 @@ def _refusals() -> dict:
         rc_bwd = bwd_lib.deform_attn_bwd(code, code, qq.data_ptr(), kk.data_ptr(),
                                          vv.data_ptr(), ptr(b), ptr(sp), do.data_ptr(),
                                          do.data_ptr(), do.data_ptr(), do.data_ptr(), None,
-                                         scratch[0].data_ptr(), scratch[1].data_ptr(),
+                                         scratch[0].data_ptr(), scratch[1].data_ptr(), None,
                                          BG, n, j, CMTA_DH, keep_prob, 1.0 / keep_prob,
                                          SEED, q.device.index, stream)
         result[form] = {"wrapper_raised": raised, "c_entry_rc": [rc_fwd, rc_bwd],
@@ -842,27 +855,81 @@ def _refusals() -> dict:
     return result
 
 
+def _err_of_scale(got, want) -> float:
+    """The largest max|kernel - plain| / max|plain| over the gradients."""
+    return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def _bwd_f64(q, k, v, dout):
+    """(dq, dk, dv) of the bias-less attention without span or dropout in
+    float64: the yardstick of both the kernel and the f32 plain version."""
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    p = torch.softmax(torch.einsum("bnd,bjd->bnj", q, k), dim=-1)
+    dp = torch.einsum("bnd,bjd->bnj", dout, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return (torch.einsum("bnj,bjd->bnd", ds, k), torch.einsum("bnj,bnd->bjd", ds, q),
+            torch.einsum("bnj,bnd->bjd", p, dout))
+
+
+def _bwd_parts_ms(fn, iters: int = 10) -> dict:
+    """Device ms per call of the dh = 32 backward's kernels by role (rows,
+    keys, combine), from torch.profiler over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        m = re.search(r"attn_bwd_(rows|keys|combine)", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            ms[m.group(1)] = ms.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / iters
+    return ms
+
+
+def _tf32_usage() -> list:
+    """Registers and spill stores of the dh = 32 backward's kernels (ptxas)."""
+    from sml_tpu_torch.ops.kernels import _build
+
+    return [{"kernel": name, "registers": regs, "spill_stores": spill}
+            for name, (regs, spill) in _build.kernel_usage(
+                _build.build_log("deform_attn_bwd")).items() if "tf32" in name]
+
+
 def phase_cmta_kernels() -> dict:
     """The f32 dh = 32 forms (no bias, span or dropout) of the attention
-    forward and backward at CMTA's chain 3 and chain 1 of a 2500-patch bag and
-    at the ragged (N, J) of phase 3, against their plain versions, repeated bit
-    for bit; timed at the chains beside the plain versions and
-    F.scaled_dot_product_attention in f32 without a mask; then the refusals
-    of every other dh = 32 form.  Returns the chains' entries by (name,
-    chain)."""
+    forward and backward at CMTA's chain 3 and chain 1 of a 2500-patch bag, at
+    both chains of the bucketed bags (1152 and 4224 tokens) and at the ragged
+    (N, J) of phase 3 and their transposes, against their plain versions,
+    repeated bit for bit; the backward's largest error of each gradient's
+    scale beside DH32_ERR_AIM; at the chains the forward and backward timed
+    beside the plain versions and F.scaled_dot_product_attention in f32
+    without a mask, and the backward's rows, keys and combine kernels apart
+    (also at the bucketed chains); the backward's bound on the CUDA cores and
+    at 3xTF32 on the tf32 tensor cores; the registers of its kernels; then
+    the refusals of every other dh = 32 form.  Returns the chains' entries by
+    (name, chain)."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
                                            deform_attention_fwd, deform_attention_fwd_plain)
 
+    _line("cmta-kernels", ptxas=_tf32_usage())
     g = torch.Generator(device="cuda").manual_seed(6)
     f32, dh, size = torch.float32, CMTA_DH, 4
     entries, failures = {}, []
-    cases = [("chain3", CMTA_M, CMTA_NPAD), ("chain1", CMTA_NPAD, CMTA_M)] + [
-        ("ragged", n, j) for n, j in RAGGED]
+    cases = [("chain3", CMTA_M, CMTA_NPAD), ("chain1", CMTA_NPAD, CMTA_M)]
+    cases += [(f"bucket{n_pad}_{c}", *shape) for n_pad in CMTA_BUCKETED
+              for c, shape in (("chain3", (CMTA_M, n_pad)), ("chain1", (n_pad, CMTA_M)))]
+    cases += [("ragged", *shape) for n, j in RAGGED for shape in ((n, j), (j, n))]
     for chain, n, j in cases:
         q = torch.randn(BG, n, dh, device="cuda", generator=g) * dh ** -0.5
         k, v = torch.randn(2, BG, j, dh, device="cuda", generator=g)
         dout = torch.randn(BG, n, dh, device="cuda", generator=g) * 1e-2
-        timed = chain != "ragged"
+        timed, parts_timed = chain in ("chain3", "chain1"), chain != "ragged"
         pairs = BG * n * j
         fwd = lambda: (deform_attention_fwd(q, k, v),)
         out = fwd()
@@ -874,11 +941,26 @@ def phase_cmta_kernels() -> dict:
         got = bwd()
         torch.cuda.synchronize()
         want = deform_attention_bwd_plain(q, k, v, None, dout)
+        err = _err_of_scale(got[:3], want[:3])
+        exact = _bwd_f64(q, k, v, dout)
         bwd_e = {"name": "deform_attention_bwd_dh32", "pass": "bwd",
                  **_compare_grads(got[:3], want[:3], GRAD_RTOL[f32]),
+                 "max_err_of_scale": err, "err_aim": DH32_ERR_AIM,
+                 "within_aim": err <= DH32_ERR_AIM,
+                 # both against float64: the plain f32 version's own error is of
+                 # the same size at the long sums
+                 "max_err_of_scale_f64": _err_of_scale(got[:3], exact),
+                 "plain_err_of_scale_f64": _err_of_scale(want[:3], exact),
                  "repeats": _repeats(bwd, got)}
+        del exact
         if got[3] is not None:
             failures.append("the dh = 32 backward returned a bias gradient")
+        bwd_bytes = size * (3 * BG * n * dh + 4 * BG * j * dh)
+        if parts_timed:
+            bwd_e.update(ms=_time_ms(bwd), parts_ms=_bwd_parts_ms(bwd))
+            # 3xTF32: three tf32 products for each of the five f32 products
+            bwd_e["bound_3xtf32_ms"] = max(bwd_bytes / HBM_BYTES_PER_S,
+                                           3 * 10 * dh * pairs / PEAK_TF32) * 1e3
         if timed:
             lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, None)
             bound_ms, bound_by = _bound(size * (2 * BG * n * dh + 2 * BG * j * dh),
@@ -887,10 +969,8 @@ def phase_cmta_kernels() -> dict:
                          plain_ms=_time_ms(lambda: deform_attention_fwd_plain(q, k, v),
                                            iters=5),
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_fwd)
-            bound_ms, bound_by = _bound(size * (3 * BG * n * dh + 4 * BG * j * dh),
-                                        10 * dh * pairs, f32)
-            bwd_e.update(ms=_time_ms(lambda: deform_attention_bwd(q, k, v, None, dout)),
-                         plain_ms=_time_ms(lambda: deform_attention_bwd_plain(
+            bound_ms, bound_by = _bound(bwd_bytes, 10 * dh * pairs, f32)
+            bwd_e.update(plain_ms=_time_ms(lambda: deform_attention_bwd_plain(
                              q, k, v, None, dout), iters=5),
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_bwd)
         for e in (fwd_e, bwd_e):
@@ -1416,17 +1496,19 @@ F32_BIAS_KERNELS = (
      f"{PALLAS}:1044", "deform_attention_bwd_f32bias", "deform-1d"),
 )
 # the dh = 32 forms of CMTA's chains: (entry name, source, replaces, launch-count
-# key, the run whose counts they report: the cmta train run)
+# key, design; the run whose counts they report is the cmta train run).  The
+# forward runs on the CUDA cores (the f32 twin: fused multiply-adds), the
+# backward on the tf32 tensor cores, three products for each f32 one
 DH32_KERNELS = (
     ("deform_attention_fwd_dh32", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:1016",
-     "deform_attention_fwd_dh32", "cmta"),
+     "deform_attention_fwd_dh32", "CUDA-core"),
     ("deform_attention_bwd_dh32", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:1044",
-     "deform_attention_bwd_dh32", "cmta"),
+     "deform_attention_bwd_dh32", "3xTF32 mma.sync"),
 )
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-# the bf16 entries run on the tensor cores (csrc/mma.cuh); the f32 dh = 32
-# forms on the CUDA cores (the f32 twins: fused multiply-adds)
-DESIGN_BF16, DESIGN_F32 = "mma.sync", "CUDA-core"
+_DH32_BWD = ("parts_ms", "bound_3xtf32_ms", "max_err_of_scale", "max_err_of_scale_f64")
+# the bf16 entries run on the tensor cores (csrc/mma.cuh)
+DESIGN_BF16 = "mma.sync"
 
 
 def main() -> int:
@@ -1491,16 +1573,17 @@ def main() -> int:
                         "design": DESIGN_BF16,
                         "launches_serving_1d": d1_serving.get(count, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16, bias f32"})
-    for name, source, replaces, count, run in DH32_KERNELS:
+    for name, source, replaces, count, design in DH32_KERNELS:
         e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": runs[run][count],
-                        "launches_run": run, **{k: e[k] for k in _TIMES},
-                        "design": DESIGN_F32,
+                        "replaces": replaces, "launches": runs["cmta"][count],
+                        "launches_run": "cmta", **{k: e[k] for k in _TIMES},
+                        "design": design,
                         "launches_cmta_serving": cmta_serving.get(count, 0),
                         "shape": f"f32 dh=32, chain 3: BG={BG} N={e['n']} J={e['j']}",
+                        **{k: e[k] for k in _DH32_BWD if k in e},
                         "chain1": {"shape": f"f32 dh=32, BG={BG} N={e1['n']} J={e1['j']}",
-                                   **{k: e1[k] for k in _TIMES}}})
+                                   **{k: e1[k] for k in _TIMES + _DH32_BWD if k in e1}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

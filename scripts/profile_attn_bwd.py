@@ -3,6 +3,7 @@
 
     python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
                                         [--dtype bfloat16|float32]
+                                        [--variant nofold|onechain]
 
 Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
 the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
@@ -22,8 +23,17 @@ the plain version relative to that tensor's max, a digest of the gradients'
 bits (equal digests of two trees: equal results), and the device time per
 launch of the rows and keys kernels under ``torch.profiler`` (mean of
 ``--iters`` launches).  In f32 both passes also run CMTA's two chains on the
-dh = 32 form (BG = 64, 128 landmarks, n_pad 2560).  One line per item, prefixed with ``--tag``, so that
-runs of two trees can be told apart.
+dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), whose backward runs on
+the tf32 tensor cores: its rows, keys and combine kernels are timed apart.
+Its lines also give the largest gradient error of each gradient's max
+against float64, of the kernel and of the f32 plain version.  Two variants,
+built from a copy of the sources, measure what the design does to that
+error: ``--variant nofold`` keeps one tensor-core accumulator over each whole
+walk instead of one per tile folded into an f32 sum (``kFoldTiles`` in
+``deform_attn_bwd.cu``); ``--variant onechain`` sums the three tf32 products
+of each f32 product in one accumulator instead of the big one apart from the
+two small ones (``mma_3xtf32`` in ``mma.cuh``).  One line per item, prefixed
+with ``--tag``, so that runs of two trees can be told apart.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import argparse
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,34 +76,66 @@ BWD_CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144
              "bias_s4096": (4096, 256, True, 1.0), "bias_drop_s4096": (4096, 256, True, 0.9),
              "ch3_s2500": (256, 2560, False, 1.0), "ch1_s2500": (2560, 256, False, 1.0),
              "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
+# the variants of the dh = 32 backward: (file, its text, the variant's)
+VARIANTS = {
+    "nofold": ("deform_attn_bwd.cu", "constexpr bool kFoldTiles = true;",
+               "constexpr bool kFoldTiles = false;"),
+    "onechain": ("mma.cuh", "mma_tf32(small, al, bh0, bh1);\n  mma_tf32(small, ah, bl0, bl1);",
+                 "mma_tf32(big, al, bh0, bh1);\n  mma_tf32(big, ah, bl0, bl1);"),
+}
 # f32 only: CMTA's chains on the dh = 32 form, name: (N, J)
 DH32_CASES = {"ch3_dh32_s2500": (128, 2560), "ch1_dh32_s2500": (2560, 128)}
 KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn_fwd_kernel"
                     r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
+TF32 = re.compile(r"(attn_bwd_rows_tf32|attn_bwd_keys_tf32|attn_bwd_combine)(?:ILb(\d)ELb(\d)E)?")
+# device-time roles of the backward's kernels
+ROLE = re.compile(r"attn_bwd_((rows|keys)_(tc|kernel|tf32)|combine)")
+
+
+def _kernel_name(mangled: str) -> str:
+    k, t = KERNEL.search(mangled), TF32.search(mangled)
+    if k:
+        bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
+        dtype = "f32" if k.group(2).startswith("f") else "bf16"
+        dh = re.search(r"Li(\d+)E", k.group(2))
+        return (f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
+                + (f" dh={dh.group(1)}" if dh else ""))
+    if t:
+        return t.group(1) + (f" stats={t.group(2)} grad={t.group(3)}" if t.group(2) else "")
+    return mangled
+
+
+def _sass_counts(lib: Path) -> dict:
+    """{mangled kernel: (SASS instructions, HMMA among them)} of a library,
+    by cuobjdump (the CUDA toolkit's); {} without it."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = [0, 0]
+        elif kernel and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[kernel][0] += 1
+            counts[kernel][1] += "HMMA" in line
+    return counts
 
 
 def ptxas(tag: str) -> None:
-    """Registers and spill stores of every kernel instantiation."""
-    name, spill = None, "?"
-    for line in "\n".join(_build.build_log(s) for s in SOURCES).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = KERNEL.search(m.group(1))
-            name = m.group(1)
-            if k:
-                bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
-                dtype = "f32" if k.group(2).startswith("f") else "bf16"
-                dh = re.search(r"Li(\d+)E", k.group(2))
-                name = (f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
-                        + (f" dh={dh.group(1)}" if dh else ""))
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            print(json.dumps({"tag": tag, "kernel": name, "registers": int(m.group(1)),
-                              "spill_stores": spill}), flush=True)
-            name = None
+    """Registers and spill stores of every kernel instantiation, and for the
+    tf32 kernels their SASS instructions beside their HMMA."""
+    sass = _sass_counts(_build.library_path("deform_attn_bwd"))
+    for src in SOURCES:
+        for mangled, (regs, spill) in _build.kernel_usage(_build.build_log(src)).items():
+            line = {"tag": tag, "kernel": _kernel_name(mangled), "registers": regs,
+                    "spill_stores": spill}
+            if TF32.search(mangled) and mangled in sass:
+                line["sass_instructions"], line["hmma"] = sass[mangled]
+            print(json.dumps(line), flush=True)
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -159,6 +202,21 @@ def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
                           "digest": _digest([out]), "ms": _time_ms(run, iters)}), flush=True)
 
 
+def _bwd_f64(q, k, v, dout):
+    """(dq, dk, dv) of the bias-less attention in float64."""
+    q, k, v, dout = (t.double() for t in (q, k, v, dout))
+    p = torch.softmax(torch.einsum("bnd,bjd->bnj", q, k), dim=-1)
+    dp = torch.einsum("bnd,bjd->bnj", dout, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    return (torch.einsum("bnj,bjd->bnd", ds, k), torch.einsum("bnj,bnd->bjd", ds, q),
+            torch.einsum("bnj,bnd->bjd", p, dout))
+
+
+def _err_of_scale(got, want) -> float:
+    return max(((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+               for a, b in zip(got, want) if a is not None)
+
+
 def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
     cases = [(name, n, j, has_bias, keep_prob, DH)
              for name, (n, j, has_bias, keep_prob) in BWD_CASES.items()]
@@ -174,8 +232,13 @@ def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
         keep = (philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
                 if keep_prob < 1 else None)
         want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob)
-        err = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-                  for a, b in zip(got, want) if a is not None)
+        err = _err_of_scale(got, want)
+        f64 = {}
+        if dh == 32:
+            exact = _bwd_f64(q, k, v, dout)
+            f64 = {"max_err_of_scale_f64": _err_of_scale(got, exact),
+                   "plain_err_of_scale_f64": _err_of_scale(want, exact)}
+            del exact
         again = run()
         repeats = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
         digest = _digest(got)
@@ -189,10 +252,11 @@ def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
             torch.cuda.synchronize()
         ms = {}
         for e in prof.key_averages():
-            m = re.search(r"(rows|keys)_(tc|kernel)", e.key)
+            m = ROLE.search(e.key)
             if e.device_type == torch.autograd.DeviceType.CUDA and m:
-                ms[m.group(0)] = round(e.self_device_time_total / 1e3 / iters, 4)
-        print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err,
+                ms[m.group(1)] = round(ms.get(m.group(1), 0.0)
+                                       + e.self_device_time_total / 1e3 / iters, 4)
+        print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err, **f64,
                           "repeats": repeats, "digest": digest, "ms": ms,
                           "total_ms": round(sum(ms.values()), 4)}), flush=True)
         del q, k, v, dout, bias, got
@@ -205,12 +269,25 @@ def main() -> int:
     ap.add_argument("--csrc", default=str(_build.CSRC))
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--variant", choices=tuple(VARIANTS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_attn_bwd: no CUDA device", file=sys.stderr)
         return 1
     _build.CSRC = Path(args.csrc).resolve()
     _build.BUILD_DIR = ROOT / "build" / "profile_attn" / args.tag
+    if args.variant:
+        name, text, variant = VARIANTS[args.variant]
+        csrc = _build.BUILD_DIR / "csrc"
+        shutil.rmtree(csrc, ignore_errors=True)
+        shutil.copytree(_build.CSRC, csrc)
+        src = csrc / name
+        if text not in src.read_text():
+            print(f"profile_attn_bwd: {name} lacks the text of --variant {args.variant}",
+                  file=sys.stderr)
+            return 1
+        src.write_text(src.read_text().replace(text, variant))
+        _build.CSRC = csrc
     _build.build(SOURCES)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()

@@ -98,6 +98,8 @@ class Config:
             raise ValueError(f"unknown task_type {self.task_type!r}")
         if self.attn_dim not in (1, 2):
             raise ValueError("attn_dim must be 1 or 2")
+        if self.batchloss_grad_scale not in ("exact", "ddp"):
+            raise ValueError(f"unknown batchloss_grad_scale {self.batchloss_grad_scale!r}")
         if self.attn_dim == 1 and self.return_vgrid:
             raise ValueError("attn_dim=1 has no vgrid (1-D deformable attention): "
                              "set return_vgrid=false")

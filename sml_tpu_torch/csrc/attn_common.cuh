@@ -37,23 +37,16 @@ __device__ __forceinline__ void store2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
 }
 
-// C consecutive floats (C = 1, 2 or 4, aligned to C floats) as one access: a
-// lane's DH / 32 columns of an output row (1 at dh 32, 2 at dh 64), or the
-// backward keys kernel's columns of a q / dout row
+// C consecutive floats (C = 1 or 2, aligned to C floats) as one access: a
+// lane's DH / 32 columns of the forward's output row (1 at dh 32, 2 at dh 64)
 template <int C>
 __device__ __forceinline__ void load_cols(const float* p, float (&f)[C]) {
-  if constexpr (C == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  } else if constexpr (C == 2) {
+  if constexpr (C == 2) {
     const float2 v = load2(p);
     f[0] = v.x;
     f[1] = v.y;
   } else {
-    static_assert(C == 1, "1, 2 or 4 columns");
+    static_assert(C == 1, "1 or 2 columns");
     f[0] = *p;
   }
 }

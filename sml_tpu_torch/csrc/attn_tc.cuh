@@ -180,8 +180,13 @@ struct RowStats {
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
 };
 
+// exp(x): the fast ex2.approx form of the bf16 kernels, or with EXACT the f32
+// library's expf (the f32 dh = 32 backward, held to f32's accuracy)
+template <bool EXACT>
+__device__ __forceinline__ float exp_of(float x) { return EXACT ? expf(x) : exp_f(x); }
+
 // Fold one 32-key half of masked scores s (and dp, with DELTA) into st.
-template <bool DELTA>
+template <bool DELTA, bool EXACT = false>
 __device__ __forceinline__ void stats_update(RowStats& st, const float (&s)[4][4],
                                              const float (&dp)[4][4]) {
 #pragma unroll
@@ -189,13 +194,13 @@ __device__ __forceinline__ void stats_update(RowStats& st, const float (&s)[4][4
     float mx = st.m[h];
 #pragma unroll
     for (int i = 0; i < 4; ++i) mx = fmaxf(mx, fmaxf(s[i][2 * h], s[i][2 * h + 1]));
-    const float sc = exp_f(st.m[h] - mx);
+    const float sc = exp_of<EXACT>(st.m[h] - mx);
     float l = 0.f, d = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
-        const float e = exp_f(s[i][2 * h + w] - mx);
+        const float e = exp_of<EXACT>(s[i][2 * h + w] - mx);
         l += e;
         if (DELTA) d = fmaf(e, dp[i][2 * h + w], d);
       }
@@ -207,14 +212,14 @@ __device__ __forceinline__ void stats_update(RowStats& st, const float (&s)[4][4
 
 // lse[h] = max + log(sum) (and delta[h] = sum e dp / sum, with DELTA) of the
 // rows row[h], the statistics of the lane quad combined in a fixed order.
-template <bool DELTA>
+template <bool DELTA, bool EXACT = false>
 __device__ __forceinline__ void stats_fold(const RowStats& st, float (&lse)[2],
                                            float (&delta)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = fmaxf(st.m[h], __shfl_xor_sync(kFull, st.m[h], 1));
     mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-    const float sc = exp_f(st.m[h] - mx);
+    const float sc = exp_of<EXACT>(st.m[h] - mx);
     float l = st.l[h] * sc, d = st.d[h] * sc;
     l += __shfl_xor_sync(kFull, l, 1);
     if (DELTA) d += __shfl_xor_sync(kFull, d, 1);

@@ -20,23 +20,23 @@
 //
 // The TPU kernel sums dk and dv over the row tiles along a sequential grid
 // axis.  Blocks on the H100 run in parallel, so the work is split in two
-// kernels and the sum over rows stays inside one block, with no atomics and
-// no partials (the result repeats bit for bit):
+// kernels with no atomics (the result repeats bit for bit):
 //
 // rows kernel, one block per (bg, 64 query rows): pass 1 walks K and V in key
 //   tiles with an online max and sum and writes each row's lse = max +
 //   log(sum) and delta = sum_j p dp, (BG, N) f32 each; pass 2 walks them
 //   again for p = exp(s - lse), ds, dbias and dq.
-// keys kernel, one block per (bg, 64 keys in bf16, 16 in f32), looping over
-//   all N rows in tiles of 64: it recomputes p from lse, dp and m, then ds =
-//   p (dp m - delta), and sums dk and dv for its keys.
+// keys kernel, one block per (bg, 64 keys; 16 in the f32 dh = 64 twin),
+//   looping over the rows in tiles of 64: it recomputes p from lse, dp and m,
+//   then ds = p (dp m - delta), and sums dk and dv for its keys.
 //
 // What bounds it: about 10 * DH FLOP per pair (five products of 2 * DH each:
 // q k^T, dout v^T, (p m)^T dout, ds k, ds^T q) against q, k, v, dout, dq,
 // dk, dv read or written once, and 4 bytes of bias and dbias per pair in bf16 in
 // the bias form: operations on the tensor cores at the Nystrom chains, bytes
 // at the deformable attention's J = 144.  The recompute issues about 18 * DH
-// per pair: q k^T and dout v^T three times (pass 1, pass 2, keys kernel).
+// per pair: q k^T and dout v^T three times (pass 1, pass 2, keys kernel); at
+// 3xTF32 three tf32 products for each.
 //
 // bf16, the tensor-core kernels (*_tc): every product is a warp-level
 // mma.sync m16n8k16, bf16 operands and f32 sums (mma.cuh); the rows kernel's
@@ -63,30 +63,56 @@
 // kernel's q k^T and dout v^T sums run in another order than the rows
 // kernel's, so p and ds of the two kernels may differ in the last bits; the
 // bf16 gradient tolerance covers it.
-// f32, the CUDA-core twins: one warp per row in the rows kernel (dq summed in
-// shared memory), one block per 16 keys in the keys kernel, products as f32
-// fused multiply-adds, and the keys kernel's q . k and dout . v sums in the
-// rows kernel's order, so p and ds are the rows kernel's to the last bit; they
-// are the exact-arithmetic reference of the port on the card.  They are also
-// the kernels of the dh = 32 form (f32, no bias, span or dropout: CMTA's
-// Nystrom chains): a rows-kernel lane owns one column of dq, and a keys-kernel
-// thread 2 columns of dk and 2 of dv, not 4.  The keys kernel keeps its 16
-// keys per block, so its pair phase (one thread per row and 4-key Philox
-// group) and its row order are those of dh = 64, and only the sum phase
-// halves; 32 keys per block would need 512 threads for the pair phase, or two
-// rows per thread, for the same sums.  At CMTA's chain 1 (J = 128 landmark
-// keys) that is 8 blocks per bag, 512 at BG = 64, each walking 2560 rows.
+// f32 at dh = 64, the CUDA-core twins: one warp per row in the rows kernel
+// (dq summed in shared memory), one block per 16 keys in the keys kernel,
+// products as f32 fused multiply-adds, and the keys kernel's q . k and
+// dout . v sums in the rows kernel's order, so p and ds are the rows
+// kernel's to the last bit; they are the exact-arithmetic reference of the
+// port on the card.
+//
+// f32 at dh = 32 (no bias, span or dropout: CMTA's Nystrom chains, BG 64,
+// 128 landmarks against 2560 tokens), the tf32 tensor-core kernels
+// (tf32::*_tf32): the layout of the bf16 kernels (four warps, 16 rows or keys
+// each, the streamed operand through a two-stage cp.async ring of swizzled
+// 64 x 32 f32 tiles, the block's own operand as A fragments in registers)
+// and the TPU kernel's algorithm, ds = p (dp - delta) formed for each pair
+// before dq = ds k and dk = ds^T q.  Every product is f32-accurate from
+// three tf32 mma.sync m16n8k8 (3xTF32, mma.cuh): each operand split as hi +
+// lo, both rounded to tf32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the
+// two small products in one accumulator and the big one in another.  The
+// tensor core truncates the sums it carries, so a long sum is never left to
+// it: each 64-row or 64-key tile's products start from zeroed accumulators,
+// which are then added to an f32 register sum (kFoldTiles), so the tensor
+// core chains at most 8 k-steps of a sum over the long axis.  s, dp, p and
+// ds stay in the accumulator fragments; p and ds become A fragments of the
+// next product without a shuffle (mma::split_accum: a k index is only a
+// position in the sum), B read from the tiles by ldmatrix (s, dp) or by
+// 32-bit loads at each lane's precomputed offsets (dq, dk, dv).  exp is the
+// library's expf.  At CMTA's chains one side is thin (128 landmark rows or
+// keys: 128 blocks of 64 on 132 SMs), so its long axis is cut into segments
+// (tf32::segments, about 1024 blocks a launch): the rows kernel then runs
+// twice, statistics per key segment ((lse, delta) of the segment), then
+// gradients per segment after merging the segments' statistics by the max and
+// sum rule in segment order; the keys kernel writes dk and dv per row
+// segment; the partial sums go to an f32 scratch (deform_attn_bwd_work) and
+// tf32::attn_bwd_combine adds them in segment order.
 //
 // Left for later: wgmma and TMA (a warpgroup product of 64-row tiles would
 // reach past mma.sync's rate), keeping K and V whole in shared memory when
 // J <= 256 (one pass over them for both passes), and taking lse from the
-// forward so that pass 1 drops out.
+// forward so that pass 1 drops out.  In the tf32 kernels each of the four
+// warps splits every element of the streamed tile it reads, and the splits
+// and the rest outnumber the mma about 12 to 1 in the SASS: the kernels are
+// bound by instruction issue.  Splitting each tile once per block into hi
+// and lo tiles gave the same bits but spilled and ran 3% slower (PERF.md).
 //
 // C entry: deform_attn_bwd(dtype, bias_dtype, q, k, v, bias, span, dout, dq,
-//                          dk, dv, dbias, lse, delta, BG, N, J, DH, keep_prob,
-//                          inv_keep, seed, device, stream) -> cudaGetLastError().
+//                          dk, dv, dbias, lse, delta, work, BG, N, J, DH,
+//                          keep_prob, inv_keep, seed, device, stream)
+//          -> cudaGetLastError().
 // dtype: 0 = float, 1 = bfloat16 for q, k, v, dout, dq, dk and dv (lse and
-// delta: f32 scratch of (BG, N)); bias_dtype the same codes for bias and
+// delta: f32 scratch of (BG, N); work: f32 scratch of deform_attn_bwd_work(BG,
+// N, J, DH) floats, null when that is 0); bias_dtype the same codes for bias and
 // dbias: dtype's, or 0 with dtype 1 in the form without span and dropout (the
 // 1-D deformable attention's f32 bias; any other pair is
 // cudaErrorInvalidValue).  bias / dbias and span may be null.  DH is 64, or 32
@@ -97,6 +123,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attn_common.cuh"
@@ -131,8 +158,7 @@ attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dq, T* __restrict__ dbias, float* __restrict__ lse,
                      float* __restrict__ delta, int N, int J, float keep_prob,
                      float inv_keep, unsigned long long seed) {
-  static_assert(DH == 32 || DH == 64, "each lane owns DH / 32 columns of dq");
-  constexpr int CPL = DH / 32;
+  static_assert(DH == 64, "each lane owns DH / 32 = 2 columns of dq");
   constexpr int LD = row_stride<T>(DH);
   constexpr int NT = kTile / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -258,27 +284,23 @@ attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncwarp();  // d is written
 
-      float* acc = s_acc + r * DH + CPL * lane;
-      float a[CPL];
-      load_cols<CPL>(acc, a);
-      const T* kcol = s_k + CPL * lane;
+      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
+      float2 a = *acc;
+      const T* kcol = s_k + 2 * lane;
 #pragma unroll 4
       for (int jj = 0; jj < len; ++jj) {
         const float dj = d[jj];
-        float kk[CPL];
-        load_cols<CPL>(kcol + jj * LD, kk);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) a[c] = fmaf(dj, kk[c], a[c]);
+        const float2 kk = load2(kcol + jj * LD);
+        a.x = fmaf(dj, kk.x, a.x);
+        a.y = fmaf(dj, kk.y, a.y);
       }
-      store_cols<CPL>(acc, a);
+      *acc = a;
       __syncwarp();  // the next row rewrites d and the multipliers
     }
   }
-  for (int r = warp; r < rows; r += kWarps) {
-    float a[CPL];
-    load_cols<CPL>(s_acc + r * DH + CPL * lane, a);
-    store_cols<CPL>(dq + ((size_t)bg * N + row0 + r) * DH + CPL * lane, a);
-  }
+  for (int r = warp; r < rows; r += kWarps)
+    store2(dq + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
+           reinterpret_cast<const float2*>(s_acc + r * DH)[lane]);
 }
 
 struct KeysSmem {
@@ -300,11 +322,7 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int N, int J,
                      float keep_prob, float inv_keep, unsigned long long seed) {
-  // the sum phase: 16 threads per key, each owning CPT columns of its dk and dv
-  // (4 at dh 64, 2 at dh 32; the pair phase and the row order stay those of dh 64)
-  constexpr int CPT = kKeys * DH / kThreads;
-  static_assert((DH == 32 || DH == 64) && CPT * kThreads == kKeys * DH,
-                "4 (dh 64) or 2 (dh 32) dk and dv per thread");
+  static_assert(DH == 64 && kKeys * DH == 4 * kThreads, "4 dk and 4 dv per thread");
   static_assert(kChunk * (kKeys / 4) == kThreads, "one thread per (row, key group)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   KeysSmem& sm = *reinterpret_cast<KeysSmem*>(smem_raw);
@@ -326,10 +344,8 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int pr = t >> 2;            // pair phase: chunk row
   const int grp = t & 3;            //             key group (4 keys)
   const int kl = t >> 4;            // sum phase:  key
-  const int c0 = (t & 15) * CPT;    //             CPT columns
-  float dk_acc[CPT], dv_acc[CPT];
-#pragma unroll
-  for (int e = 0; e < CPT; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  const int c4 = (t & 15) * 4;      //             4 columns
+  float dk_acc[4] = {0.f, 0.f, 0.f, 0.f}, dv_acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (int r0 = 0; r0 < N; r0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed (and the keys are staged)
@@ -387,20 +403,23 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
     for (int rr = 0; rr < kChunk; ++rr) {
       const float ds = sm.ds[rr][kl], pd = sm.pd[rr][kl];
-      float qv[CPT], ov[CPT];
-      load_cols<CPT>(&sm.q[rr][c0], qv);
-      load_cols<CPT>(&sm.dout[rr][c0], ov);
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) dk_acc[e] = fmaf(ds, qv[e], dk_acc[e]);
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) dv_acc[e] = fmaf(pd, ov[e], dv_acc[e]);
+      const float4 qv = *reinterpret_cast<const float4*>(&sm.q[rr][c4]);
+      const float4 ov = *reinterpret_cast<const float4*>(&sm.dout[rr][c4]);
+      dk_acc[0] = fmaf(ds, qv.x, dk_acc[0]);
+      dk_acc[1] = fmaf(ds, qv.y, dk_acc[1]);
+      dk_acc[2] = fmaf(ds, qv.z, dk_acc[2]);
+      dk_acc[3] = fmaf(ds, qv.w, dk_acc[3]);
+      dv_acc[0] = fmaf(pd, ov.x, dv_acc[0]);
+      dv_acc[1] = fmaf(pd, ov.y, dv_acc[1]);
+      dv_acc[2] = fmaf(pd, ov.z, dv_acc[2]);
+      dv_acc[3] = fmaf(pd, ov.w, dv_acc[3]);
     }
   }
   const int j = j0 + kl;
   if (j < J) {
-    const size_t at = ((size_t)bg * J + j) * DH + c0;
+    const size_t at = ((size_t)bg * J + j) * DH + c4;
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) {
+    for (int e = 0; e < 4; ++e) {
       store1(dk + at + e, dk_acc[e]);
       store1(dv + at + e, dv_acc[e]);
     }
@@ -727,6 +746,441 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
+// ---- f32 dh = 32: the tf32 tensor-core kernels (3xTF32) ---------------------
+
+namespace tf32 {
+
+using tc::kBlock;
+using tc::kThreads;
+constexpr int kDH = 32;
+constexpr int kTileF = kBlock * kDH;  // floats of one swizzled 64 x 32 tile
+// Blocks a launch aims at (about 8 per SM of 132): the long axis of a thin
+// side is cut into as many segments as take its grid there, at most
+// kMaxSegments (which bounds the scratch).
+constexpr int kTargetBlocks = 1024;
+constexpr int kMaxSegments = 32;
+// Fold each tile's tensor-core sum into an f32 register sum: the tensor core
+// then chains at most one tile's 8 k-steps (x 3 products) of a long sum.
+// false keeps one accumulator for the whole walk (the control measured in
+// PERF.md, built by scripts/profile_attn_bwd.py --variant nofold).
+constexpr bool kFoldTiles = true;
+// Segments of a walk of `tiles` tiles for a grid of `base` blocks, each
+// segment `per` tiles (the last may be shorter).
+inline int segments(int base, int tiles, int& per) {
+  int s = (kTargetBlocks + base - 1) / base;
+  s = s < tiles ? s : tiles;
+  s = s < kMaxSegments ? s : kMaxSegments;
+  per = (tiles + s - 1) / s;
+  return (tiles + per - 1) / per;
+}
+
+// Stage rows [r0, r0 + kBlock) of two (n, 32) f32 matrices a and b in the
+// swizzled tiles sa and sb by cp.async, rows >= n zero-filled.
+__device__ __forceinline__ void stage_pair(const float* a, const float* b, float* sa,
+                                           float* sb, int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH + 4 * c;
+    const int at = mma::swz32f(r, 4 * c);
+    mma::cp_async16(mma::smem_u32(sa + at), a + off, ok);
+    mma::cp_async16(mma::smem_u32(sb + at), b + off, ok);
+  }
+}
+
+// The split A fragments (4 k-steps of 8 columns) of rows r0 .. r0 + 15 of an
+// (n, 32) f32 matrix in device memory; rows >= n give 0.
+__device__ __forceinline__ void load_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                       const float* m, int r0, int n, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (lane >> 2) + 8 * (e & 1);
+      const int c = 8 * ks + (lane & 3) + 4 * (e >> 1);
+      mma::split_tf32(r < n ? m[(size_t)r * kDH + c] : 0.f, hi[ks][e], lo[ks][e]);
+    }
+}
+
+// Each lane's byte offsets in a swizzled 64 x 32 f32 tile (mma::swz32f) of
+// the B fragments it reads, fixed for the kernel: rows n0 + 8 i + k of a tile
+// start 128 (n0 + 8 i) bytes further on, because n0 + 8 i is a multiple of 8.
+struct Offsets {
+  uint32_t nt[2];     // product_nt: ldmatrix row of chunks 4 kp + lane / 8
+  uint32_t nn[4][2];  // product_nn: n tile nt, rows 2t (w 0) and 2t + 1 (w 1)
+  __device__ explicit Offsets(int lane) {
+    const int r = lane & 7;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) nt[kp] = 4 * mma::swz32f(r, 4 * (4 * kp + (lane >> 3)));
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        nn[n][w] = 4 * mma::swz32f(2 * (lane & 3) + w, 8 * n + (lane >> 2));
+  }
+};
+
+// acc[i] (16 x 8) = A X^T over the rows n0 + 8 i .. + 7 of the swizzled tile
+// x (the n of the product), i < NI; A (16 x 32) split as 4 k-steps.  B by
+// ldmatrix: the 32-bit word t of row g of a 16-byte chunk is B's (k t, n g).
+template <int NI>
+__device__ __forceinline__ void product_nt(const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4],
+                                           const float* x, int n0, const Offsets& off,
+                                           float (&acc)[NI][4]) {
+  float small[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = small[i][e] = 0.f;
+  const uint32_t base = mma::smem_u32(x) + 128 * n0;
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      uint32_t b[4];  // b0, b1 of k-steps 2 kp and 2 kp + 1
+      mma::ldmatrix_x4(b, base + 1024 * i + off.nt[kp]);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bh0, bl0, bh1, bl1;
+        mma::split_tf32(__uint_as_float(b[2 * kk]), bh0, bl0);
+        mma::split_tf32(__uint_as_float(b[2 * kk + 1]), bh1, bl1);
+        mma::mma_3xtf32(acc[i], small[i], ah[2 * kp + kk], al[2 * kp + kk], bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e];
+}
+
+// acc + small (16 x 32) += A X over the 8 rows k0 .. k0 + 7 of the swizzled
+// tile x (the k of the product), k0 a multiple of 8; A the split accumulator
+// of the previous product (mma::split_accum), so B's k positions t and t + 4
+// are rows k0 + 2t and k0 + 2t + 1.
+__device__ __forceinline__ void product_nn(float (&acc)[4][4], float (&small)[4][4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const float* x, int k0, const Offsets& off) {
+  const char* base = reinterpret_cast<const char*>(x + 32 * k0);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    uint32_t bh0, bl0, bh1, bl1;
+    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][0]), bh0, bl0);
+    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][1]), bh1, bl1);
+    mma::mma_3xtf32(acc[nt], small[nt], ah, al, bh0, bh1, bl0, bl1);
+  }
+}
+
+// sum += acc + small, acc = small = 0: the f32 register sum of the per-tile
+// accumulators
+__device__ __forceinline__ void fold(float (&sum)[4][4], float (&acc)[4][4],
+                                     float (&small)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sum[n][e] += acc[n][e] + small[n][e];
+      acc[n][e] = small[n][e] = 0.f;
+    }
+}
+
+// The (16 x 32) sum of a warp's rows (or keys) r0 + g, r0 + g + 8 into rows
+// of 32 floats at dst, rows >= n left alone.
+__device__ __forceinline__ void store_rows(float* dst, const float (&sum)[4][4], int r0, int n,
+                                           int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    if (r < n)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(dst + (size_t)r * kDH + 8 * nt + 2 * (lane & 3)) =
+            make_float2(sum[nt][2 * h], sum[nt][2 * h + 1]);
+  }
+}
+
+// Rows kernel: block (row tile, bg, key segment), warp w owns rows row0 + 16 w
+// .. + 15 (q and dout as split A fragments in registers), lane (g, t) the
+// rows g and g + 8 and, in each n8 tile of keys, the columns 2t and 2t + 1.
+// K and V stream through a two-stage cp.async ring of swizzled 64-key tiles.
+//   STATS: walk the segment's keys for each row's max, sum of exp and sum of
+//     exp * dp; with GRAD (one segment) fold them into lse and delta and walk
+//     the keys again; alone, write the segment's (lse, delta) to part.
+//   GRAD: (alone: merge the segments' (lse, delta) from part, by the max and
+//     sum rule in segment order; segment 0 writes lse and delta) per pair
+//     p = exp(s - lse), ds = p (dp - delta), then dq += ds k over the
+//     segment's keys, written to dq_out + seg * seg_stride.
+template <bool STATS, bool GRAD>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_rows_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   float* __restrict__ dq_out, size_t seg_stride, float* __restrict__ lse,
+                   float* __restrict__ delta, float2* __restrict__ part, int N, int J,
+                   int seg_tiles) {
+  static_assert(STATS || GRAD, "a pass to run");
+  __shared__ __align__(128) float s_kv[2][2][kTileF];  // [stage][K, V]
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow0 = blockIdx.x * kBlock + warp * 16;
+  const int row[2] = {wrow0 + (lane >> 2), wrow0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile; element 1 is next
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (J + kBlock - 1) / kBlock - t0);
+  constexpr int kPasses = (STATS ? 1 : 0) + (GRAD ? 1 : 0);
+  const float* kg = k + (size_t)bg * J * kDH;
+  const float* vg = v + (size_t)bg * J * kDH;
+  auto stage = [&](int it) {
+    stage_pair(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], (t0 + it % nt) * kBlock, J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  const Offsets off(lane);
+  uint32_t qh[4][4], ql[4][4], oh[4][4], ol[4][4];
+  load_a(qh, ql, q + (size_t)bg * N * kDH, wrow0, N, lane);
+  load_a(oh, ol, dout + (size_t)bg * N * kDH, wrow0, N, lane);
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if (!STATS) {
+    const int S = gridDim.z;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= N) continue;
+      const float2* pr = part + (size_t)bg * N + row[h];
+      const size_t step = (size_t)gridDim.y * N;
+      float mx = -INFINITY;
+      for (int s = 0; s < S; ++s) mx = fmaxf(mx, pr[s * step].x);
+      float l = 0.f, d = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const float2 x = pr[s * step];
+        const float e = expf(x.x - mx);
+        l += e;
+        d = fmaf(e, x.y, d);
+      }
+      lse_r[h] = mx + logf(l);
+      delta_r[h] = d / l;
+      if (seg == 0 && col == 0) {
+        lse[(size_t)bg * N + row[h]] = lse_r[h];
+        delta[(size_t)bg * N + row[h]] = delta_r[h];
+      }
+    }
+  }
+  tc::RowStats st;
+  float dq_sum[4][4], dq_acc[4][4], dq_small[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_sum[n][e] = dq_acc[n][e] = dq_small[n][e] = 0.f;
+
+  for (int it = 0; it < kPasses * nt; ++it) {
+    if (it + 1 < kPasses * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool grad = GRAD && (!STATS || it >= nt);
+    if (STATS && GRAD && it == nt) {
+      tc::stats_fold<true, true>(st, lse_r, delta_r);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (col == 0 && row[h] < N) {
+          lse[(size_t)bg * N + row[h]] = lse_r[h];
+          delta[(size_t)bg * N + row[h]] = delta_r[h];
+        }
+    }
+    const float* sk = s_kv[it & 1][0];
+    const float* sv = s_kv[it & 1][1];
+    const int j0 = (t0 + it % nt) * kBlock;
+#pragma unroll
+    for (int c0 = 0; c0 < kBlock; c0 += 32) {
+      float s[4][4], dp[4][4];
+      product_nt<4>(qh, ql, sk, c0, off, s);
+      product_nt<4>(oh, ol, sv, c0, off, dp);
+      // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      if (!grad) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + c0 + 8 * i + col + (e & 1) >= J) s[i][e] = kNegMax;
+        tc::stats_update<true, true>(st, s, dp);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          s[i][e] = j0 + c0 + 8 * i + col + (e & 1) < J
+                        ? expf(s[i][e] - lse_r[h]) * (dp[i][e] - delta_r[h])
+                        : 0.f;
+        }
+        uint32_t ah[4], al[4];
+        mma::split_accum(ah, al, s[i]);
+        product_nn(dq_acc, dq_small, ah, al, sk, c0 + 8 * i, off);
+      }
+    }
+    if (grad && kFoldTiles) fold(dq_sum, dq_acc, dq_small);
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  if (STATS && !GRAD) {
+    tc::stats_fold<true, true>(st, lse_r, delta_r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && row[h] < N)
+        part[((size_t)seg * gridDim.y + bg) * N + row[h]] = make_float2(lse_r[h], delta_r[h]);
+  }
+  if (GRAD) {
+    fold(dq_sum, dq_acc, dq_small);
+    store_rows(dq_out + seg * seg_stride + (size_t)bg * N * kDH, dq_sum, wrow0, N, lane);
+  }
+}
+
+// Keys kernel: block (key tile, bg, row segment), warp w owns keys key0 +
+// 16 w .. + 15 (k and v as split A fragments) as the rows of its products
+// (s^T = k q^T, dp^T = v dout^T), lane (g, t) the keys g and g + 8 and, in
+// each n8 tile of query rows, the rows 2t and 2t + 1.  q, dout, lse and delta
+// stream in 64-row tiles through a two-stage ring, each tile in four 16-row
+// steps: p = exp(s - lse), ds = p (dp - delta), dv += p^T dout and dk +=
+// ds^T q over the segment's rows in row order, written to dk_out / dv_out +
+// seg * seg_stride.
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_keys_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk_out, float* __restrict__ dv_out, size_t seg_stride,
+                   int N, int J, int seg_tiles) {
+  __shared__ __align__(128) float s_qo[2][2][kTileF];  // [stage][q, dout]
+  __shared__ float s_ld[2][2][kBlock];                 // [stage][lse, delta]
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kw0 = blockIdx.x * kBlock + warp * 16;
+  const int key[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile of rows; element 1 is next
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (N + kBlock - 1) / kBlock - t0);
+  const float* qg = q + (size_t)bg * N * kDH;
+  const float* dog = dout + (size_t)bg * N * kDH;
+  auto stage = [&](int it) {
+    const int r0 = (t0 + it) * kBlock, buf = it & 1;
+    stage_pair(qg, dog, s_qo[buf][0], s_qo[buf][1], r0, N);
+    mma::cp_async_commit();
+    static_assert(kThreads == 2 * kBlock, "one thread per lse and per delta of a tile");
+    const int tr = threadIdx.x & (kBlock - 1), which = threadIdx.x >> 6;
+    const float* src = which ? delta : lse;
+    s_ld[buf][which][tr] = r0 + tr < N ? src[(size_t)bg * N + r0 + tr] : 0.f;
+  };
+  stage(0);
+
+  const Offsets off(lane);
+  uint32_t kh[4][4], kl[4][4], vh[4][4], vl[4][4];
+  load_a(kh, kl, k + (size_t)bg * J * kDH, kw0, J, lane);
+  load_a(vh, vl, v + (size_t)bg * J * kDH, kw0, J, lane);
+  float dk_sum[4][4], dv_sum[4][4], dk_acc[4][4], dv_acc[4][4], dk_small[4][4], dv_small[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dk_sum[n][e] = dv_sum[n][e] = dk_acc[n][e] = dv_acc[n][e] = dk_small[n][e] =
+          dv_small[n][e] = 0.f;
+
+  for (int it = 0; it < nt; ++it) {
+    if (it + 1 < nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int r0 = (t0 + it) * kBlock, buf = it & 1;
+    const float* sq = s_qo[buf][0];
+    const float* sdo = s_qo[buf][1];
+    const float* slse = s_ld[buf][0];
+    const float* sdl = s_ld[buf][1];
+#pragma unroll 2  // 7% faster than 1 at CMTA's chains; 4 would pass 255 registers
+    for (int rs = 0; rs < kBlock; rs += 16) {
+      float st[2][4], dpt[2][4];
+      product_nt<2>(kh, kl, sq, rs, off, st);
+      product_nt<2>(vh, vl, sdo, rs, off, dpt);
+      // st[i][2h + w]: key key[h], row r0 + rs + 8 i + col + w; -> p (in st), ds (in dpt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = rs + 8 * i + col + (e & 1);
+          float p = 0.f, ds = 0.f;
+          if (r0 + rl < N && key[e >> 1] < J) {
+            p = expf(st[i][e] - slse[rl]);
+            ds = p * (dpt[i][e] - sdl[rl]);
+          }
+          st[i][e] = p;
+          dpt[i][e] = ds;
+        }
+        uint32_t ah[4], al[4];
+        mma::split_accum(ah, al, st[i]);
+        product_nn(dv_acc, dv_small, ah, al, sdo, rs + 8 * i, off);
+        mma::split_accum(ah, al, dpt[i]);
+        product_nn(dk_acc, dk_small, ah, al, sq, rs + 8 * i, off);
+      }
+    }
+    if (kFoldTiles) {
+      fold(dk_sum, dk_acc, dk_small);
+      fold(dv_sum, dv_acc, dv_small);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  fold(dk_sum, dk_acc, dk_small);
+  fold(dv_sum, dv_acc, dv_small);
+  store_rows(dk_out + seg * seg_stride + (size_t)bg * J * kDH, dk_sum, kw0, J, lane);
+  store_rows(dv_out + seg * seg_stride + (size_t)bg * J * kDH, dv_sum, kw0, J, lane);
+}
+
+// out_o[e] = sum over s < S, in order, of part[s][o][e] (o < n_out, e < n4
+// float4s): the segments' partial sums of one or two outputs.
+__global__ void __launch_bounds__(256)
+attn_bwd_combine(const float4* __restrict__ part, int S, size_t n4, int n_out,
+                 float4* __restrict__ out0, float4* __restrict__ out1) {
+  const size_t total = n4 * n_out;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float4 a = part[e];
+    for (int s = 1; s < S; ++s) {
+      const float4 b = part[s * total + e];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    if (e < n4)
+      out0[e] = a;
+    else
+      out1[e - n4] = a;
+  }
+}
+
+// The scratch of a dh = 32 launch, in floats: the rows kernel's (lse, delta)
+// and dq partials when it cuts the keys into segments, and the keys kernel's
+// dk and dv partials when it cuts the rows.
+struct Work {
+  int rows_seg, rows_per, keys_seg, keys_per;
+  size_t stats, dq, kv, total;  // offsets and size, in floats
+};
+
+inline Work work_of(int BG, int N, int J) {
+  Work w{};
+  const int nti = (N + kBlock - 1) / kBlock, ntj = (J + kBlock - 1) / kBlock;
+  w.rows_seg = segments(nti * BG, ntj, w.rows_per);
+  w.keys_seg = segments(ntj * BG, nti, w.keys_per);
+  const size_t rows = (size_t)BG * N, keys = (size_t)BG * J;
+  w.stats = 0;
+  w.dq = w.rows_seg > 1 ? (2 * w.rows_seg * rows + 3) / 4 * 4 : 0;
+  w.kv = w.dq + (w.rows_seg > 1 ? (size_t)w.rows_seg * rows * kDH : 0);
+  w.total = w.kv + (w.keys_seg > 1 ? (size_t)w.keys_seg * 2 * keys * kDH : 0);
+  return w;
+}
+
+}  // namespace tf32
+
 namespace {
 
 struct Args {
@@ -734,7 +1188,7 @@ struct Args {
   const int* span;
   const void* dout;
   void *dq, *dk, *dv, *dbias;
-  float *lse, *delta;
+  float *lse, *delta, *work;
   int BG, N, J;
   float keep_prob, inv_keep;
   unsigned long long seed;
@@ -771,12 +1225,79 @@ cudaError_t launch_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 to the tensor-core kernels, f32 to the CUDA-core twins
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP, int DH = 64>
+template <typename K>
+cudaError_t max_shared(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The f32 dh = 32 form on the tf32 tensor cores: rows kernel (one launch, or
+// statistics then gradients over key segments), keys kernel, then the sums
+// of the segments' partials.
+cudaError_t launch_tf32(const Args& a) {
+  using tf32::kBlock;
+  using tf32::kDH;
+  using tf32::kThreads;  // not the CUDA-core twins' 256
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  float* dq = static_cast<float*>(a.dq);
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
+  const tf32::Work w = tf32::work_of(a.BG, a.N, a.J);
+  if (w.total && a.work == nullptr) return cudaErrorInvalidValue;
+  const size_t rows = (size_t)a.BG * a.N * kDH, keys = (size_t)a.BG * a.J * kDH;
+  const dim3 rows_grid((a.N + kBlock - 1) / kBlock, a.BG, w.rows_seg);
+  const dim3 keys_grid((a.J + kBlock - 1) / kBlock, a.BG, w.keys_seg);
+  float2* part = reinterpret_cast<float2*>(a.work + w.stats);
+  cudaError_t err;
+  if (w.rows_seg == 1) {
+    auto fused = tf32::attn_bwd_rows_tf32<true, true>;
+    if ((err = max_shared(fused)) != cudaSuccess) return err;
+    fused<<<rows_grid, kThreads, 0, a.stream>>>(q, k, v, dout, dq, 0, a.lse, a.delta, nullptr,
+                                                a.N, a.J, w.rows_per);
+  } else {
+    auto stats = tf32::attn_bwd_rows_tf32<true, false>;
+    auto grad = tf32::attn_bwd_rows_tf32<false, true>;
+    if ((err = max_shared(stats)) != cudaSuccess || (err = max_shared(grad)) != cudaSuccess)
+      return err;
+    stats<<<rows_grid, kThreads, 0, a.stream>>>(q, k, v, dout, nullptr, 0, a.lse, a.delta,
+                                                part, a.N, a.J, w.rows_per);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    grad<<<rows_grid, kThreads, 0, a.stream>>>(q, k, v, dout, a.work + w.dq, rows, a.lse,
+                                               a.delta, part, a.N, a.J, w.rows_per);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const bool keys_part = w.keys_seg > 1;
+  if ((err = max_shared(tf32::attn_bwd_keys_tf32)) != cudaSuccess) return err;
+  tf32::attn_bwd_keys_tf32<<<keys_grid, kThreads, 0, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, keys_part ? a.work + w.kv : dk,
+      keys_part ? a.work + w.kv + keys : dv, keys_part ? 2 * keys : 0, a.N, a.J, w.keys_per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  auto combine = [&](const float* part_sums, int S, size_t n, int n_out, float* out0,
+                     float* out1) {
+    const size_t total = n / 4 * n_out;
+    const unsigned blocks = (unsigned)std::min<size_t>((total + 255) / 256, 8 * 132);
+    tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
+        reinterpret_cast<const float4*>(part_sums), S, n / 4, n_out,
+        reinterpret_cast<float4*>(out0), reinterpret_cast<float4*>(out1));
+    return cudaGetLastError();
+  };
+  if (w.rows_seg > 1 && (err = combine(a.work + w.dq, w.rows_seg, rows, 1, dq, nullptr)) !=
+                            cudaSuccess)
+    return err;
+  if (keys_part) return combine(a.work + w.kv, w.keys_seg, keys, 2, dk, dv);
+  return cudaSuccess;
+}
+
+// bf16 to the tensor-core kernels, f32 at dh 64 to the CUDA-core twins
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
 cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
   } else {
+    constexpr int DH = 64;
     const T* q = static_cast<const T*>(a.q);
     const T* k = static_cast<const T*>(a.k);
     const T* v = static_cast<const T*>(a.v);
@@ -819,9 +1340,9 @@ cudaError_t dispatch(const Args& a) {
 extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const void* k,
                                const void* v, const void* bias, const void* span,
                                const void* dout, void* dq, void* dk, void* dv, void* dbias,
-                               void* lse, void* delta, int BG, int N, int J, int DH,
-                               float keep_prob, float inv_keep, unsigned long long seed,
-                               int device, void* stream) {
+                               void* lse, void* delta, void* work, int BG, int N, int J,
+                               int DH, float keep_prob, float inv_keep,
+                               unsigned long long seed, int device, void* stream) {
   // dh 32: the f32 form without bias, span or dropout (CMTA's Nystrom chains)
   const bool dh32 = DH == 32 && dtype == 0 && bias == nullptr && span == nullptr &&
                     !(keep_prob < 1.f);
@@ -829,9 +1350,10 @@ extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const v
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{q, k, v, bias, static_cast<const int*>(span), dout, dq, dk, dv, dbias,
-               static_cast<float*>(lse), static_cast<float*>(delta), BG, N, J, keep_prob,
-               inv_keep, seed, static_cast<cudaStream_t>(stream)};
-  if (dh32) return launch<float, false, false, false, 32>(a);
+               static_cast<float*>(lse), static_cast<float*>(delta),
+               static_cast<float*>(work), BG, N, J, keep_prob, inv_keep, seed,
+               static_cast<cudaStream_t>(stream)};
+  if (dh32) return launch_tf32(a);
   if (bias != nullptr && bias_dtype != dtype) {
     // the f32 bias (and dbias) beside bf16 q, k, v: the one form the 1-D path runs
     if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))
@@ -841,4 +1363,10 @@ extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const v
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;
+}
+
+// Floats of the scratch the dh = 32 form needs beside lse and delta (0 for
+// every other form, and for shapes whose launches cut no axis).
+extern "C" long long deform_attn_bwd_work(int BG, int N, int J, int DH) {
+  return DH == 32 ? static_cast<long long>(tf32::work_of(BG, N, J).total) : 0;
 }

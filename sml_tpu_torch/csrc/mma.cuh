@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for sm_80 and later (sm_90a here):
 // the bf16 m16n8k16 product with f32 accumulators, ldmatrix loads of its
 // operands from shared memory, 16-byte cp.async copies from device memory,
-// and the lane maps of the fragments.  Plain inline PTX, no CUTLASS / CuTe.
+// and the lane maps of the fragments; at the end, f32 products on the tf32
+// tensor cores (3xTF32).  Plain inline PTX, no CUTLASS / CuTe.
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
 // l of a warp, g = l / 4 and t = l % 4 (PTX ISA, "Matrix Fragments for
@@ -128,6 +129,82 @@ __device__ __forceinline__ void load_a_global(uint32_t (&a)[4], const __nv_bfloa
 // one chunk fall on 8 distinct 16-byte bank groups.
 __device__ __forceinline__ int swz64(int r, int chunk) {
   return r * 64 + ((chunk ^ (r & 7)) << 3);
+}
+
+// ---- f32 products on the tf32 tensor cores (3xTF32) -------------------------
+//
+// Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (PTX ISA,
+// "Matrix Fragments for mma.m16n8k8", .tf32), one 32-bit element a register,
+// lane l, g = l / 4, t = l % 4:
+//   A (16 x 8)  a[0] = (g, t)  a[1] = (g + 8, t)  a[2] = (g, t + 4)  a[3] = (g + 8, t + 4)
+//   B (8 x 8)   b0 = (k t, n g)  b1 = (k t + 4, n g)
+//   C, D        as m16n8k16: c[0], c[1] = (g, 2t), (g, 2t + 1); c[2], c[3] = row g + 8
+// A k index is only a position in the sum, so a product may give position t
+// of a lane any column of its operands as long as A and B give it the same
+// one.  Hence an accumulator is an A fragment without a shuffle
+// (split_accum): position t takes its column 2t and position t + 4 its
+// column 2t + 1, and the B fragment of that product reads its k rows 2t and
+// 2t + 1.
+//
+// An f32 x is split as x = hi + lo: hi is x rounded to tf32, lo the exact
+// rest x - hi, itself rounded to tf32 (|lo - x + hi| <= 2^-22 |x|).
+// Then a b = a_hi b_hi + a_hi b_lo + a_lo b_hi up to the dropped a_lo b_lo
+// (about 2^-22 |a b|), against about 2^-11 for one tf32 product; each
+// tf32 x tf32 product is exact in f32.
+
+// d += a b, m16n8k8, tf32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x split as hi + lo, each rounded to tf32 to nearest with ties away from
+// zero: cvt.rna.tf32.f32's rounding, here in two integer operations (ptxas
+// turns cvt.rna into a longer compare-and-select sequence on sm_90a)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// big + small += a b as three tf32 products: the small ones first (a_lo b_hi,
+// a_hi b_lo) into small, the big one (a_hi b_hi) into big; the caller adds
+// small to big in f32.  The tensor core truncates the sums it carries: apart,
+// the small terms never meet the big ones there, and the two chains run
+// independently.
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
+}
+
+// The split A fragment of an m16n8 accumulator c: k position t is its column
+// 2t, position t + 4 its column 2t + 1.
+__device__ __forceinline__ void split_accum(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                            const float (&c)[4]) {
+  split_tf32(c[0], ah[0], al[0]);
+  split_tf32(c[2], ah[1], al[1]);
+  split_tf32(c[1], ah[2], al[2]);
+  split_tf32(c[3], ah[3], al[3]);
+}
+
+// Shared-memory tiles of f32 rows of 32 (8 chunks of 16 bytes, as the bf16
+// tiles' rows of 64): chunk c / 4 of row r stored at chunk (c / 4) ^ (r % 8),
+// the swizzle of swz64 in bytes.  ldmatrix reads 8 rows at one chunk, and the
+// lanes (g, t) reading rows 2t (or 2t + 1) at column 8 n + g fall on 32
+// distinct banks.
+__device__ __forceinline__ int swz32f(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
 }
 
 }  // namespace mma

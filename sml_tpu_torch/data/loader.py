@@ -7,13 +7,17 @@ pad rows so the metrics and the loss count exactly the real samples.
 Train mode (``shuffle=True, drop_last=True``): each epoch's order is the
 permutation of ``np.random.default_rng(seed * 100003 + epoch)``, set by
 ``set_epoch``, and the last partial batch is dropped; the batches are the JAX
-Loader's.
+Loader's.  With ``workers > 0`` one thread collates the batches ahead of the
+consumer, at most ``max(2, workers)`` of them (the JAX Loader's Python
+prefetch): the same batches in the same order, only sooner.
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
 from collections import Counter
+from queue import Queue
 from typing import Dict, Iterator, List
 
 import numpy as np
@@ -35,12 +39,13 @@ class Loader:
     """Yields dict batches of stacked numpy arrays."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.workers = workers
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -73,8 +78,37 @@ class Loader:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        for chunk in self._index_batches():
-            yield self._collate(chunk)
+        batches = self._index_batches()
+        if self.workers <= 0:
+            for chunk in batches:
+                yield self._collate(chunk)
+            return
+        yield from self._threaded_iter(batches)
+
+    def _threaded_iter(self, batches: List[np.ndarray]) -> Iterator[Dict[str, np.ndarray]]:
+        """Collate on one producer thread through a bounded queue; an error
+        in the producer is raised here, in the consumer."""
+        q: Queue = Queue(maxsize=max(2, self.workers))
+        stop = object()
+
+        def producer():
+            try:
+                for chunk in batches:
+                    q.put(self._collate(chunk))
+            except BaseException as e:  # noqa: BLE001 - handed to the consumer
+                q.put(e)
+            q.put(stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+        t.join()
 
 
 class BucketedLoader(Loader):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -84,6 +85,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def build_log(name: str) -> str:
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel_usage(log: str) -> Dict[str, tuple]:
+    """(registers, spill stores in bytes) of each kernel in a ``-Xptxas -v``
+    log, by mangled name."""
+    usage, kernel, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            usage[kernel] = (int(m.group(1)), spill)
+            kernel = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

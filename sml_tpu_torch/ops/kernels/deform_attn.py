@@ -34,8 +34,8 @@ reaches device memory.  The plain versions also take an explicit {0, 1}
 What bounds both on the H100: at the deformable attention's bias form (BG=64,
 N=2500, J=144, dh=64, bf16) bytes, the bias stream (the forward moves about
 89 MB: 27 us at 3.35 TB/s); at the Nystrom chains (no bias, J or N of 2560 or
-4352) operations, about 4*dh FLOP per pair forward and 10*dh backward
-against q, k, v and out read or written once.
+4352, or CMTA's 128 landmarks against 2560) operations, about 4*dh FLOP per
+pair forward and 10*dh backward against q, k, v and out read or written once.
 
 What the designs do about it: every input byte is read once and the
 (BG, N, J) chain never leaves the SM in either direction.  K and V stream
@@ -43,17 +43,23 @@ through shared memory in key tiles, so J has no limit.  The forward runs one
 block per (bg, 64 query rows) and walks the key tiles twice: each row's
 log-sum-exp, then p = exp(s - lse) * m rounded to bf16 and out += p v; the
 backward splits into a rows kernel (two passes over the key tiles: each row's
-log-sum-exp and delta = sum_j p dp, then dq and dbias) and a keys kernel that
-recomputes ds from them and sums dk and dv over all rows inside one block, so
-it needs no atomics, no partial sums and no (BG, N, J) scratch (see the
+log-sum-exp and delta = sum_j p dp, then ds = p (dp - delta) for each pair,
+dq and dbias) and a keys kernel that recomputes ds from them and sums dk and
+dv over the rows, so it needs no atomics and no (BG, N, J) scratch (see the
 source notes).  Ragged row and key tiles are masked in the kernels.  In bf16
 every product of both runs on the tensor cores (warp-level ``mma.sync``,
 ``csrc/mma.cuh``), and the forward's first pass is the backward rows kernel's
 own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
 checked bit for bit on the card: the forward returns no lse); the f32
-forms keep CUDA-core twins (the forward one warp per row with an online
-softmax), the exact-arithmetic reference on the card, which are also the
-dh = 32 kernels.
+forms at dh = 64, and the f32 dh = 32 forward, keep CUDA-core twins (the
+forward one warp per row with an online softmax), the exact-arithmetic
+reference on the card.  The f32 dh = 32 backward runs on the tf32 tensor
+cores, each f32 product as three tf32 products (3xTF32: operands split into
+hi + lo), each tile's tensor-core sums folded into f32 registers; where one
+side of the chain is thin (CMTA's 128 landmarks) the long axis is cut into
+segments whose partial sums go to an f32 scratch that this wrapper
+allocates (``deform_attn_bwd_work`` gives its size) and are added in segment
+order, so the result still repeats bit for bit.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -86,9 +92,11 @@ def _library(name: str):
             lib.deform_attn_fwd.restype = ctypes.c_int
         else:
             lib.deform_attn_bwd.argtypes = (
-                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_bwd.restype = ctypes.c_int
+            lib.deform_attn_bwd_work.argtypes = [ctypes.c_int] * 4
+            lib.deform_attn_bwd_work.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
 
@@ -306,6 +314,9 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
     dbias = None if bias is None else torch.empty_like(bias)
     stats = torch.empty((2, bg, n), dtype=torch.float32, device=q.device)  # lse, delta
     lib = _library("deform_attn_bwd")
+    # the dh = 32 kernels' partial sums over segments of a long axis
+    n_work = lib.deform_attn_bwd_work(bg, n, j, dh)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device) if n_work else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -313,9 +324,9 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
                                  k.data_ptr(), v.data_ptr(), ptr(bias), ptr(span),
                                  dout.data_ptr(),
                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(dbias),
-                                 stats[0].data_ptr(), stats[1].data_ptr(), bg, n, j, dh,
-                                 keep_prob, 1.0 / keep_prob, seed, q.device.index,
-                                 stream)
+                                 stats[0].data_ptr(), stats[1].data_ptr(), ptr(work),
+                                 bg, n, j, dh, keep_prob, 1.0 / keep_prob, seed,
+                                 q.device.index, stream)
     _build.check(rc, "deform_attention_bwd")
     _count(deform_attention_bwd, q, bias, span, keep_prob)
     return dq, dk, dv, dbias

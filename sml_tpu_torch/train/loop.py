@@ -2,7 +2,9 @@
 ``_is_better`` and ``train`` in their single-device, per-step form).
 
 With ``bucket_sizes`` set, the loaders are ``BucketedLoader``s (one bucket per
-batch).  Per epoch: the seeded shuffled train batches, one train step each, then Test
+batch); ``workers > 0`` collates the train batches on a thread ahead of the
+step.  ``reload`` and ``eval_every_iters > 0`` need checkpoint and resume,
+which are not ported yet: they raise before anything is written.  Per epoch: the seeded shuffled train batches, one train step each, then Test
 and Val evaluation, the ``epoch i/n val=... test=...`` line, and best-on-val
 weights written as ``<checkpoints>/best_modal.npz`` (the flattened flax
 parameter tree and the BatchNorms' ``batch_stats``, which ``python -m
@@ -33,6 +35,12 @@ from sml_tpu_torch.train.steps import make_eval_step, make_train_step
 
 def setup(config: Config, device: str | torch.device = "cuda"):
     """(state, train_step, eval_step, (train_loader, val_loader, test_loader))."""
+    if config.reload:
+        raise NotImplementedError("reload (train from <checkpoints>/best_modal) is not "
+                                  "ported yet")
+    if config.eval_every_iters > 0:
+        raise NotImplementedError("eval_every_iters (evaluation inside an epoch) is not "
+                                  "ported yet")
     device = resolve_device(device)
     if device.type == "cuda":
         # f32 products and convolutions in full f32, as on the CPU
@@ -42,7 +50,8 @@ def setup(config: Config, device: str | torch.device = "cuda"):
     # padding exact
     loader_cls = BucketedLoader if config.bucket_list() else Loader
     train_loader = loader_cls(build_datasets(config, "Train"), config.batch_size,
-                              shuffle=True, drop_last=True, seed=config.seed)
+                              shuffle=True, drop_last=True, seed=config.seed,
+                              workers=config.workers)
     test_loader = loader_cls(build_datasets(config, "Test"), config.batch_size)
     val_loader = (None if config.novalset
                   else loader_cls(build_datasets(config, "Val"), config.batch_size))
@@ -70,9 +79,9 @@ def save_weights(model: torch.nn.Module, path: str) -> None:
 def train(config: Config, device: str | torch.device = "cuda"
           ) -> Tuple[TrainState, Dict[str, float]]:
     """Train ``config.epochs`` epochs; returns (state, best val metrics + epoch)."""
-    os.makedirs(config.checkpoints, exist_ok=True)
     state, train_step, eval_step, (train_loader, val_loader, test_loader) = setup(
         config, device)
+    os.makedirs(config.checkpoints, exist_ok=True)
     dev = next(state.model.parameters()).device
     best: Dict[str, float] = {}
     start = time.time()

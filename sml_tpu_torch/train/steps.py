@@ -80,7 +80,9 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
     model's hazards and S for mcat and cmta, else from the logits).
     ``mode=cmta`` adds the alignment term; ``mode=deformpathomic`` adds, with
     ``return_vgrid``, the mean of the two branches' batch-similarity losses.
-    (``batchloss_grad_scale`` only rescales the gradient, not this value.)"""
+    With ``batchloss_grad_scale='ddp'`` that term keeps its full value and its
+    gradient is scaled by 1/w, w = ``max(num_devices, 1)`` (one card when
+    ``num_devices`` is 0): the reference's GatherLayer over w processes."""
     if config.task_type == "survival":
         hazards, s = _hazards_and_s(config, out)
         loss3 = _survival_loss(config, hazards, s, labels, sample_mask)
@@ -98,8 +100,12 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
                                            sample_mask=sample_mask,
                                            layout=config.batchloss_layout)
               for b in ("tumor", "immune")]
-        aux["batch_sim_loss"] = 0.5 * bs[0] + 0.5 * bs[1]
-        total = loss3 + aux["batch_sim_loss"]
+        batch_sim = 0.5 * bs[0] + 0.5 * bs[1]
+        if config.batchloss_grad_scale == "ddp":
+            w = max(config.num_devices, 1)
+            batch_sim = batch_sim / w + (batch_sim * (1.0 - 1.0 / w)).detach()
+        aux["batch_sim_loss"] = batch_sim
+        total = loss3 + batch_sim
     return total, aux
 
 
