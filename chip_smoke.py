@@ -95,21 +95,23 @@ TransLayers of 8 heads x 32 with 128 landmarks), whose two Nystrom chains per
 TransLayer of its two TransformerP (4 layers) run the f32 dh = 32 form of the
 attention kernels:
 
-15. cmta-kernels  the registers of the dh = 32 backward's kernels (3xTF32
-            on the tensor cores), then the dh = 32 forward and backward at
-            chain 3 (128 landmark rows x 2560 keys) and chain 1 (2560 rows x
-            128 landmark keys) of a 2500-patch bag (BG = 64), at both chains
-            of the bucketed bags (1152 and 4224 tokens) and at the ragged
-            (N, J) of phase 3 and their transposes, against their plain
-            versions (KERNEL_TOL and GRAD_RTOL in f32; the backward's largest
-            error of each gradient's max also beside DH32_ERR_AIM, and both
-            the kernel's and the plain version's against float64), repeated
-            bit for bit; at the chains timed beside the plain version and
-            F.scaled_dot_product_attention in f32, the backward's rows, keys
-            and combine kernels timed apart (also at the bucketed chains),
-            its bound on the CUDA cores and at 3xTF32; every other dh = 32
-            form (bf16, a bias, a span, dropout) must raise in the wrapper
-            and be refused by the C entries;
+15. cmta-kernels  the registers of the dh = 32 kernels (3xTF32 on the
+            tensor cores), then the dh = 32 forward and backward at chain 3
+            (128 landmark rows x 2560 keys) and chain 1 (2560 rows x 128
+            landmark keys) of a 2500-patch bag (BG = 64), at both chains of
+            the bucketed bags (1152 and 4224 tokens) and at the ragged (N, J)
+            of phase 3 and their transposes, against their plain versions
+            (KERNEL_TOL and GRAD_RTOL in f32; the backward's largest error of
+            each gradient's max also beside DH32_ERR_AIM; the kernel's and
+            the plain version's errors against float64), repeated bit for
+            bit; the forward's lse against the backward's, bit for bit
+            (``lse_equal_bwd``); at the chains and the bucketed chains timed
+            beside the plain version and F.scaled_dot_product_attention in
+            f32, the forward's stats, out and combine kernels and the
+            backward's rows, keys and combine kernels timed apart, each
+            bound on the CUDA cores and at 3xTF32; every other dh = 32 form
+            (bf16, a bias, a span, dropout) must raise in the wrapper and be
+            refused by the C entries;
 16. cmta    ``inference.main`` and ``main.main`` at 2500 patches (B = 8, f32):
             exactly 8 dh = 32 forward launches per eval batch, 8 forward and 8
             backward per train step, finite losses and C-index, one batch and
@@ -840,7 +842,7 @@ def _refusals() -> dict:
         code = 1 if form == "bf16" else 0
         ptr = lambda t: None if t is None else t.data_ptr()
         rc_fwd = fwd_lib.deform_attn_fwd(code, code, qq.data_ptr(), kk.data_ptr(),
-                                         vv.data_ptr(), ptr(b), ptr(sp), do.data_ptr(),
+                                         vv.data_ptr(), ptr(b), ptr(sp), do.data_ptr(), None,
                                          BG, n, j, CMTA_DH, keep_prob, 1.0 / keep_prob, SEED,
                                          q.device.index, stream)
         rc_bwd = bwd_lib.deform_attn_bwd(code, code, qq.data_ptr(), kk.data_ptr(),
@@ -872,9 +874,31 @@ def _bwd_f64(q, k, v, dout):
             torch.einsum("bnj,bnd->bjd", p, dout))
 
 
-def _bwd_parts_ms(fn, iters: int = 10) -> dict:
-    """Device ms per call of the dh = 32 backward's kernels by role (rows,
-    keys, combine), from torch.profiler over ``iters`` calls."""
+def _fwd_f64(q, k, v):
+    """The bias-less attention without span or dropout in float64."""
+    q, k, v = (t.double() for t in (q, k, v))
+    return torch.einsum("bnj,bjd->bnd", torch.softmax(torch.einsum("bnd,bjd->bnj", q, k),
+                                                      dim=-1), v)
+
+
+# the roles of the dh = 32 kernels in a profiler's (demangled) kernel names:
+# the forward's statistics, outputs (both in one launch with one key segment)
+# and the backward's rows and keys, and the sum of the segments' partials
+FWD_ROLES = {"true, false": "stats", "false, true": "out", "true, true": "stats_out"}
+
+
+def _dh32_role(name: str):
+    m = re.search(r"attn_fwd_tf32<(\w+), ?(\w+)>", name)
+    if m:
+        return FWD_ROLES[f"{m.group(1)}, {m.group(2)}"]
+    m = re.search(r"attn_bwd_(rows|keys|combine)", name)
+    return m.group(1) if m else None
+
+
+def _parts_ms(fn, iters: int = 10) -> dict:
+    """Device ms per call of a dh = 32 wrapper's kernels by role (the
+    forward's stats, out and combine; the backward's rows, keys and combine),
+    from torch.profiler over ``iters`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -886,19 +910,49 @@ def _bwd_parts_ms(fn, iters: int = 10) -> dict:
         torch.cuda.synchronize()
     ms = {}
     for e in prof.key_averages():
-        m = re.search(r"attn_bwd_(rows|keys|combine)", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and m:
-            ms[m.group(1)] = ms.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / iters
+        role = _dh32_role(e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and role:
+            ms[role] = ms.get(role, 0.0) + e.self_device_time_total / 1e3 / iters
     return ms
 
 
+def _lse_fwd_bwd(q, k, v, dout):
+    """Each row's lse as the dh = 32 forward leaves it in its scratch and as
+    the backward's rows kernel writes it, by their C entries (the wrappers
+    return neither); (BG, N) f32 each."""
+    from sml_tpu_torch.ops.kernels.deform_attn import _library
+
+    bg, n, dh = q.shape
+    j = k.shape[1]
+    fwd_lib, bwd_lib = _library("deform_attn"), _library("deform_attn_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+    work = torch.empty(fwd_lib.deform_attn_fwd_work(bg, n, j, dh), device="cuda")
+    n_bwd = bwd_lib.deform_attn_bwd_work(bg, n, j, dh)
+    bwd_work = torch.empty(n_bwd, device="cuda") if n_bwd else None
+    stats = torch.empty(2, bg, n, device="cuda")
+    out, grads = torch.empty_like(q), [torch.empty_like(t) for t in (q, k, v)]
+    rc = [fwd_lib.deform_attn_fwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                                  out.data_ptr(), work.data_ptr(), bg, n, j, dh, 1.0, 1.0, 0,
+                                  q.device.index, stream),
+          bwd_lib.deform_attn_bwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                                  dout.data_ptr(), *(t.data_ptr() for t in grads), None,
+                                  stats[0].data_ptr(), stats[1].data_ptr(),
+                                  None if bwd_work is None else bwd_work.data_ptr(),
+                                  bg, n, j, dh, 1.0, 1.0, 0, q.device.index, stream)]
+    if any(rc):
+        raise RuntimeError(f"dh = 32 C entries returned {rc}")
+    torch.cuda.synchronize()
+    return work[:bg * n].view(bg, n), stats[0]
+
+
 def _tf32_usage() -> list:
-    """Registers and spill stores of the dh = 32 backward's kernels (ptxas)."""
+    """Registers and spill stores of the dh = 32 kernels (ptxas)."""
     from sml_tpu_torch.ops.kernels import _build
 
     return [{"kernel": name, "registers": regs, "spill_stores": spill}
-            for name, (regs, spill) in _build.kernel_usage(
-                _build.build_log("deform_attn_bwd")).items() if "tf32" in name]
+            for src in ("deform_attn", "deform_attn_bwd")
+            for name, (regs, spill) in _build.kernel_usage(_build.build_log(src)).items()
+            if "tf32" in name]
 
 
 def phase_cmta_kernels() -> dict:
@@ -907,13 +961,15 @@ def phase_cmta_kernels() -> dict:
     both chains of the bucketed bags (1152 and 4224 tokens) and at the ragged
     (N, J) of phase 3 and their transposes, against their plain versions,
     repeated bit for bit; the backward's largest error of each gradient's
-    scale beside DH32_ERR_AIM; at the chains the forward and backward timed
-    beside the plain versions and F.scaled_dot_product_attention in f32
-    without a mask, and the backward's rows, keys and combine kernels apart
-    (also at the bucketed chains); the backward's bound on the CUDA cores and
-    at 3xTF32 on the tf32 tensor cores; the registers of its kernels; then
-    the refusals of every other dh = 32 form.  Returns the chains' entries by
-    (name, chain)."""
+    scale beside DH32_ERR_AIM; the kernels' and the plain versions' errors
+    against float64; the forward's lse against the backward's; at the chains
+    and the bucketed chains both timed beside the plain versions and
+    F.scaled_dot_product_attention in f32 without a mask, their kernels by
+    role apart (the forward's stats, out and combine; the backward's rows,
+    keys and combine), each bound on the CUDA cores and at 3xTF32 on the
+    tf32 tensor cores; the registers of the tf32 kernels; then the refusals
+    of every other dh = 32 form.  Returns the chains' entries by (name,
+    chain)."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
                                            deform_attention_fwd, deform_attention_fwd_plain)
 
@@ -929,14 +985,24 @@ def phase_cmta_kernels() -> dict:
         q = torch.randn(BG, n, dh, device="cuda", generator=g) * dh ** -0.5
         k, v = torch.randn(2, BG, j, dh, device="cuda", generator=g)
         dout = torch.randn(BG, n, dh, device="cuda", generator=g) * 1e-2
-        timed, parts_timed = chain in ("chain3", "chain1"), chain != "ragged"
+        timed = chain != "ragged"
         pairs = BG * n * j
         fwd = lambda: (deform_attention_fwd(q, k, v),)
         out = fwd()
         torch.cuda.synchronize()
         plain = deform_attention_fwd_plain(q, k, v)
+        exact = _fwd_f64(q, k, v)
+        lse_fwd, lse_bwd = _lse_fwd_bwd(q, k, v, dout)
         fwd_e = {"name": "deform_attention_fwd_dh32", "pass": "fwd",
-                 **_compare_fwd(out[0], plain), "repeats": _repeats(fwd, out)}
+                 **_compare_fwd(out[0], plain), "repeats": _repeats(fwd, out),
+                 "max_err_f64": (out[0].double() - exact).abs().max().item(),
+                 "plain_err_f64": (plain.double() - exact).abs().max().item(),
+                 # the same walk, sums and order: equal by construction
+                 "lse_equal_bwd": torch.equal(lse_fwd, lse_bwd)}
+        if not fwd_e["lse_equal_bwd"]:
+            fwd_e["lse_ulps"] = (lse_fwd.view(torch.int32).long()
+                                 - lse_bwd.view(torch.int32).long()).abs().max().item()
+        del exact, lse_fwd, lse_bwd
         bwd = lambda: deform_attention_bwd(q, k, v, None, dout)
         got = bwd()
         torch.cuda.synchronize()
@@ -955,30 +1021,28 @@ def phase_cmta_kernels() -> dict:
         del exact
         if got[3] is not None:
             failures.append("the dh = 32 backward returned a bias gradient")
-        bwd_bytes = size * (3 * BG * n * dh + 4 * BG * j * dh)
-        if parts_timed:
-            bwd_e.update(ms=_time_ms(bwd), parts_ms=_bwd_parts_ms(bwd))
-            # 3xTF32: three tf32 products for each of the five f32 products
-            bwd_e["bound_3xtf32_ms"] = max(bwd_bytes / HBM_BYTES_PER_S,
-                                           3 * 10 * dh * pairs / PEAK_TF32) * 1e3
         if timed:
             lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, None)
-            bound_ms, bound_by = _bound(size * (2 * BG * n * dh + 2 * BG * j * dh),
-                                        4 * dh * pairs, f32)
-            fwd_e.update(ms=_time_ms(lambda: deform_attention_fwd(q, k, v)),
-                         plain_ms=_time_ms(lambda: deform_attention_fwd_plain(q, k, v),
-                                           iters=5),
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_fwd)
-            bound_ms, bound_by = _bound(bwd_bytes, 10 * dh * pairs, f32)
-            bwd_e.update(plain_ms=_time_ms(lambda: deform_attention_bwd_plain(
-                             q, k, v, None, dout), iters=5),
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_bwd)
+            # (entry, bytes, f32 products of 2 dh FLOP a pair, plain, library)
+            for e, n_bytes, products, plain_fn, lib_ms in (
+                    (fwd_e, size * (2 * BG * n * dh + 2 * BG * j * dh), 2,
+                     lambda: deform_attention_fwd_plain(q, k, v), lib_fwd),
+                    (bwd_e, size * (3 * BG * n * dh + 4 * BG * j * dh), 5,
+                     lambda: deform_attention_bwd_plain(q, k, v, None, dout), lib_bwd)):
+                run = fwd if e is fwd_e else bwd
+                bound_ms, bound_by = _bound(n_bytes, 2 * products * dh * pairs, f32)
+                e.update(ms=_time_ms(run), parts_ms=_parts_ms(run),
+                         plain_ms=_time_ms(plain_fn, iters=5), bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms,
+                         # 3xTF32: three tf32 products for each f32 product
+                         bound_3xtf32_ms=max(n_bytes / HBM_BYTES_PER_S,
+                                             3 * 2 * products * dh * pairs / PEAK_TF32) * 1e3)
         for e in (fwd_e, bwd_e):
             e.update(chain=chain, dtype="float32", dh=dh, bg=BG, n=n, j=j)
             _line("cmta-kernels", **e)
             if not (e["ok"] and e["repeats"]):
                 failures.append(f"{e['pass']} {chain} N={n} J={j}")
-            if timed:
+            if chain in ("chain3", "chain1"):
                 entries[(e["name"], chain)] = e
         del q, k, v, dout, out, plain, got, want
         torch.cuda.empty_cache()
@@ -1496,17 +1560,17 @@ F32_BIAS_KERNELS = (
      f"{PALLAS}:1044", "deform_attention_bwd_f32bias", "deform-1d"),
 )
 # the dh = 32 forms of CMTA's chains: (entry name, source, replaces, launch-count
-# key, design; the run whose counts they report is the cmta train run).  The
-# forward runs on the CUDA cores (the f32 twin: fused multiply-adds), the
-# backward on the tf32 tensor cores, three products for each f32 one
+# key, design; the run whose counts they report is the cmta train run).  Both
+# run on the tf32 tensor cores, three products for each f32 one
 DH32_KERNELS = (
     ("deform_attention_fwd_dh32", "sml_tpu_torch/csrc/deform_attn.cu", f"{PALLAS}:1016",
-     "deform_attention_fwd_dh32", "CUDA-core"),
+     "deform_attention_fwd_dh32", "3xTF32 mma.sync"),
     ("deform_attention_bwd_dh32", "sml_tpu_torch/csrc/deform_attn_bwd.cu", f"{PALLAS}:1044",
      "deform_attention_bwd_dh32", "3xTF32 mma.sync"),
 )
 _TIMES = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-_DH32_BWD = ("parts_ms", "bound_3xtf32_ms", "max_err_of_scale", "max_err_of_scale_f64")
+_DH32 = ("parts_ms", "bound_3xtf32_ms", "max_err_of_scale", "max_err_of_scale_f64",
+         "max_err_f64", "plain_err_f64", "lse_equal_bwd")
 # the bf16 entries run on the tensor cores (csrc/mma.cuh)
 DESIGN_BF16 = "mma.sync"
 
@@ -1581,9 +1645,9 @@ def main() -> int:
                         "design": design,
                         "launches_cmta_serving": cmta_serving.get(count, 0),
                         "shape": f"f32 dh=32, chain 3: BG={BG} N={e['n']} J={e['j']}",
-                        **{k: e[k] for k in _DH32_BWD if k in e},
+                        **{k: e[k] for k in _DH32 if k in e},
                         "chain1": {"shape": f"f32 dh=32, BG={BG} N={e1['n']} J={e1['j']}",
-                                   **{k: e1[k] for k in _TIMES + _DH32_BWD if k in e1}}})
+                                   **{k: e1[k] for k in _TIMES + _DH32 if k in e1}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

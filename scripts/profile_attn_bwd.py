@@ -3,7 +3,7 @@
 
     python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
                                         [--dtype bfloat16|float32]
-                                        [--variant nofold|onechain]
+                                        [--variant nofold|onechain|unrolled]
 
 Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
 the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
@@ -23,16 +23,19 @@ the plain version relative to that tensor's max, a digest of the gradients'
 bits (equal digests of two trees: equal results), and the device time per
 launch of the rows and keys kernels under ``torch.profiler`` (mean of
 ``--iters`` launches).  In f32 both passes also run CMTA's two chains on the
-dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), whose backward runs on
-the tf32 tensor cores: its rows, keys and combine kernels are timed apart.
+dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), which runs on the tf32
+tensor cores in both directions: the backward's rows, keys and combine
+kernels are timed apart.
 Its lines also give the largest gradient error of each gradient's max
 against float64, of the kernel and of the f32 plain version.  Two variants,
 built from a copy of the sources, measure what the design does to that
 error: ``--variant nofold`` keeps one tensor-core accumulator over each whole
 walk instead of one per tile folded into an f32 sum (``kFoldTiles`` in
-``deform_attn_bwd.cu``); ``--variant onechain`` sums the three tf32 products
-of each f32 product in one accumulator instead of the big one apart from the
-two small ones (``mma_3xtf32`` in ``mma.cuh``).  One line per item, prefixed
+``attn_tf32.cuh``); ``--variant onechain`` sums the three tf32 products of
+each f32 product in one accumulator instead of the big one apart from the
+two small ones (``mma_3xtf32`` in ``mma.cuh``); ``--variant unrolled``
+unrolls the two 32-key halves of the shared statistics walk (``stats_tile``
+in ``attn_tf32.cuh``), to show its registers and spills.  One line per item, prefixed
 with ``--tag``, so that runs of two trees can be told apart.
 """
 
@@ -78,16 +81,19 @@ BWD_CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144
              "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
 # the variants of the dh = 32 backward: (file, its text, the variant's)
 VARIANTS = {
-    "nofold": ("deform_attn_bwd.cu", "constexpr bool kFoldTiles = true;",
+    "nofold": ("attn_tf32.cuh", "constexpr bool kFoldTiles = true;",
                "constexpr bool kFoldTiles = false;"),
     "onechain": ("mma.cuh", "mma_tf32(small, al, bh0, bh1);\n  mma_tf32(small, ah, bl0, bl1);",
                  "mma_tf32(big, al, bh0, bh1);\n  mma_tf32(big, ah, bl0, bl1);"),
+    "unrolled": ("attn_tf32.cuh", "#pragma unroll 1\n  for (int c0 = 0; c0 < kBlock; c0 += 32)",
+                 "#pragma unroll\n  for (int c0 = 0; c0 < kBlock; c0 += 32)"),
 }
 # f32 only: CMTA's chains on the dh = 32 form, name: (N, J)
 DH32_CASES = {"ch3_dh32_s2500": (128, 2560), "ch1_dh32_s2500": (2560, 128)}
 KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn_fwd_kernel"
                     r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
-TF32 = re.compile(r"(attn_bwd_rows_tf32|attn_bwd_keys_tf32|attn_bwd_combine)(?:ILb(\d)ELb(\d)E)?")
+TF32 = re.compile(r"(attn_fwd_tf32|attn_bwd_rows_tf32|attn_bwd_keys_tf32|attn_bwd_combine)"
+                  r"(?:ILb(\d)ELb(\d)E)?")
 # device-time roles of the backward's kernels
 ROLE = re.compile(r"attn_bwd_((rows|keys)_(tc|kernel|tf32)|combine)")
 
@@ -101,7 +107,8 @@ def _kernel_name(mangled: str) -> str:
         return (f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
                 + (f" dh={dh.group(1)}" if dh else ""))
     if t:
-        return t.group(1) + (f" stats={t.group(2)} grad={t.group(3)}" if t.group(2) else "")
+        second = "out" if t.group(1) == "attn_fwd_tf32" else "grad"
+        return t.group(1) + (f" stats={t.group(2)} {second}={t.group(3)}" if t.group(2) else "")
     return mangled
 
 
@@ -128,8 +135,8 @@ def _sass_counts(lib: Path) -> dict:
 def ptxas(tag: str) -> None:
     """Registers and spill stores of every kernel instantiation, and for the
     tf32 kernels their SASS instructions beside their HMMA."""
-    sass = _sass_counts(_build.library_path("deform_attn_bwd"))
     for src in SOURCES:
+        sass = _sass_counts(_build.library_path(src))
         for mangled, (regs, spill) in _build.kernel_usage(_build.build_log(src)).items():
             line = {"tag": tag, "kernel": _kernel_name(mangled), "registers": regs,
                     "spill_stores": spill}

@@ -37,29 +37,6 @@ __device__ __forceinline__ void store2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
 }
 
-// C consecutive floats (C = 1 or 2, aligned to C floats) as one access: a
-// lane's DH / 32 columns of the forward's output row (1 at dh 32, 2 at dh 64)
-template <int C>
-__device__ __forceinline__ void load_cols(const float* p, float (&f)[C]) {
-  if constexpr (C == 2) {
-    const float2 v = load2(p);
-    f[0] = v.x;
-    f[1] = v.y;
-  } else {
-    static_assert(C == 1, "1 or 2 columns");
-    f[0] = *p;
-  }
-}
-template <int C>
-__device__ __forceinline__ void store_cols(float* p, const float (&f)[C]) {
-  if constexpr (C == 2) {
-    store2(p, make_float2(f[0], f[1]));
-  } else {
-    static_assert(C == 1, "1 or 2 columns");
-    *p = f[0];
-  }
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

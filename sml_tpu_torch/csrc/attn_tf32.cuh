@@ -1,0 +1,274 @@
+// The f32 dh = 32 pieces on the tf32 tensor cores (3xTF32), shared by the
+// attention forward (deform_attn.cu, tf32::attn_fwd_tf32) and backward
+// (deform_attn_bwd.cu, tf32::attn_bwd_rows_tf32 / attn_bwd_keys_tf32): the
+// f32 form without bias, span or dropout that CMTA's Nystrom chains run (8
+// heads of 32, 128 landmarks against 2560 tokens).
+//
+// The layout of the bf16 kernels (attn_tc.cuh): four warps, each owning 16
+// rows (or keys) whose operand sits in split A fragments in registers
+// (load_a); the streamed operand comes through a two-stage cp.async ring of
+// swizzled 64 x 32 f32 tiles (stage_pair, stage_tile), read by ldmatrix
+// (product_nt) or at each lane's precomputed offsets (product_nn, Offsets).
+// Every product is three tf32 mma.sync m16n8k8 (mma.cuh, mma_3xtf32), each
+// tile's tensor-core sums folded into an f32 register sum (fold,
+// kFoldTiles).  A thin side's long axis is cut into segments (segments),
+// whose partial sums go to an f32 scratch and are added in segment order by
+// attn_bwd_combine.
+//
+// The rows kernels' statistics walk is one code for both directions: per
+// key tile s = q k^T, the key tail at -f32max, the running max and sum of
+// exp (and, in the backward, of exp * dp) (stats_tile), folded over the lane
+// quad by tc::stats_fold, and the segments' (lse, delta) merged in segment
+// order (merge_segments).  So the forward's lse is the backward's: the same
+// code, the same sums in the same order.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attn_tc.cuh"
+#include "mma.cuh"
+
+namespace tf32 {
+
+using tc::kBlock;
+using tc::kThreads;
+constexpr int kDH = 32;
+constexpr int kTileF = kBlock * kDH;  // floats of one swizzled 64 x 32 tile
+// Blocks a launch aims at (about 8 per SM of 132): the long axis of a thin
+// side is cut into as many segments as take its grid there, at most
+// kMaxSegments (which bounds the scratch).
+constexpr int kTargetBlocks = 1024;
+constexpr int kMaxSegments = 32;
+// Fold each tile's tensor-core sum into an f32 register sum: the tensor core
+// then chains at most one tile's 8 k-steps (x 3 products) of a long sum.
+// false keeps one accumulator for the whole walk (the control measured in
+// PERF.md, built by scripts/profile_attn_bwd.py --variant nofold).
+constexpr bool kFoldTiles = true;
+// Segments of a walk of `tiles` tiles for a grid of `base` blocks, each
+// segment `per` tiles (the last may be shorter).
+inline int segments(int base, int tiles, int& per) {
+  int s = (kTargetBlocks + base - 1) / base;
+  s = s < tiles ? s : tiles;
+  s = s < kMaxSegments ? s : kMaxSegments;
+  per = (tiles + s - 1) / s;
+  return (tiles + per - 1) / per;
+}
+
+// Stage rows [r0, r0 + kBlock) of two (n, 32) f32 matrices a and b in the
+// swizzled tiles sa and sb by cp.async, rows >= n zero-filled.
+__device__ __forceinline__ void stage_pair(const float* a, const float* b, float* sa,
+                                           float* sb, int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH + 4 * c;
+    const int at = mma::swz32f(r, 4 * c);
+    mma::cp_async16(mma::smem_u32(sa + at), a + off, ok);
+    mma::cp_async16(mma::smem_u32(sb + at), b + off, ok);
+  }
+}
+
+// The split A fragments (4 k-steps of 8 columns) of rows r0 .. r0 + 15 of an
+// (n, 32) f32 matrix in device memory; rows >= n give 0.
+__device__ __forceinline__ void load_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                       const float* m, int r0, int n, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (lane >> 2) + 8 * (e & 1);
+      const int c = 8 * ks + (lane & 3) + 4 * (e >> 1);
+      mma::split_tf32(r < n ? m[(size_t)r * kDH + c] : 0.f, hi[ks][e], lo[ks][e]);
+    }
+}
+
+// Each lane's byte offsets in a swizzled 64 x 32 f32 tile (mma::swz32f) of
+// the B fragments it reads, fixed for the kernel: rows n0 + 8 i + k of a tile
+// start 128 (n0 + 8 i) bytes further on, because n0 + 8 i is a multiple of 8.
+struct Offsets {
+  uint32_t nt[2];     // product_nt: ldmatrix row of chunks 4 kp + lane / 8
+  uint32_t nn[4][2];  // product_nn: n tile nt, rows 2t (w 0) and 2t + 1 (w 1)
+  __device__ explicit Offsets(int lane) {
+    const int r = lane & 7;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) nt[kp] = 4 * mma::swz32f(r, 4 * (4 * kp + (lane >> 3)));
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        nn[n][w] = 4 * mma::swz32f(2 * (lane & 3) + w, 8 * n + (lane >> 2));
+  }
+};
+
+// acc[i] (16 x 8) = A X^T over the rows n0 + 8 i .. + 7 of the swizzled tile
+// x (the n of the product), i < NI; A (16 x 32) split as 4 k-steps.  B by
+// ldmatrix: the 32-bit word t of row g of a 16-byte chunk is B's (k t, n g).
+template <int NI>
+__device__ __forceinline__ void product_nt(const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4],
+                                           const float* x, int n0, const Offsets& off,
+                                           float (&acc)[NI][4]) {
+  float small[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = small[i][e] = 0.f;
+  const uint32_t base = mma::smem_u32(x) + 128 * n0;
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      uint32_t b[4];  // b0, b1 of k-steps 2 kp and 2 kp + 1
+      mma::ldmatrix_x4(b, base + 1024 * i + off.nt[kp]);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bh0, bl0, bh1, bl1;
+        mma::split_tf32(__uint_as_float(b[2 * kk]), bh0, bl0);
+        mma::split_tf32(__uint_as_float(b[2 * kk + 1]), bh1, bl1);
+        mma::mma_3xtf32(acc[i], small[i], ah[2 * kp + kk], al[2 * kp + kk], bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e];
+}
+
+// acc + small (16 x 32) += A X over the 8 rows k0 .. k0 + 7 of the swizzled
+// tile x (the k of the product), k0 a multiple of 8; A the split accumulator
+// of the previous product (mma::split_accum), so B's k positions t and t + 4
+// are rows k0 + 2t and k0 + 2t + 1.
+__device__ __forceinline__ void product_nn(float (&acc)[4][4], float (&small)[4][4],
+                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const float* x, int k0, const Offsets& off) {
+  const char* base = reinterpret_cast<const char*>(x + 32 * k0);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    uint32_t bh0, bl0, bh1, bl1;
+    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][0]), bh0, bl0);
+    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][1]), bh1, bl1);
+    mma::mma_3xtf32(acc[nt], small[nt], ah, al, bh0, bh1, bl0, bl1);
+  }
+}
+
+// sum += acc + small, acc = small = 0: the f32 register sum of the per-tile
+// accumulators
+__device__ __forceinline__ void fold(float (&sum)[4][4], float (&acc)[4][4],
+                                     float (&small)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sum[n][e] += acc[n][e] + small[n][e];
+      acc[n][e] = small[n][e] = 0.f;
+    }
+}
+
+// The (16 x 32) sum of a warp's rows (or keys) r0 + g, r0 + g + 8 into rows
+// of 32 floats at dst, rows >= n left alone.
+__device__ __forceinline__ void store_rows(float* dst, const float (&sum)[4][4], int r0, int n,
+                                           int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    if (r < n)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(dst + (size_t)r * kDH + 8 * nt + 2 * (lane & 3)) =
+            make_float2(sum[nt][2 * h], sum[nt][2 * h + 1]);
+  }
+}
+
+// Stage rows [r0, r0 + kBlock) of one (n, 32) f32 matrix a in the swizzled
+// tile sa by cp.async, rows >= n zero-filled: stage_pair for one matrix.
+__device__ __forceinline__ void stage_tile(const float* a, float* sa, int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH + 4 * c;
+    mma::cp_async16(mma::smem_u32(sa + mma::swz32f(r, 4 * c)), a + off, ok);
+  }
+}
+
+// One 64-key tile (from key j0) of a rows kernel's statistics walk: per
+// 32-key half s = q k^T (and, with DELTA, dp = dout v^T), keys >= J at
+// -f32max, folded into the lane's running statistics st with expf.  sk and
+// sv are the tile's K and V; without DELTA, oh, ol and sv are not read.
+// The two halves are not unrolled: unrolled, the backward's fused rows kernel
+// reached 255 registers and spilled 120 bytes; not, it takes 244 and its
+// statistics kernel 128 (177 before), with the same bits (H100, PERF.md).
+template <bool DELTA>
+__device__ __forceinline__ void stats_tile(tc::RowStats& st, const uint32_t (&qh)[4][4],
+                                           const uint32_t (&ql)[4][4],
+                                           const uint32_t (&oh)[4][4],
+                                           const uint32_t (&ol)[4][4], const float* sk,
+                                           const float* sv, int j0, int J, int col,
+                                           const Offsets& off) {
+#pragma unroll 1
+  for (int c0 = 0; c0 < kBlock; c0 += 32) {
+    float s[4][4], dp[4][4];
+    product_nt<4>(qh, ql, sk, c0, off, s);
+    if (DELTA) product_nt<4>(oh, ol, sv, c0, off, dp);
+    // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + c0 + 8 * i + col + (e & 1) >= J) s[i][e] = attn::kNegMax;
+    tc::stats_update<DELTA, true>(st, s, dp);
+  }
+}
+
+// lse[h] (and delta[h], with DELTA) of the rows row[h] < N of bag
+// blockIdx.y, merged from the gridDim.z segments' (lse, delta) in part
+// (segment-major, (gridDim.y, N) each) by the max and sum rule, in segment
+// order; rows >= N are left alone.
+template <bool DELTA>
+__device__ __forceinline__ void merge_segments(const float2* part, int N, const int (&row)[2],
+                                               float (&lse)[2], float (&delta)[2]) {
+  const int S = gridDim.z;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= N) continue;
+    const float2* pr = part + (size_t)blockIdx.y * N + row[h];
+    const size_t step = (size_t)gridDim.y * N;
+    float mx = -INFINITY;
+    for (int s = 0; s < S; ++s) mx = fmaxf(mx, pr[s * step].x);
+    float l = 0.f, d = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float2 x = pr[s * step];
+      const float e = expf(x.x - mx);
+      l += e;
+      if (DELTA) d = fmaf(e, x.y, d);
+    }
+    lse[h] = mx + logf(l);
+    if (DELTA) delta[h] = d / l;
+  }
+}
+
+// out_o[e] = sum over s < S, in order, of part[s][o][e] (o < n_out, e < n4
+// float4s): the segments' partial sums of one or two outputs.
+__global__ void __launch_bounds__(256)
+attn_bwd_combine(const float4* __restrict__ part, int S, size_t n4, int n_out,
+                 float4* __restrict__ out0, float4* __restrict__ out1) {
+  const size_t total = n4 * n_out;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float4 a = part[e];
+    for (int s = 1; s < S; ++s) {
+      const float4 b = part[s * total + e];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    if (e < n4)
+      out0[e] = a;
+    else
+      out1[e - n4] = a;
+  }
+}
+
+}  // namespace tf32

@@ -40,19 +40,38 @@
 // check on the card holds them bit for bit.  A 32-key half past J (the last
 // tile of J = 144) is skipped.
 //
-// f32, the CUDA-core twin deform_attn_fwd_kernel, the exact-arithmetic
-// reference on the card: one block per (bg, tile of kRows query rows), the q
-// rows in shared memory.  K and V stream through shared memory in tiles of
-// kTile keys, so J has no limit (the Nystrom chain 3 has J = 2560 or 4352).
-// Each warp owns query rows; per tile and row its lanes take the keys lane +
-// 32 t, reduce the tile's max and sum of exponentials with shuffles, and
-// update the row's running max, running sum and rescaled accumulator (online
-// softmax; the accumulator is f32 in shared memory, DH / 32 output columns
-// per lane).  A masked column's -f32max keeps a first all-masked tile from
-// poisoning the sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
-// It is the one kernel of the dh = 32 form (f32, no bias, span or dropout:
-// CMTA's Nystrom chains, 8 heads of 32 with 128 landmarks), where a lane owns
-// one output column; bf16 never reaches dh = 32 (the Nystrom gate asks for
+// f32 at dh = 64, the CUDA-core twin deform_attn_fwd_kernel, the
+// exact-arithmetic reference on the card: one block per (bg, tile of kRows
+// query rows), the q rows in shared memory.  K and V stream through shared
+// memory in tiles of kTile keys, so J has no limit.  Each warp owns query
+// rows; per tile and row its lanes take the keys lane + 32 t, reduce the
+// tile's max and sum of exponentials with shuffles, and update the row's
+// running max, running sum and rescaled accumulator (online softmax; the
+// accumulator is f32 in shared memory, two output columns per lane).  A
+// masked column's -f32max keeps a first all-masked tile from poisoning the
+// sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
+//
+// f32 at dh = 32 (no bias, span or dropout: CMTA's Nystrom chains, 8 heads
+// of 32, 128 landmarks against 2560 tokens), the tf32 tensor-core kernel
+// tf32::attn_fwd_tf32, on the pieces of the dh = 32 backward (attn_tf32.cuh):
+// one block of four warps per (64 query rows, bg, key segment), each warp's
+// 16 rows of q as split A fragments in registers, K and V through the
+// two-stage cp.async ring of swizzled 64 x 32 f32 tiles.  The Pallas
+// kernel's two steps (_softmax_rows, then attn @ v), not an online softmax:
+//   STATS: s = q k^T for the segment's keys (K only), each row's max and sum
+//     of exp: the backward rows kernel's statistics walk (stats_tile), so
+//     lse is the backward's, bit for bit by construction;
+//   OUT: the segments' statistics merged in segment order into lse (segment
+//     0 writes it to the scratch), then s again, p = exp(s - lse) in f32,
+//     split into the A fragments of out += p V (mma::split_accum; V the B
+//     operand), each tile's tensor-core sum folded into an f32 register sum.
+// Every product is 3xTF32 (three tf32 mma.sync m16n8k8, mma.cuh).  One key
+// segment (chain 1, J = 128) runs both passes in one launch; a thin row side
+// (chain 3, 128 rows against 2560 keys: 128 blocks on 132 SMs) cuts its keys
+// into tf32::segments (8 at BG 64, 1024 blocks): statistics, then the
+// outputs per segment into an f32 scratch (deform_attn_fwd_work), then
+// tf32::attn_bwd_combine adds them in segment order: no atomics, the same
+// bits on every run.  bf16 never reaches dh = 32 (the Nystrom gate asks for
 // dh * itemsize >= 128 bytes).
 //
 // What bounds it: at the Nystrom chains (J or N of 2560 / 4352, dh 64, bf16)
@@ -60,26 +79,35 @@
 // operations on the tensor cores (the kernel issues 6 * DH, q k^T twice); at
 // the deformable attention's J = 144, the bias stream, bytes.  Chain 3 has
 // 256 rows per bag: 4 row blocks x BG, about 2 blocks of 4 warps per SM at BG
-// = 64 (the keys are not split yet), so it is latency-bound there.
+// = 64 (the keys are not split yet), so it is latency-bound there.  The
+// dh = 32 form issues 3 x 6 * DH FLOP a pair on the tf32 tensor cores (three
+// tf32 products for each f32 one) against 4 * DH on the CUDA cores; the
+// operand splits and addresses outnumber the mma about 15 to 1 in the out
+// kernel's SASS (12 to 1 in the dh = 32 backward), so instruction issue
+// bounds it, at about 8x its 3xTF32 bound at CMTA's chains.
 //
-// C entry: deform_attn_fwd(dtype, bias_dtype, q, k, v, bias, span, out, BG, N,
-//                          J, DH, keep_prob, inv_keep, seed, device, stream)
-//          -> cudaGetLastError().
+// C entry: deform_attn_fwd(dtype, bias_dtype, q, k, v, bias, span, out, work,
+//                          BG, N, J, DH, keep_prob, inv_keep, seed, device,
+//                          stream) -> cudaGetLastError().
 // dtype: 0 = float, 1 = bfloat16 for q, k, v and out; bias_dtype the same
 // codes for the bias: dtype's, or 0 with dtype 1 in the form without span and
 // dropout (any other pair is cudaErrorInvalidValue).  bias and span may be
 // null.  DH is 64, or 32 with dtype 0 and no bias, span or dropout (any other
-// dh 32 form is cudaErrorInvalidValue).  The library carries its own CUDA
-// runtime, so the entry selects `device` itself.
+// dh 32 form is cudaErrorInvalidValue).  work: an f32 scratch of
+// deform_attn_fwd_work(BG, N, J, DH) floats (null when that is 0), whose
+// first BG * N floats receive each row's lse in the dh = 32 form.  The
+// library carries its own CUDA runtime, so the entry selects `device` itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attn_common.cuh"
 #include "attn_tc.cuh"
+#include "attn_tf32.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -104,8 +132,7 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ bias,
                        const int* __restrict__ span, T* __restrict__ out, int N, int J,
                        float keep_prob, float inv_keep, unsigned long long seed) {
-  static_assert(DH == 32 || DH == 64, "each lane owns DH / 32 output columns");
-  constexpr int CPL = DH / 32;
+  static_assert(DH == 64, "each lane owns DH / 32 = 2 output columns");
   constexpr int LD = row_stride<T>(DH);
   constexpr int NT = kTile / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -174,21 +201,19 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       es = warp_sum(es);
       __syncwarp();  // p is written, and every lane has read s_m[r]
 
-      float* acc = s_acc + r * DH + CPL * lane;
-      float a[CPL];
-      load_cols<CPL>(acc, a);
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) a[c] *= scale;
-      const T* vcol = s_v + CPL * lane;
+      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
+      float2 a = *acc;
+      a.x *= scale;
+      a.y *= scale;
+      const T* vcol = s_v + 2 * lane;
 #pragma unroll 4
       for (int jj = 0; jj < len; ++jj) {
         const float pj = p[jj];
-        float vv[CPL];
-        load_cols<CPL>(vcol + jj * LD, vv);
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) a[c] = fmaf(pj, vv[c], a[c]);
+        const float2 vv = load2(vcol + jj * LD);
+        a.x = fmaf(pj, vv.x, a.x);
+        a.y = fmaf(pj, vv.y, a.y);
       }
-      store_cols<CPL>(acc, a);
+      *acc = a;
       if (lane == 0) {
         s_m[r] = m_new;
         s_l[r] = s_l[r] * scale + es;
@@ -197,12 +222,10 @@ deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   for (int r = warp; r < rows; r += kWarps) {
-    float a[CPL];
-    load_cols<CPL>(s_acc + r * DH + CPL * lane, a);
+    const float2 a = reinterpret_cast<const float2*>(s_acc + r * DH)[lane];
     const float inv = 1.f / s_l[r];
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) a[c] *= inv;
-    store_cols<CPL>(out + ((size_t)bg * N + row0 + r) * DH + CPL * lane, a);
+    store2(out + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
+           make_float2(a.x * inv, a.y * inv));
   }
 }
 
@@ -317,12 +340,149 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
+// ---- f32 dh = 32: the tf32 tensor-core kernel (3xTF32, attn_tf32.cuh) -------
+
+namespace tf32 {
+
+// Block (row tile, bg, key segment), warp w owns rows row0 + 16 w .. + 15 (q
+// as split A fragments in registers), lane (g, t) the rows g and g + 8 and,
+// in each n8 tile of keys, the columns 2t and 2t + 1; in the output, the
+// columns 8 n + 2t, 8 n + 2t + 1 of n8 tile n.
+//   STATS: walk the segment's keys (K tiles only) for each row's max and sum
+//     of exp (stats_tile, the backward rows kernel's walk); with OUT (one
+//     segment) fold them into lse, write it, and walk K and V again; alone,
+//     write the segment's lse to part (as the backward writes (lse, delta)).
+//   OUT: (alone: merge the segments' lse from part in segment order,
+//     merge_segments; segment 0 writes lse) per pair p = exp(s - lse), then
+//     out += p v over the segment's keys, written to out + seg * seg_stride.
+template <bool STATS, bool OUT>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, size_t seg_stride,
+              float* __restrict__ lse, float2* __restrict__ part, int N, int J,
+              int seg_tiles) {
+  static_assert(STATS || OUT, "a pass to run");
+  __shared__ __align__(128) float s_kv[2][2][kTileF];  // [stage][K, V]
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow0 = blockIdx.x * kBlock + warp * 16;
+  const int row[2] = {wrow0 + (lane >> 2), wrow0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile; element 1 is next
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (J + kBlock - 1) / kBlock - t0);
+  constexpr int kPasses = (STATS ? 1 : 0) + (OUT ? 1 : 0);
+  const float* kg = k + (size_t)bg * J * kDH;
+  const float* vg = v + (size_t)bg * J * kDH;
+  auto stage = [&](int it) {  // the statistics read K only, the output K and V
+    const int r0 = (t0 + it % nt) * kBlock;
+    if (STATS && it < nt)
+      stage_tile(kg, s_kv[it & 1][0], r0, J);
+    else
+      stage_pair(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], r0, J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  const Offsets off(lane);
+  uint32_t qh[4][4], ql[4][4];
+  load_a(qh, ql, q + (size_t)bg * N * kDH, wrow0, N, lane);
+  float lse_r[2] = {0.f, 0.f}, no_delta[2] = {0.f, 0.f};
+  auto write_lse = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && row[h] < N) lse[(size_t)bg * N + row[h]] = lse_r[h];
+  };
+  if (!STATS) {
+    merge_segments<false>(part, N, row, lse_r, no_delta);
+    if (seg == 0) write_lse();
+  }
+  tc::RowStats st;
+  float o_sum[4][4], o_acc[4][4], o_small[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_sum[n][e] = o_acc[n][e] = o_small[n][e] = 0.f;
+
+  for (int it = 0; it < kPasses * nt; ++it) {
+    if (it + 1 < kPasses * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool out_pass = OUT && (!STATS || it >= nt);
+    if (STATS && OUT && it == nt) {
+      tc::stats_fold<false, true>(st, lse_r, no_delta);
+      write_lse();
+    }
+    const float* sk = s_kv[it & 1][0];
+    const float* sv = s_kv[it & 1][1];
+    const int j0 = (t0 + it % nt) * kBlock;
+    if (!out_pass) {
+      stats_tile<false>(st, qh, ql, qh, ql, sk, sk, j0, J, col, off);
+      __syncthreads();  // the stage is consumed before the ring refills it
+      continue;
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < kBlock; c0 += 32) {
+      float s[4][4];
+      product_nt<4>(qh, ql, sk, c0, off, s);
+      // s[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w; -> p
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[i][e] = j0 + c0 + 8 * i + col + (e & 1) < J ? expf(s[i][e] - lse_r[e >> 1]) : 0.f;
+        uint32_t ah[4], al[4];
+        mma::split_accum(ah, al, s[i]);
+        product_nn(o_acc, o_small, ah, al, sv, c0 + 8 * i, off);
+      }
+    }
+    if (kFoldTiles) fold(o_sum, o_acc, o_small);
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  if (STATS && !OUT) {
+    tc::stats_fold<false, true>(st, lse_r, no_delta);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && row[h] < N)
+        part[((size_t)seg * gridDim.y + bg) * N + row[h]] = make_float2(lse_r[h], 0.f);
+  }
+  if (OUT) {
+    fold(o_sum, o_acc, o_small);
+    store_rows(out + seg * seg_stride + (size_t)bg * N * kDH, o_sum, wrow0, N, lane);
+  }
+}
+
+// The scratch of a dh = 32 launch, in floats: each row's lse, then, when the
+// keys are cut into segments, the segments' lse (float2, as the backward's
+// (lse, delta)) and their partial outputs.
+struct FwdWork {
+  int seg, per;
+  size_t part, out, total;  // offsets and size, in floats
+};
+
+inline FwdWork fwd_work_of(int BG, int N, int J) {
+  FwdWork w{};
+  const int nti = (N + kBlock - 1) / kBlock, ntj = (J + kBlock - 1) / kBlock;
+  w.seg = segments(nti * BG, ntj, w.per);
+  const size_t rows = (size_t)BG * N;
+  w.part = (rows + 3) / 4 * 4;
+  w.out = w.part + (w.seg > 1 ? (2 * w.seg * rows + 3) / 4 * 4 : 0);
+  w.total = w.out + (w.seg > 1 ? (size_t)w.seg * rows * kDH : 0);
+  return w;
+}
+
+}  // namespace tf32
+
 namespace {
 
 struct Args {
   const void *q, *k, *v, *bias;
   const int* span;
   void* out;
+  float* work;
   int BG, N, J;
   float keep_prob, inv_keep;
   unsigned long long seed;
@@ -344,12 +504,57 @@ cudaError_t launch_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 to the tensor-core kernel, f32 to the CUDA-core twin
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP, int DH = 64>
+template <typename K>
+cudaError_t max_shared(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The f32 dh = 32 form on the tf32 tensor cores: both passes in one launch
+// (one key segment), or statistics, outputs per segment and their sum.
+cudaError_t launch_tf32(const Args& a) {
+  using tf32::kBlock;
+  using tf32::kDH;
+  using tf32::kThreads;  // not the CUDA-core twin's 256
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* out = static_cast<float*>(a.out);
+  const tf32::FwdWork w = tf32::fwd_work_of(a.BG, a.N, a.J);
+  if (a.work == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((a.N + kBlock - 1) / kBlock, a.BG, w.seg);
+  float2* part = reinterpret_cast<float2*>(a.work + w.part);
+  cudaError_t err;
+  if (w.seg == 1) {
+    auto fused = tf32::attn_fwd_tf32<true, true>;
+    if ((err = max_shared(fused)) != cudaSuccess) return err;
+    fused<<<grid, kThreads, 0, a.stream>>>(q, k, v, out, 0, a.work, nullptr, a.N, a.J, w.per);
+    return cudaGetLastError();
+  }
+  auto stats = tf32::attn_fwd_tf32<true, false>;
+  auto outs = tf32::attn_fwd_tf32<false, true>;
+  if ((err = max_shared(stats)) != cudaSuccess || (err = max_shared(outs)) != cudaSuccess)
+    return err;
+  const size_t n = (size_t)a.BG * a.N * kDH;
+  stats<<<grid, kThreads, 0, a.stream>>>(q, k, v, nullptr, 0, a.work, part, a.N, a.J, w.per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  outs<<<grid, kThreads, 0, a.stream>>>(q, k, v, a.work + w.out, n, a.work, part, a.N, a.J,
+                                        w.per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)std::min<size_t>((n / 4 + 255) / 256, 8 * 132);
+  tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(a.work + w.out), w.seg, n / 4, 1,
+      reinterpret_cast<float4*>(out), nullptr);
+  return cudaGetLastError();
+}
+
+// bf16 to the tensor-core kernel, f32 at dh 64 to the CUDA-core twin
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
 cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
   } else {
+    constexpr int DH = 64;
     constexpr size_t smem = smem_bytes<T, DH>();
     auto kernel = deform_attn_fwd_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -379,17 +584,18 @@ cudaError_t dispatch(const Args& a) {
 
 extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const void* k,
                                const void* v, const void* bias, const void* span, void* out,
-                               int BG, int N, int J, int DH, float keep_prob, float inv_keep,
-                               unsigned long long seed, int device, void* stream) {
+                               void* work, int BG, int N, int J, int DH, float keep_prob,
+                               float inv_keep, unsigned long long seed, int device,
+                               void* stream) {
   // dh 32: the f32 form without bias, span or dropout (CMTA's Nystrom chains)
   const bool dh32 = DH == 32 && dtype == 0 && bias == nullptr && span == nullptr &&
                     !(keep_prob < 1.f);
   if (DH != 64 && !dh32) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Args a{q, k, v, bias, static_cast<const int*>(span), out, BG, N, J, keep_prob,
-               inv_keep, seed, static_cast<cudaStream_t>(stream)};
-  if (dh32) return launch<float, false, false, false, 32>(a);
+  const Args a{q, k, v, bias, static_cast<const int*>(span), out, static_cast<float*>(work),
+               BG, N, J, keep_prob, inv_keep, seed, static_cast<cudaStream_t>(stream)};
+  if (dh32) return launch_tf32(a);
   if (bias != nullptr && bias_dtype != dtype) {
     // the f32 bias beside bf16 q, k, v: the one form the 1-D path runs
     if (dtype == 1 && bias_dtype == 0 && span == nullptr && !(keep_prob < 1.f))
@@ -399,4 +605,9 @@ extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const v
   if (dtype == 0) return dispatch<float>(a);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a);
   return cudaErrorInvalidValue;
+}
+
+// Floats of the scratch the dh = 32 form needs (0 for every other form).
+extern "C" long long deform_attn_fwd_work(int BG, int N, int J, int DH) {
+  return DH == 32 ? static_cast<long long>(tf32::fwd_work_of(BG, N, J).total) : 0;
 }

@@ -95,7 +95,9 @@
 // gradients per segment after merging the segments' statistics by the max and
 // sum rule in segment order; the keys kernel writes dk and dv per row
 // segment; the partial sums go to an f32 scratch (deform_attn_bwd_work) and
-// tf32::attn_bwd_combine adds them in segment order.
+// tf32::attn_bwd_combine adds them in segment order.  These pieces, the
+// rows kernel's statistics walk and the merge of the segments among them,
+// live in attn_tf32.cuh, shared with the dh = 32 forward (deform_attn.cu).
 //
 // Left for later: wgmma and TMA (a warpgroup product of 64-row tiles would
 // reach past mma.sync's rate), keeping K and V whole in shared memory when
@@ -128,6 +130,7 @@
 
 #include "attn_common.cuh"
 #include "attn_tc.cuh"
+#include "attn_tf32.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -746,167 +749,21 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
-// ---- f32 dh = 32: the tf32 tensor-core kernels (3xTF32) ---------------------
+// ---- f32 dh = 32: the tf32 tensor-core kernels (3xTF32, attn_tf32.cuh) -------
 
 namespace tf32 {
-
-using tc::kBlock;
-using tc::kThreads;
-constexpr int kDH = 32;
-constexpr int kTileF = kBlock * kDH;  // floats of one swizzled 64 x 32 tile
-// Blocks a launch aims at (about 8 per SM of 132): the long axis of a thin
-// side is cut into as many segments as take its grid there, at most
-// kMaxSegments (which bounds the scratch).
-constexpr int kTargetBlocks = 1024;
-constexpr int kMaxSegments = 32;
-// Fold each tile's tensor-core sum into an f32 register sum: the tensor core
-// then chains at most one tile's 8 k-steps (x 3 products) of a long sum.
-// false keeps one accumulator for the whole walk (the control measured in
-// PERF.md, built by scripts/profile_attn_bwd.py --variant nofold).
-constexpr bool kFoldTiles = true;
-// Segments of a walk of `tiles` tiles for a grid of `base` blocks, each
-// segment `per` tiles (the last may be shorter).
-inline int segments(int base, int tiles, int& per) {
-  int s = (kTargetBlocks + base - 1) / base;
-  s = s < tiles ? s : tiles;
-  s = s < kMaxSegments ? s : kMaxSegments;
-  per = (tiles + s - 1) / s;
-  return (tiles + per - 1) / per;
-}
-
-// Stage rows [r0, r0 + kBlock) of two (n, 32) f32 matrices a and b in the
-// swizzled tiles sa and sb by cp.async, rows >= n zero-filled.
-__device__ __forceinline__ void stage_pair(const float* a, const float* b, float* sa,
-                                           float* sb, int r0, int n) {
-  for (int i = threadIdx.x; i < kBlock * 8; i += kThreads) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = r0 + r < n;
-    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH + 4 * c;
-    const int at = mma::swz32f(r, 4 * c);
-    mma::cp_async16(mma::smem_u32(sa + at), a + off, ok);
-    mma::cp_async16(mma::smem_u32(sb + at), b + off, ok);
-  }
-}
-
-// The split A fragments (4 k-steps of 8 columns) of rows r0 .. r0 + 15 of an
-// (n, 32) f32 matrix in device memory; rows >= n give 0.
-__device__ __forceinline__ void load_a(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
-                                       const float* m, int r0, int n, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + (lane >> 2) + 8 * (e & 1);
-      const int c = 8 * ks + (lane & 3) + 4 * (e >> 1);
-      mma::split_tf32(r < n ? m[(size_t)r * kDH + c] : 0.f, hi[ks][e], lo[ks][e]);
-    }
-}
-
-// Each lane's byte offsets in a swizzled 64 x 32 f32 tile (mma::swz32f) of
-// the B fragments it reads, fixed for the kernel: rows n0 + 8 i + k of a tile
-// start 128 (n0 + 8 i) bytes further on, because n0 + 8 i is a multiple of 8.
-struct Offsets {
-  uint32_t nt[2];     // product_nt: ldmatrix row of chunks 4 kp + lane / 8
-  uint32_t nn[4][2];  // product_nn: n tile nt, rows 2t (w 0) and 2t + 1 (w 1)
-  __device__ explicit Offsets(int lane) {
-    const int r = lane & 7;
-#pragma unroll
-    for (int kp = 0; kp < 2; ++kp) nt[kp] = 4 * mma::swz32f(r, 4 * (4 * kp + (lane >> 3)));
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int w = 0; w < 2; ++w)
-        nn[n][w] = 4 * mma::swz32f(2 * (lane & 3) + w, 8 * n + (lane >> 2));
-  }
-};
-
-// acc[i] (16 x 8) = A X^T over the rows n0 + 8 i .. + 7 of the swizzled tile
-// x (the n of the product), i < NI; A (16 x 32) split as 4 k-steps.  B by
-// ldmatrix: the 32-bit word t of row g of a 16-byte chunk is B's (k t, n g).
-template <int NI>
-__device__ __forceinline__ void product_nt(const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4],
-                                           const float* x, int n0, const Offsets& off,
-                                           float (&acc)[NI][4]) {
-  float small[NI][4];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = small[i][e] = 0.f;
-  const uint32_t base = mma::smem_u32(x) + 128 * n0;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int kp = 0; kp < 2; ++kp) {
-      uint32_t b[4];  // b0, b1 of k-steps 2 kp and 2 kp + 1
-      mma::ldmatrix_x4(b, base + 1024 * i + off.nt[kp]);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t bh0, bl0, bh1, bl1;
-        mma::split_tf32(__uint_as_float(b[2 * kk]), bh0, bl0);
-        mma::split_tf32(__uint_as_float(b[2 * kk + 1]), bh1, bl1);
-        mma::mma_3xtf32(acc[i], small[i], ah[2 * kp + kk], al[2 * kp + kk], bh0, bh1, bl0, bl1);
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e];
-}
-
-// acc + small (16 x 32) += A X over the 8 rows k0 .. k0 + 7 of the swizzled
-// tile x (the k of the product), k0 a multiple of 8; A the split accumulator
-// of the previous product (mma::split_accum), so B's k positions t and t + 4
-// are rows k0 + 2t and k0 + 2t + 1.
-__device__ __forceinline__ void product_nn(float (&acc)[4][4], float (&small)[4][4],
-                                           const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                           const float* x, int k0, const Offsets& off) {
-  const char* base = reinterpret_cast<const char*>(x + 32 * k0);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    uint32_t bh0, bl0, bh1, bl1;
-    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][0]), bh0, bl0);
-    mma::split_tf32(*reinterpret_cast<const float*>(base + off.nn[nt][1]), bh1, bl1);
-    mma::mma_3xtf32(acc[nt], small[nt], ah, al, bh0, bh1, bl0, bl1);
-  }
-}
-
-// sum += acc + small, acc = small = 0: the f32 register sum of the per-tile
-// accumulators
-__device__ __forceinline__ void fold(float (&sum)[4][4], float (&acc)[4][4],
-                                     float (&small)[4][4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      sum[n][e] += acc[n][e] + small[n][e];
-      acc[n][e] = small[n][e] = 0.f;
-    }
-}
-
-// The (16 x 32) sum of a warp's rows (or keys) r0 + g, r0 + g + 8 into rows
-// of 32 floats at dst, rows >= n left alone.
-__device__ __forceinline__ void store_rows(float* dst, const float (&sum)[4][4], int r0, int n,
-                                           int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + (lane >> 2) + 8 * h;
-    if (r < n)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        *reinterpret_cast<float2*>(dst + (size_t)r * kDH + 8 * nt + 2 * (lane & 3)) =
-            make_float2(sum[nt][2 * h], sum[nt][2 * h + 1]);
-  }
-}
 
 // Rows kernel: block (row tile, bg, key segment), warp w owns rows row0 + 16 w
 // .. + 15 (q and dout as split A fragments in registers), lane (g, t) the
 // rows g and g + 8 and, in each n8 tile of keys, the columns 2t and 2t + 1.
 // K and V stream through a two-stage cp.async ring of swizzled 64-key tiles.
 //   STATS: walk the segment's keys for each row's max, sum of exp and sum of
-//     exp * dp; with GRAD (one segment) fold them into lse and delta and walk
-//     the keys again; alone, write the segment's (lse, delta) to part.
+//     exp * dp (stats_tile, the forward's walk too); with GRAD (one segment)
+//     fold them into lse and delta and walk the keys again; alone, write the
+//     segment's (lse, delta) to part.
 //   GRAD: (alone: merge the segments' (lse, delta) from part, by the max and
-//     sum rule in segment order; segment 0 writes lse and delta) per pair
+//     sum rule in segment order, merge_segments; segment 0 writes lse and
+//     delta) per pair
 //     p = exp(s - lse), ds = p (dp - delta), then dq += ds k over the
 //     segment's keys, written to dq_out + seg * seg_stride.
 template <bool STATS, bool GRAD>
@@ -940,28 +797,13 @@ attn_bwd_rows_tf32(const float* __restrict__ q, const float* __restrict__ k,
   load_a(oh, ol, dout + (size_t)bg * N * kDH, wrow0, N, lane);
   float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
   if (!STATS) {
-    const int S = gridDim.z;
+    merge_segments<true>(part, N, row, lse_r, delta_r);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (row[h] >= N) continue;
-      const float2* pr = part + (size_t)bg * N + row[h];
-      const size_t step = (size_t)gridDim.y * N;
-      float mx = -INFINITY;
-      for (int s = 0; s < S; ++s) mx = fmaxf(mx, pr[s * step].x);
-      float l = 0.f, d = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const float2 x = pr[s * step];
-        const float e = expf(x.x - mx);
-        l += e;
-        d = fmaf(e, x.y, d);
-      }
-      lse_r[h] = mx + logf(l);
-      delta_r[h] = d / l;
-      if (seg == 0 && col == 0) {
+    for (int h = 0; h < 2; ++h)
+      if (seg == 0 && col == 0 && row[h] < N) {
         lse[(size_t)bg * N + row[h]] = lse_r[h];
         delta[(size_t)bg * N + row[h]] = delta_r[h];
       }
-    }
   }
   tc::RowStats st;
   float dq_sum[4][4], dq_acc[4][4], dq_small[4][4];
@@ -991,21 +833,17 @@ attn_bwd_rows_tf32(const float* __restrict__ q, const float* __restrict__ k,
     const float* sk = s_kv[it & 1][0];
     const float* sv = s_kv[it & 1][1];
     const int j0 = (t0 + it % nt) * kBlock;
+    if (!grad) {
+      stats_tile<true>(st, qh, ql, oh, ol, sk, sv, j0, J, col, off);
+      __syncthreads();  // the stage is consumed before the ring refills it
+      continue;
+    }
 #pragma unroll
     for (int c0 = 0; c0 < kBlock; c0 += 32) {
       float s[4][4], dp[4][4];
       product_nt<4>(qh, ql, sk, c0, off, s);
       product_nt<4>(oh, ol, sv, c0, off, dp);
       // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
-      if (!grad) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j0 + c0 + 8 * i + col + (e & 1) >= J) s[i][e] = kNegMax;
-        tc::stats_update<true, true>(st, s, dp);
-        continue;
-      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -1020,7 +858,7 @@ attn_bwd_rows_tf32(const float* __restrict__ q, const float* __restrict__ k,
         product_nn(dq_acc, dq_small, ah, al, sk, c0 + 8 * i, off);
       }
     }
-    if (grad && kFoldTiles) fold(dq_sum, dq_acc, dq_small);
+    if (kFoldTiles) fold(dq_sum, dq_acc, dq_small);
     __syncthreads();  // the stage is consumed before the ring refills it
   }
   if (STATS && !GRAD) {
@@ -1133,29 +971,6 @@ attn_bwd_keys_tf32(const float* __restrict__ q, const float* __restrict__ k,
   fold(dv_sum, dv_acc, dv_small);
   store_rows(dk_out + seg * seg_stride + (size_t)bg * J * kDH, dk_sum, kw0, J, lane);
   store_rows(dv_out + seg * seg_stride + (size_t)bg * J * kDH, dv_sum, kw0, J, lane);
-}
-
-// out_o[e] = sum over s < S, in order, of part[s][o][e] (o < n_out, e < n4
-// float4s): the segments' partial sums of one or two outputs.
-__global__ void __launch_bounds__(256)
-attn_bwd_combine(const float4* __restrict__ part, int S, size_t n4, int n_out,
-                 float4* __restrict__ out0, float4* __restrict__ out1) {
-  const size_t total = n4 * n_out;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float4 a = part[e];
-    for (int s = 1; s < S; ++s) {
-      const float4 b = part[s * total + e];
-      a.x += b.x;
-      a.y += b.y;
-      a.z += b.z;
-      a.w += b.w;
-    }
-    if (e < n4)
-      out0[e] = a;
-    else
-      out1[e - n4] = a;
-  }
 }
 
 // The scratch of a dh = 32 launch, in floats: the rows kernel's (lse, delta)

@@ -51,15 +51,17 @@ every product of both runs on the tensor cores (warp-level ``mma.sync``,
 ``csrc/mma.cuh``), and the forward's first pass is the backward rows kernel's
 own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
 checked bit for bit on the card: the forward returns no lse); the f32
-forms at dh = 64, and the f32 dh = 32 forward, keep CUDA-core twins (the
-forward one warp per row with an online softmax), the exact-arithmetic
-reference on the card.  The f32 dh = 32 backward runs on the tf32 tensor
-cores, each f32 product as three tf32 products (3xTF32: operands split into
-hi + lo), each tile's tensor-core sums folded into f32 registers; where one
-side of the chain is thin (CMTA's 128 landmarks) the long axis is cut into
-segments whose partial sums go to an f32 scratch that this wrapper
-allocates (``deform_attn_bwd_work`` gives its size) and are added in segment
-order, so the result still repeats bit for bit.
+forms at dh = 64 keep CUDA-core twins (the forward one warp per row with an
+online softmax), the exact-arithmetic reference on the card.  The f32 dh =
+32 forward and backward run on the tf32 tensor cores, each f32 product as
+three tf32 products (3xTF32: operands split into hi + lo), each tile's
+tensor-core sums folded into f32 registers, with one statistics walk
+(``csrc/attn_tf32.cuh``), so the forward's log-sum-exp is the backward's bit
+for bit; where one side of the chain is thin (CMTA's 128 landmarks) the long
+axis is cut into segments whose partial sums go to an f32 scratch that this
+wrapper allocates (``deform_attn_fwd_work`` / ``deform_attn_bwd_work`` give
+its size) and are added in segment order, so the result still repeats bit
+for bit.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -87,9 +89,11 @@ def _library(name: str):
         lib = _build.load(name)
         if name == "deform_attn":
             lib.deform_attn_fwd.argtypes = (
-                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_fwd.restype = ctypes.c_int
+            lib.deform_attn_fwd_work.argtypes = [ctypes.c_int] * 4
+            lib.deform_attn_fwd_work.restype = ctypes.c_longlong
         else:
             lib.deform_attn_bwd.argtypes = (
                 [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
@@ -255,12 +259,15 @@ def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
     _check_kernel("deform_attention_fwd", q, bias, span, keep_prob, (q, k, v, bias, span))
     out = torch.empty_like(q)
     lib = _library("deform_attn")
+    # the dh = 32 kernel's lse and its partial sums over segments of the keys
+    n_work = lib.deform_attn_fwd_work(bg, n, j, dh)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device) if n_work else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.deform_attn_fwd(_DTYPE_CODE[q.dtype], _bias_code(q, bias), q.data_ptr(),
                                  k.data_ptr(), v.data_ptr(), ptr(bias), ptr(span),
-                                 out.data_ptr(),
+                                 out.data_ptr(), ptr(work),
                                  bg, n, j, dh, keep_prob, 1.0 / keep_prob, seed,
                                  q.device.index, stream)
     _build.check(rc, "deform_attention_fwd")

@@ -2,8 +2,9 @@
 the JAX package, f32 (TOL, 1e-4): the CMTA forward through the fused chains
 at fixdim 484 (2 x 8 heads of 32 over n_pad 512 = 4 x 128 landmarks, which
 both gates admit: the JAX side runs its Pallas kernels in interpret mode, the
-port the plain versions of its kernels) and ``NystromAttention`` alone at
-CMTA's width, outputs and gradients; the kernel check's head-dim rules.  On a
+port the plain versions of its kernels), ``NystromAttention`` alone at
+CMTA's width, outputs and gradients, and the dh = 32 attention alone at the
+card test's shapes; the kernel check's head-dim rules.  On a
 machine with a CUDA card, the dh = 32 kernels against their plain versions
 and the refusal of every other dh = 32 form.
 """
@@ -20,11 +21,13 @@ import torch
 from sml_tpu.models.cmta import CMTA as JCMTA
 from sml_tpu.ops.nystrom import NystromAttention as JNystrom
 from sml_tpu.ops.nystrom import _fused_chains_supported
+from sml_tpu.ops.pallas.deform_attn import deform_attention_trainable as j_attention
 from sml_tpu_torch.bridge import _leaf_map, flatten_params, load_flax_params
 from sml_tpu_torch.models.cmta import CMTA
 from sml_tpu_torch.ops import nystrom
 from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
-                                       deform_attention_fwd, deform_attention_fwd_plain)
+                                       deform_attention_fwd, deform_attention_fwd_plain,
+                                       deform_attention_trainable)
 from sml_tpu_torch.ops.nystrom import NystromAttention, fused_chains_supported
 from test_torch_cmta import CMTA_OUT
 from test_torch_mcat import TOL, np_tree, perturbed
@@ -99,6 +102,30 @@ def test_nystrom_at_cmta_width_matches_jax_pallas_interpret():
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
 
 
+@pytest.mark.parametrize("bg,n,j", [(2, 128, 700), (2, 700, 128), (3, 100, 37)])
+def test_plain_dh32_forward_and_vjp_match_pallas_interpret(bg, n, j):
+    """The dh = 32 form (f32, no bias, span or dropout) at the shapes whose
+    key segments, row tiles and key tails the card test below holds the
+    kernels to: the port's forward and VJP (their plain versions, on CPU
+    tensors) against the Pallas kernels in interpret mode and ``jax.vjp``;
+    the forward within 1e-5, each gradient within 1e-4 of its max."""
+    rng = np.random.default_rng(bg * 10000 + n * 10 + j)
+    q = (rng.normal(size=(bg, n, DH)) * DH ** -0.5).astype(np.float32)
+    k, v = rng.normal(size=(2, bg, j, DH)).astype(np.float32)
+    cot = rng.normal(size=(bg, n, DH)).astype(np.float32)
+    want, vjp = jax.vjp(lambda *a: j_attention(*a, None, interpret=True),
+                        *map(jnp.asarray, (q, k, v)))
+    want_grads = vjp(jnp.asarray(cot))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = deform_attention_trainable(*leaves)
+    out.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    for name, t, w in zip("qkv", leaves, want_grads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"d{name}")
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -107,10 +134,10 @@ def _cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,j", [(128, 700), (700, 128), (100, 37)])
+@pytest.mark.parametrize("n,j", [(128, 700), (700, 128), (100, 37), (128, 2560), (2560, 128)])
 def test_cuda_dh32_kernels_match_plain(n, j):
     """The f32 dh = 32 forward and backward at chain-3-like, chain-1-like and
-    ragged shapes, against their plain versions."""
+    ragged shapes and at CMTA's chains, against their plain versions."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(n + j)
     q = torch.randn(4, n, DH, device=dev, generator=g) * DH ** -0.5
