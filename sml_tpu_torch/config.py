@@ -2,7 +2,9 @@
 argparse parser built from its fields (counterpart of ``sml_tpu/config.py``).
 
 No YAML dependency: the defaults live in the dataclass.  Every field becomes a
-``--field`` flag whose type follows its default; booleans parse leniently.
+``--field`` flag whose type follows its default; booleans parse leniently, and
+a bare boolean flag (``--debug``, as the JAX parser's ``store_true`` flag)
+means true.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import dataclasses
 MODES = ("path", "omic", "pathomic", "pathomic_original", "mcat", "cmta",
          "deformpathomic")
 TASKS = ("diag2021", "survival", "grade", "subtype")
+LR_POLICIES = ("linear", "exp", "step", "plateau", "cosine", "onecycle", "none")
+OPTIMIZERS = ("sgd", "adam", "adagrad")
+INIT_TYPES = ("max", "normal", "xavier", "kaiming", "orthogonal", "none")
 
 
 @dataclasses.dataclass
@@ -53,12 +58,16 @@ class Config:
 
     # --- training ---
     reload: bool = False
+    resume: bool = False                # continue from <checkpoints>/last_state.pt
     seed: int = 42
     batch_size: int = 8
     start_epoch: int = 0
     epochs: int = 20
     lr: float = 1.0e-3
     lr_policy: str = "cosine"
+    lr_decay_iters: int = 50
+    epoch_count: int = 1
+    epochs_decay: int = 10
     dropout_rate: float = 0.1
     return_grad: bool = False
     optimizer: str = "adam"
@@ -91,11 +100,17 @@ class Config:
     survival_interval: str = "all"
     act_type: str = "Sigmoid"
 
+    debug: bool = False                 # no metrics.jsonl (and no wandb)
+
     def __post_init__(self) -> None:
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.task_type not in TASKS:
             raise ValueError(f"unknown task_type {self.task_type!r}")
+        for key, allowed in (("lr_policy", LR_POLICIES), ("optimizer", OPTIMIZERS),
+                             ("init_type", INIT_TYPES)):
+            if getattr(self, key) not in allowed:
+                raise ValueError(f"unknown {key} {getattr(self, key)!r}")
         if self.attn_dim not in (1, 2):
             raise ValueError("attn_dim must be 1 or 2")
         if self.batchloss_grad_scale not in ("exact", "ddp"):
@@ -119,6 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
     """``--field`` flags for every Config field (type from the default)."""
     parser = argparse.ArgumentParser()
     for f in dataclasses.fields(Config):
-        kind = _parse_bool if isinstance(f.default, bool) else type(f.default)
-        parser.add_argument(f"--{f.name}", default=f.default, type=kind)
+        if isinstance(f.default, bool):
+            parser.add_argument(f"--{f.name}", default=f.default, type=_parse_bool,
+                                nargs="?", const=True)
+        else:
+            parser.add_argument(f"--{f.name}", default=f.default, type=type(f.default))
     return parser

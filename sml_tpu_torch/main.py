@@ -6,15 +6,20 @@ Usage:
     python -m sml_tpu_torch.main --mode path --path_arch transmil ...
         [--variable_bags true --bucket_sizes 1024,2500,4096]
 
-Every ``Config`` field is a flag; ``--mode`` is any of the seven
+Every ``Config`` field is a flag (a bare boolean flag means true); ``--mode``
+is any of the seven
 (deformpathomic by default; path with ``--path_arch transmil`` for TransMIL;
 mcat and cmta, the survival models of ``--task_type survival``), and
 ``--bucket_sizes`` batches every split per bag-size bucket.  Runs on
 ``cuda`` unless ``--device cpu`` is given; asking for cuda without a card
 raises.  Prints the mean train metrics and the ``epoch i/n val=...
-test=...`` line of each epoch, writes the
-best-on-val weights to ``<checkpoints>/best_modal.npz`` and ends with
-``best (val): {...}``.
+test=...`` line of each epoch, and ends with ``best (val): {...}``.  Writes
+to ``<checkpoints>``: ``metrics.jsonl`` (not under ``--debug``), the
+best-on-val weights as ``best_modal.npz`` and under the reference's
+``epoch_{e}_AUC_..._.npz`` / ``epoch_{e}_cindex_..._.npz`` name, and after
+every epoch ``last_state.pt`` and ``last_state_meta.json``, from which
+``--resume true`` continues the run; ``--reload true`` starts from
+``best_modal.npz``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,10 @@ tree's names so the weight bridge maps leaf by leaf.
 runs ``DeformCrossAttention2D`` and pools the tokens under the mask;
 ``attn_dim`` 1 prepends a learned cls token to both streams (and a valid
 entry to the mask), runs ``DeformCrossAttention1D`` and reads the cls token
-after a final LayerNorm.  ``remat`` (the JAX model's rematerialised branches)
-is not ported.
+after a final LayerNorm.  ``remat`` rematerialises each branch's
+``DeformCrossTransMIL`` in training (JAX ``nn.remat``): its activations are
+dropped after the forward and recomputed in the backward, from the dropout
+generators' states of the forward.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sml_tpu_torch.models.maxnet import MaxNet
 from sml_tpu_torch.ops.common import Dense, DropoutRNG
@@ -130,6 +133,31 @@ class DeformCrossTransMIL(nn.Module):
         return out
 
 
+def _rematerialised(module: nn.Module, path: torch.Tensor, omic: torch.Tensor,
+                    rng: Optional[DropoutRNG], mask: Optional[torch.Tensor]):
+    """``module(path, omic, rng, mask)`` under ``torch.utils.checkpoint``.
+    The checkpoint restores only torch's global generators, and the branch
+    draws from ``rng``'s: the recompute starts from their states before the
+    forward (the same Philox seeds and dropout masks) and leaves them as it
+    found them, so the gradients and every later draw are those of the run
+    without remat."""
+    before = None if rng is None else rng.get_state()
+    calls = []
+
+    def run(path, omic, mask):
+        if not calls or rng is None:
+            calls.append(1)
+            return module(path, omic, rng, mask)
+        now = rng.get_state()                      # the recompute, in the backward
+        rng.set_state(before)
+        try:
+            return module(path, omic, rng, mask)
+        finally:
+            rng.set_state(now)
+
+    return checkpoint(run, path, omic, mask, use_reentrant=False, preserve_rng_state=False)
+
+
 class DeformPathomicNet(nn.Module):
     """Flagship model."""
 
@@ -140,9 +168,9 @@ class DeformPathomicNet(nn.Module):
                  fusion_type: str = "concat", cut_fuse_grad: bool = False,
                  task_type: str = "diag2021", init_max: bool = True, skip: int = 0,
                  use_bilinear: int = 1, path_scale: int = 1, omic_scale: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.return_vgrid = return_vgrid
+        self.return_vgrid, self.remat = return_vgrid, remat
         self.task_type = task_type
         self.fusion_type, self.cut_fuse_grad = fusion_type, cut_fuse_grad
         for name, gene_dim in (("tumor", input_size_omic_tumor),
@@ -163,6 +191,11 @@ class DeformPathomicNet(nn.Module):
                                          path_scale, omic_scale, mmhid, dropout_rate,
                                          dtype=dtype, in1=path_dim, in2=path_dim)
             fused = mmhid
+        if remat and any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                         for name in ("tumor", "immune")
+                         for m in getattr(self, f"pathomic_net_{name}").modules()):
+            # the recompute would move its running averages a second time
+            raise ValueError("remat: a rematerialised branch holds a BatchNorm")
         self.classifier = Dense(fused, label_dim, dtype=dtype)
         self.classifier_tumor = Dense(path_dim, label_dim, dtype=dtype)
         self.classifier_immune = Dense(path_dim, label_dim, dtype=dtype)
@@ -172,10 +205,15 @@ class DeformPathomicNet(nn.Module):
                 rng: Optional[DropoutRNG] = None) -> Dict[str, torch.Tensor]:
         """``rng`` (training mode with dropout_rate > 0) feeds every dropout;
         ``mask`` (B, N) marks the real patches of padded (bucketed) bags."""
-        tumor = self.pathomic_net_tumor(
-            x_path, self.omic_net_tumor(x_omic_tumor, rng)["features"], rng, mask)
-        immune = self.pathomic_net_immune(
-            x_path, self.omic_net_immune(x_omic_immune, rng)["features"], rng, mask)
+        def branch(name, x_omic):
+            mil = getattr(self, f"pathomic_net_{name}")
+            omic = getattr(self, f"omic_net_{name}")(x_omic, rng)["features"]
+            if self.remat and self.training and torch.is_grad_enabled():
+                return _rematerialised(mil, x_path, omic, rng, mask)
+            return mil(x_path, omic, rng, mask)
+
+        tumor = branch("tumor", x_omic_tumor)
+        immune = branch("immune", x_omic_immune)
 
         v_t, v_i = tumor["features"], immune["features"]
         if self.cut_fuse_grad:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +51,14 @@ class DropoutRNG:
 
     def philox_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.host))
+
+    def get_state(self) -> Dict[str, torch.Tensor]:
+        """Both generators' states (CPU byte tensors)."""
+        return {"device": self.device.get_state(), "host": self.host.get_state()}
+
+    def set_state(self, state: Dict[str, torch.Tensor]) -> None:
+        self.device.set_state(state["device"])
+        self.host.set_state(state["host"])
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

@@ -3,14 +3,20 @@
 
 With ``bucket_sizes`` set, the loaders are ``BucketedLoader``s (one bucket per
 batch); ``workers > 0`` collates the train batches on a thread ahead of the
-step.  ``reload`` and ``eval_every_iters > 0`` need checkpoint and resume,
-which are not ported yet: they raise before anything is written.  Per epoch: the seeded shuffled train batches, one train step each, then Test
-and Val evaluation, the ``epoch i/n val=... test=...`` line, and best-on-val
-weights written as ``<checkpoints>/best_modal.npz`` (the flattened flax
-parameter tree and the BatchNorms' ``batch_stats``, which ``python -m
-sml_tpu_torch.inference --weights`` reads).
+step.  ``reload`` starts from ``<checkpoints>/best_modal.npz`` with a fresh
+optimizer; ``resume`` continues the run that wrote ``<checkpoints>/
+last_state.pt`` (and starts afresh without one).  Per epoch: the seeded
+shuffled train batches, one train step each (every ``eval_every_iters``
+iterations inside the epoch a Test and Val pass, logged with that step's train
+metrics, else the train metrics every 10 iterations), then Test and Val
+evaluation, the ``epoch i/n val=... test=...`` line and its ``MetricLogger``
+record, the plateau controller, best-on-val weights written as
+``<checkpoints>/best_modal.npz`` and under the reference's metric-bearing
+name (the flattened flax parameter tree and the BatchNorms' ``batch_stats``,
+which ``python -m sml_tpu_torch.inference --weights`` reads), and last the
+whole train state and its meta (``train/checkpoint.py``).
 The train metrics of an epoch stay on the device and are fetched once, at its
-end.
+end, unless a log record needs them.
 """
 
 from __future__ import annotations
@@ -23,24 +29,23 @@ import numpy as np
 import torch
 
 from sml_tpu_torch.bridge import (STATS, export_flax_batch_stats, export_flax_params,
-                                  flatten_params)
+                                  flatten_params, load_npz)
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
-from sml_tpu_torch.models.factory import define_net, define_optimizer, resolve_device
+from sml_tpu_torch.models.factory import (ReduceLROnPlateau, define_net, define_optimizer,
+                                          resolve_device, set_learning_rate)
 from sml_tpu_torch.ops.common import DropoutRNG
+from sml_tpu_torch.train import checkpoint as ckpt
 from sml_tpu_torch.train.evaluate import batch_to_device, evaluate
 from sml_tpu_torch.train.state import TrainState
 from sml_tpu_torch.train.steps import make_eval_step, make_train_step
+from sml_tpu_torch.utils.logging import MetricLogger
 
 
 def setup(config: Config, device: str | torch.device = "cuda"):
-    """(state, train_step, eval_step, (train_loader, val_loader, test_loader))."""
-    if config.reload:
-        raise NotImplementedError("reload (train from <checkpoints>/best_modal) is not "
-                                  "ported yet")
-    if config.eval_every_iters > 0:
-        raise NotImplementedError("eval_every_iters (evaluation inside an epoch) is not "
-                                  "ported yet")
+    """(state, train_step, eval_step, (train_loader, val_loader, test_loader));
+    the state from ``best_modal.npz`` (``reload``) and then from
+    ``last_state.pt`` (``resume``, where there is one)."""
     device = resolve_device(device)
     if device.type == "cuda":
         # f32 products and convolutions in full f32, as on the CPU
@@ -58,6 +63,10 @@ def setup(config: Config, device: str | torch.device = "cuda"):
     model = define_net(config, device, train=True)
     optimizer, scheduler = define_optimizer(config, model, max(len(train_loader), 1))
     state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(config.seed, device))
+    if config.reload:
+        load_npz(model, os.path.join(config.checkpoints, "best_modal.npz"))
+    if config.resume and ckpt.has_resume_state(config.checkpoints):
+        ckpt.restore_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
     return (state, make_train_step(config, model), make_eval_step(config, model),
             (train_loader, val_loader, test_loader))
 
@@ -76,21 +85,65 @@ def save_weights(model: torch.nn.Module, path: str) -> None:
     np.savez(path, **flatten_params(export_flax_params(model)), **stats)
 
 
+def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    return {k: float(v) for k, v in metrics.items()}
+
+
 def train(config: Config, device: str | torch.device = "cuda"
           ) -> Tuple[TrainState, Dict[str, float]]:
-    """Train ``config.epochs`` epochs; returns (state, best val metrics + epoch)."""
+    """Train to ``config.epochs`` epochs; returns (state, best val metrics +
+    epoch).  The records go to ``<checkpoints>/metrics.jsonl`` (none under
+    ``debug``)."""
+    os.makedirs(config.checkpoints, exist_ok=True)
+    logger = MetricLogger(config, out_dir=config.checkpoints, disabled=config.debug)
+    try:
+        return _train(config, device, logger)
+    finally:
+        logger.close()
+
+
+def _train(config: Config, device: str | torch.device, logger: MetricLogger
+           ) -> Tuple[TrainState, Dict[str, float]]:
     state, train_step, eval_step, (train_loader, val_loader, test_loader) = setup(
         config, device)
-    os.makedirs(config.checkpoints, exist_ok=True)
     dev = next(state.model.parameters()).device
     best: Dict[str, float] = {}
+    cur_iters = 0
     start = time.time()
-    for epoch in range(config.start_epoch, config.epochs):
+    plateau = ReduceLROnPlateau(config.lr) if config.lr_policy == "plateau" else None
+
+    start_epoch = config.start_epoch
+    meta = ckpt.load_resume_meta(config.checkpoints) if config.resume else None
+    if meta is not None:
+        start_epoch = int(meta["epoch"]) + 1
+        best = dict(meta.get("best", {}))
+        cur_iters = int(meta.get("iters", 0))
+        if plateau is not None and meta.get("plateau"):
+            plateau.lr = meta["plateau"]["lr"]
+            plateau.best = meta["plateau"]["best"]
+            plateau.num_bad = meta["plateau"]["num_bad"]
+        print(f"resuming from epoch {start_epoch} (step {state.step})", flush=True)
+
+    for epoch in range(start_epoch, config.epochs):
         train_loader.set_epoch(epoch)
+        # the epoch-end evaluation below always runs: a mid-epoch one landing
+        # on the epoch's last iteration would repeat it
+        epoch_end_iters = cur_iters + max(len(train_loader), 1)
         step_metrics = []
         for batch in train_loader:
             batch.pop("sample_mask", None)
-            step_metrics.append(train_step(state, batch_to_device(config, batch, dev)))
+            metrics = train_step(state, batch_to_device(config, batch, dev))
+            step_metrics.append(metrics)
+            cur_iters += 1
+            if (config.eval_every_iters and cur_iters % config.eval_every_iters == 0
+                    and cur_iters < epoch_end_iters):
+                log = {"training": _host(metrics),
+                       "test": evaluate(config, eval_step, test_loader, dev)}
+                if val_loader is not None:
+                    log["validation"] = evaluate(config, eval_step, val_loader, dev)
+                logger.log(log)
+            elif cur_iters % 10 == 0:
+                logger.log({"training": _host(metrics)})
         if step_metrics:
             stacked = {k: torch.stack([m[k] for m in step_metrics]).float().mean().item()
                        for k in step_metrics[0]}
@@ -98,9 +151,25 @@ def train(config: Config, device: str | torch.device = "cuda"
 
         test_m = evaluate(config, eval_step, test_loader, dev)
         val_m = evaluate(config, eval_step, val_loader, dev) if val_loader else test_m
+        elapsed = time.time() - start
+        logger.log({"epoch": epoch, "test": test_m, "validation": val_m,
+                    "elapsed_sec": elapsed})
         print(f"epoch {epoch + 1}/{config.epochs} val={val_m} test={test_m} "
-              f"elapsed_sec={time.time() - start:.1f}", flush=True)
+              f"elapsed_sec={elapsed:.1f}", flush=True)
+        if plateau is not None:
+            # takes effect from the next epoch's first update
+            set_learning_rate(state, plateau.step(val_m["loss"]))
         if _is_better(config, val_m, best):
             best = dict(val_m, epoch=epoch)
+            name = ckpt.best_checkpoint_name(config.checkpoints, epoch, config.task_type,
+                                             test_m)
+            save_weights(state.model, name + ".npz")
             save_weights(state.model, os.path.join(config.checkpoints, "best_modal.npz"))
+        ckpt.save_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
+        meta = {"epoch": epoch, "iters": cur_iters,
+                "best": {k: float(v) for k, v in best.items()}}
+        if plateau is not None:
+            meta["plateau"] = {"lr": plateau.lr, "best": plateau.best,
+                               "num_bad": plateau.num_bad}
+        ckpt.save_resume_meta(config.checkpoints, meta)
     return state, best

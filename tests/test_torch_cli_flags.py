@@ -5,13 +5,17 @@ the JAX package's run or raises.
   keeps its value and its gradient is scaled by 1/w, against the JAX train
   step at ``num_devices`` 4 on one bridged init (f32, dropout off, 1e-4);
   w = 1 at ``num_devices`` 0; an unknown value raises.
-- ``--reload`` and ``--eval_every_iters`` raise before anything is written.
+- ``--reload`` and ``--eval_every_iters``: a one-epoch omic run of the train
+  CLI from a written ``best_modal.npz`` logs the JAX train loop's
+  ``metrics.jsonl`` records (the mid-epoch Test / Val records with
+  ``--eval_every_iters 2``) from the same weights, at 1e-4.
 - ``--workers``: ``Loader`` and ``BucketedLoader`` give the same batches in
   the same order at workers 0 and 2, and the JAX loaders' at workers 2; the
   train loader takes the flag, the eval loaders prefetch nothing (as in JAX).
 """
 
 import functools
+import json
 import warnings
 
 import jax
@@ -128,14 +132,38 @@ def test_train_loader_takes_workers():
 
 
 @pytest.mark.parametrize("flag", [["--reload", "true"], ["--eval_every_iters", "2"]])
-def test_unported_flags_raise_before_writing(flag, tmp_path):
-    ckpt = tmp_path / "ck"
-    with pytest.raises(NotImplementedError):
-        train_main.main(["--dataset", "synthetic", "--fixdim", "64", "--synthetic_size", "8",
-                         "--batch_size", "3", "--input_path_dim", "64", "--path_dim", "32",
-                         "--mmhid", "32", "--epochs", "1", "--device", "cpu",
-                         "--checkpoints", str(ckpt), *flag])
-    assert not ckpt.exists()
+def test_reload_and_eval_every_iters_match_jax_loop(flag, tmp_path):
+    """``--reload`` and ``--eval_every_iters`` give the JAX loop's run: both
+    sides reload the same weights (the JAX init moved by 0.02) and log the
+    same records."""
+    from sml_tpu.train import checkpoint as j_ckpt
+    from sml_tpu.train import loop as j_loop
+    from sml_tpu.utils.logging import MetricLogger as JMetricLogger
+
+    kw = dict(dataset="synthetic", fixdim=64, synthetic_size=24, batch_size=8, epochs=1,
+              mode="omic", dropout_rate=0.0, reload=True,
+              eval_every_iters=int(flag[1]) if flag[0] == "--eval_every_iters" else 0)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jcfg = JConfig(**kw, checkpoints=str(jdir), use_pallas=False)
+    weights = jax.tree_util.tree_map(lambda v: np.asarray(v) + 0.02,
+                                     j_loop.setup(JConfig(**dict(kw, reload=False),
+                                                          use_pallas=False))[2].params)
+    j_ckpt.save_weights(str(jdir / "best_modal"), {"params": weights})
+    pdir.mkdir()
+    np.savez(pdir / "best_modal.npz", **flatten_params(weights))
+    j_loop.train(jcfg, JMetricLogger(out_dir=str(jdir)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert train_main.main([f"--{k}={v}" for k, v in kw.items()]
+                               + ["--device=cpu", f"--checkpoints={pdir}"]) == 0
+    records = [[json.loads(line) for line in open(d / "metrics.jsonl")] for d in (pdir, jdir)]
+    assert [r.keys() for r in records[0]] == [r.keys() for r in records[1]]
+    mid = [r for r in records[0] if "test/loss" in r and "epoch" not in r]
+    assert len(mid) == (1 if kw["eval_every_iters"] else 0)
+    for got, want in zip(*records):
+        for k in want:
+            if k not in ("t", "elapsed_sec"):
+                np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
 
 
 VAR = dict(dataset="synthetic", fixdim=64, input_path_dim=8, synthetic_size=24,

@@ -249,11 +249,6 @@ def test_train_cli_two_bucketed_epochs(tmp_path, capsys):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="sgd"):
-        define_optimizer(Config(**dict(SMALL, optimizer="sgd")), torch.nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="remat"):
-        define_net(Config(dataset="synthetic", fixdim=64, input_path_dim=32, path_dim=16,
-                          remat=True), CPU)
     with pytest.raises(NotImplementedError, match="return_attn"):
         define_net(Config(**SMALL), CPU).layer1.attn(torch.zeros(1, 8, 512),
                                                     return_attn=True)
