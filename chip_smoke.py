@@ -138,6 +138,23 @@ The rest of a training run, deformpathomic at 2500 patches (B = 8, bf16):
             after the step, #1 and #3 launched 4 times and #2 and #4 twice
             (without remat: each twice), and both steps' time and peak memory.
 
+The real-data workflow, on a fake cohort written at full size (IvYGAP and
+TCGA, 16 patients each, 2500 x 1024 f32 features per slide in .h5 files from
+``write_h5``, the 431 genes of the signature, CSVs and TSVs from ``csv``):
+
+19. cohort  the readers' Train epoch timed (MB/s, samples/s); deformpathomic
+            (bf16) trained one epoch by ``main.main --dataset both``, each of
+            #1-#4 twice per train step as in phase 6; the cohort packed by
+            ``python -m sml_tpu_torch.pack_data``, the native prefetcher's
+            (workers 2) and the numpy path's batches equal to the readers'
+            (Train and Test), both timed; the same epoch from ``--packed_dir``
+            (losses within TRAIN_TOL, bit equality reported); pathomic (f32,
+            ``--novalset``) trained one epoch and attributed by
+            ``inference.main --attribution`` ablation, permutation,
+            gradient_shap and deep_shap, MCAT (survival) by mcat_groups: each a
+            CSV of 431 finite rows and a ``metrics.jsonl`` record, no kernel
+            launch, timed; then the phase's wall time.
+
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs no network, imports nothing of JAX, and exits non-zero without a
@@ -1797,6 +1814,353 @@ def phase_remat(card: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def write_h5(path: str, name: str, arr) -> None:
+    """A minimal HDF5 file holding one contiguous little-endian f32 dataset
+    ``name`` in its root group, as h5py lays it out by default (superblock 0,
+    a symbol-table root group, version-1 object headers), without h5py."""
+    import struct
+
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr, dtype="<f4")
+    undef = 0xFFFFFFFFFFFFFFFF
+    leaf_k, internal_k = 4, 16
+
+    def message(mtype: int, body: bytes) -> bytes:
+        body += b"\0" * (-len(body) % 8)
+        return struct.pack("<HHB3x", mtype, len(body), 0) + body
+
+    def header(msgs) -> bytes:
+        blob = b"".join(msgs)
+        return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(blob)) + blob
+
+    # root object header, local heap (names), group B-tree, symbol node, the
+    # dataset's object header, then the data, each at an 8-byte boundary
+    names = b"\0" * 8 + name.encode() + b"\0"
+    names += b"\0" * (-len(names) % 8)
+    sizes = {"sb": 96, "root": 40, "heap": 32 + len(names),
+             "btree": 24 + (2 * internal_k + 1) * 8 + 2 * internal_k * 8,
+             "snod": 8 + 2 * leaf_k * 40}
+    space = struct.pack("<BBBx4x", 1, arr.ndim, 0) + struct.pack(f"<{arr.ndim}Q", *arr.shape)
+    dtype = struct.pack("<B3BI", 0x11, 0x20, 31, 0, 4) + struct.pack("<HHBBBBI", 0, 32, 23, 8,
+                                                                     0, 23, 127)
+    fill = struct.pack("<BBBB", 2, 2, 2, 0)
+    addr, at = 0, {}
+    for key in ("sb", "root", "heap", "btree", "snod"):
+        at[key] = addr
+        addr += sizes[key]
+    at["dset"] = addr
+    dset_len = len(header([message(1, space), message(3, dtype), message(5, fill),
+                           message(8, bytes(18))]))
+    at["data"] = -(-(addr + dset_len) // 8) * 8
+    layout = struct.pack("<BBQQ", 3, 1, at["data"], arr.nbytes)
+    dset = header([message(1, space), message(3, dtype), message(5, fill),
+                   message(8, layout)])
+    eof = at["data"] + arr.nbytes
+    sb = (b"\x89HDF\r\n\x1a\n" + struct.pack("<8B", 0, 0, 0, 0, 0, 8, 8, 0)
+          + struct.pack("<HHI", leaf_k, internal_k, 0)
+          + struct.pack("<4Q", 0, undef, eof, undef)
+          + struct.pack("<QQII", 0, at["root"], 1, 0) + struct.pack("<QQ", at["btree"],
+                                                                   at["heap"]))
+    root = header([message(0x11, struct.pack("<QQ", at["btree"], at["heap"]))])
+    heap = (b"HEAP" + struct.pack("<B3xQQQ", 0, len(names), 1, at["heap"] + 32) + names)
+    btree = (b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, undef, undef)
+             + struct.pack("<QQQ", 0, at["snod"], 8)).ljust(sizes["btree"], b"\0")
+    snod = (b"SNOD" + struct.pack("<BxH", 1, 1)
+            + struct.pack("<QQII16x", 8, at["dset"], 0, 0)).ljust(sizes["snod"], b"\0")
+    with open(path, "wb") as f:
+        for key, blob in (("sb", sb), ("root", root), ("heap", heap), ("btree", btree),
+                          ("snod", snod), ("dset", dset)):
+            f.seek(at[key])
+            f.write(blob)
+        f.seek(at["data"])
+        f.write(arr.tobytes())
+
+
+# phase 19's fake cohort: IvYGAP and TCGA with COHORT_PATIENTS patients (one
+# slide each) and the 431 genes of the signature (59 Tumor, 361 Immune, 11 of
+# neither); each slide's features (1, fixdim, 1024) f32 in an .h5 file; each
+# TCGA sample's GDC file at its real size, GDC_GENES rows after the 4 N_ rows
+COHORT_PATIENTS = 16
+COHORT_SEED = 42       # Config's default seed: the readers' patient shuffle
+COHORT_GENES = (("Tumor", 59), ("Immune", 361), ("Other", 11))
+GDC_GENES = 60660
+# diag2021 class -> (idh, codel, cdkn, grade, TCGA histology)
+COHORT_CLASSES = (("WT", "non-codel", 0, "G4", "glioblastoma"),
+                  ("Mutant", "non-codel", -2, "G3", "astrocytoma"),
+                  ("Mutant", "non-codel", 0, "G2", "astrocytoma"),
+                  ("Mutant", "codel", 0, "G3", "oligodendroglioma"))
+ATTRIBUTIONS = ("ablation", "permutation", "gradient_shap", "deep_shap")
+
+
+def write_cohort(root: str, fixdim: int) -> int:
+    """The IvYGAP and TCGA trees the readers expect, written with ``csv`` and
+    ``write_h5``; returns the bytes written.  A patient's diag2021 class is its
+    rank in the readers' seeded patient shuffle mod 4, so any 4 consecutive
+    ranks (every split of either size) hold every class."""
+    import csv
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(COHORT_SEED)
+    genes = [f"G{i}" for i in range(sum(n for _, n in COHORT_GENES))]
+    kinds = [k for k, n in COHORT_GENES for _ in range(n)]
+    written = 0
+
+    def table(path, header, rows, delimiter=",", comment=""):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", newline="") as f:
+            f.write(comment)
+            w = csv.writer(f, delimiter=delimiter)
+            w.writerow(header)
+            w.writerows(rows)
+
+    def features(path):
+        nonlocal written
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        x = rng.standard_normal((1, fixdim, 1024), dtype=np.float32)
+        write_h5(path, "Res_feature", x)
+        written += x.nbytes
+
+    def ranks(ids):
+        order = np.unique(np.asarray(ids, dtype=object))
+        np.random.RandomState(COHORT_SEED).shuffle(order)
+        return {p: r for r, p in enumerate(order)}
+
+    sig = rng.permutation(len(genes))             # the signature in its own order
+    table(f"{root}/TCGA/gene_signature_selected.csv", ["gene_symbol", "Type"],
+          [[genes[i], kinds[i]] for i in sig])
+
+    tcga, rows = f"{root}/TCGA", []
+    ids = [f"TCGA-{i:02d}" for i in range(COHORT_PATIENTS)]
+    rank = ranks(ids)
+    # a GDC STAR-counts file: the signature genes among the others, in one
+    # order for every sample
+    names = [f"GENE{j}" for j in range(GDC_GENES)]
+    for g, j in zip(genes, rng.choice(GDC_GENES, len(genes), replace=False)):
+        names[j] = g
+    gdc_cols = ["gene_id", "gene_name", "gene_type", "unstranded", "stranded_first",
+                "stranded_second", "tpm_unstranded", "fpkm_unstranded",
+                "fpkm_uq_unstranded"]
+    for i, pid in enumerate(ids):
+        idh, codel, cdkn, grade, his = COHORT_CLASSES[rank[pid] % 4]
+        slide = f"{pid}-01Z"
+        features(f"{tcga}/Res50_feature_{fixdim}_fixdim0_norm/{slide}.h5")
+        counts = rng.integers(0, 5000, (GDC_GENES, 3)).tolist()
+        fpkm = np.round(rng.uniform(0, 100, (GDC_GENES, 3)), 4).tolist()
+        table(f"{tcga}/transcriptomeProfiling_geneExpression/case{i}/expr{i}.tsv", gdc_cols,
+              [[f"N_{k}", "", "", *rng.integers(0, 10 ** 6, 3).tolist(), "", "", ""]
+               for k in ("unmapped", "multimapping", "noFeature", "ambiguous")]
+              + [[f"ENSG{j:011d}.{j % 20}", name, "protein_coding", *c, *f]
+                 for j, (name, c, f) in enumerate(zip(names, counts, fpkm))],
+              delimiter="\t", comment="# gene-model: GENCODE v36\n")
+        rows.append([pid, slide, his, grade, idh, codel, cdkn, 0, 0, 0, 0, f"case{i}",
+                     f"expr{i}.tsv", rank[pid] % 2, f"{rng.uniform(30, 2000):.1f}"])
+    table(f"{tcga}/multimodal_diag_survival_TCGA.csv",
+          ["patient", "slide", "his", "grade", "idh", "codel", "cdkn", "c7", "c8", "c9",
+           "c10", "gene_dir", "gene_file", "dead", "time"], rows)
+
+    ivy = f"{root}/IvYGAP"
+    gdir = f"{ivy}/gene_expression_matrix_2014-11-25"
+    table(f"{gdir}/rows-genes.csv", ["gene_id", "gene_symbol"],
+          [[100 + j, g] for j, g in enumerate(genes)])
+    ids = [f"W{i}" for i in range(COHORT_PATIENTS)]
+    rank = ranks(ids)
+    wells = [1000 + i for i in range(COHORT_PATIENTS)]
+    table(f"{gdir}/columns-samples.csv", ["rna_well_id", "specimen_name"],
+          [[w, f"{pid}-1-1-X"] for w, pid in zip(wells, ids)])
+    values = rng.uniform(0, 100, (len(genes), COHORT_PATIENTS))
+    table(f"{gdir}/fpkm_table.csv", ["gene_id\\rna_well_id"] + [str(w) for w in wells],
+          [[100 + j] + [f"{v:.4f}" for v in values[j]] for j in range(len(genes))])
+    rows = []
+    for pid in ids:
+        idh, codel, cdkn, grade, _ = COHORT_CLASSES[rank[pid] % 4]
+        slide = f"{pid}-1-1-D.01"
+        features(f"{ivy}/Res50_feature_{fixdim}_fixdim0_norm/{slide}.h5")
+        rows.append([pid, slide, 0, grade, idh, codel, cdkn, rank[pid] % 2,
+                     f"{rng.uniform(30, 2000):.1f}"])
+    table(f"{ivy}/multimodal_diag_survival_IvY.csv",
+          ["patient", "slide", "c2", "grade", "idh", "codel", "cdkn", "dead", "time"], rows)
+    return written
+
+
+def _batches_equal(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def _epoch_mb_s(loader) -> tuple:
+    """(batches, MB/s, samples/s) of one pass over ``loader``."""
+    t0 = time.perf_counter()
+    batches = list(loader)
+    s = time.perf_counter() - t0
+    n_bytes = sum(v.nbytes for b in batches for v in b.values())
+    return batches, n_bytes / 1e6 / s, sum(len(b["labels"]) for b in batches) / s
+
+
+def _attribute(flags: dict, ckpt: str, kind: str, n_genes: int) -> dict:
+    """``inference.main --attribution kind`` on ``ckpt/best_modal.npz``: its
+    seconds, the CSV's rows (all finite) and the ``metrics.jsonl`` records."""
+    import numpy as np
+
+    from sml_tpu_torch import inference
+    from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    argv = ([f"--{k}={v}" for k, v in flags.items() if k != "epochs"]
+            + [f"--weights={ckpt}/best_modal.npz", f"--checkpoints={ckpt}",
+               f"--attribution={kind}", "--device=cuda"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = inference.main(argv)
+    seconds = time.perf_counter() - t0
+    name = "difference_acc_list.csv" if kind == "ablation" else "gene_importance.csv"
+    with open(f"{ckpt}/{name}") as f:
+        lines = f.read().strip().splitlines()
+    values = np.asarray([float(ln.split(",")[1]) for ln in lines[1:]])
+    with open(f"{ckpt}/metrics.jsonl") as f:
+        records = [json.loads(ln) for ln in f]
+    record = {k: v for k, v in records[-1].items() if k.startswith("attribution/")}
+    ok = (rc == 0 and lines[0] == "gene_index,importance" and len(values) == n_genes
+          and bool(np.isfinite(values).all()) and bool(record)
+          and any(k.startswith("test/") for k in records[-2])
+          and not any(launch_counts().values()))
+    return {"kind": kind, "s": round(seconds, 2), "rows": len(values),
+            "top_gene": int(values.argmax()), "record": record, "ok": ok,
+            "printed": printed.getvalue().strip().splitlines()[-1]}
+
+
+def phase_cohort(card: dict) -> None:
+    """Phase 19: the real-data workflow on a full-size fake cohort (IvYGAP and
+    TCGA, COHORT_PATIENTS patients each, 2500 x 1024 f32 features per slide
+    in .h5 files, the 431 genes): the readers' Train epoch timed; deformpathomic
+    (bf16) trained one epoch from ``--dataset both`` with #1-#4 launched as in
+    phase 6; the cohort packed by ``python -m sml_tpu_torch.pack_data``, whose
+    native (workers 2) and numpy batches must equal the readers'; the same
+    epoch trained from ``--packed_dir`` (losses within TRAIN_TOL, bit equality
+    reported); then pathomic (f32, ``--novalset``) trained one epoch and
+    attributed by ``inference.main --attribution`` ablation / permutation /
+    gradient_shap / deep_shap, and MCAT (survival) by mcat_groups: a CSV of
+    431 finite rows each, its ``metrics.jsonl`` record, no kernel launch."""
+    import os
+    import subprocess
+    import tempfile
+
+    from sml_tpu_torch import runtime
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import Loader, build_datasets
+    from sml_tpu_torch.data.packed import PackedLoader
+
+    t_phase = time.perf_counter()
+    n_genes = sum(n for _, n in COHORT_GENES)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, packed = f"{tmp}/data/", f"{tmp}/packed"
+        t0 = time.perf_counter()
+        n_bytes = write_cohort(data, MAIN_FIXDIM)
+        _line("cohort", step="write", patients_per_cohort=COHORT_PATIENTS, genes=n_genes,
+              feature_mb=n_bytes / 1e6, s=round(time.perf_counter() - t0, 2))
+
+        # 1) the readers' Train epoch, then deformpathomic trained from them
+        flags = _flags("deformpathomic", dataset="both", dataDir=data, fixdim=MAIN_FIXDIM,
+                       epochs=1)
+        config = Config(**flags)
+        train_loader = Loader(build_datasets(config, "Train"), config.batch_size,
+                              shuffle=True, drop_last=True, seed=config.seed)
+        test_loader = Loader(build_datasets(config, "Test"), config.batch_size)
+        readers, reader_mb_s, reader_samples_s = _epoch_mb_s(train_loader)
+        train_loader.set_epoch(1)          # the TCGA gene files parsed once, in epoch 0
+        _, reader_mb_s_2, reader_samples_s_2 = _epoch_mb_s(train_loader)
+        train_loader.set_epoch(0)
+        steps = len(train_loader)
+        rc, printed, total, eval_l, wall_s = _train_entry(flags, f"{tmp}/readers")
+        train_l = {k: total[k] - eval_l[k] for k in total}
+        want = {k: TRAIN_LAUNCHES["deformpathomic"].get(k, 0) * steps for k in total}
+        train_m, val_m, test_m = _epoch_metrics(printed)
+        ok = (rc == 0 and steps > 0 and train_l == want
+              and not (eval_l["cpb_bias_bwd"] or eval_l["deform_attention_bwd"])
+              and all(math.isfinite(v) for m in (train_m, val_m, test_m)
+                      for v in m.values()))
+        _line("cohort", step="train", dataset="both", mode="deformpathomic",
+              dtype=config.compute_dtype, samples={"Train": len(train_loader.dataset),
+                                                   "Test": len(test_loader.dataset)},
+              steps=steps, launches_train_steps=train_l, expected_launches=want,
+              launches_eval=eval_l, train_metrics=train_m, val_metrics=val_m,
+              test_metrics=test_m, reader_mb_s=reader_mb_s,
+              reader_samples_s=reader_samples_s, reader_mb_s_epoch2=reader_mb_s_2,
+              reader_samples_s_epoch2=reader_samples_s_2, entry_point_wall_s=round(wall_s, 2),
+              ok=ok, card=card["nvidia_smi"])
+        if not ok:
+            raise AssertionError(f"cohort train: rc={rc} launches {train_l}, expected {want}")
+
+        # 2) packed: the same batches three ways, then the same epoch trained
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sml_tpu_torch.pack_data",
+                               "--dataset", "both", "--dataDir", data, "--out", packed,
+                               "--fixdim", str(MAIN_FIXDIM), "--seed", str(config.seed)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=300)
+        pack_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"pack_data failed: {proc.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        runtime.load_library()                    # g++, outside the timed passes
+        prefetch_build_s = time.perf_counter() - t0
+        kw = dict(shuffle=True, drop_last=True, seed=config.seed)
+        native, native_mb_s, _ = _epoch_mb_s(
+            PackedLoader(f"{packed}/Train.bin", config.batch_size, workers=2, **kw))
+        numpy_b, numpy_mb_s, _ = _epoch_mb_s(
+            PackedLoader(f"{packed}/Train.bin", config.batch_size, workers=0, **kw))
+        tests = [list(PackedLoader(f"{packed}/Test.bin", config.batch_size, workers=w))
+                 for w in (2, 0)]
+        equal = {"train_native": _batches_equal(native, readers),
+                 "train_numpy": _batches_equal(numpy_b, readers),
+                 "test_native": _batches_equal(tests[0], list(test_loader)),
+                 "test_numpy": _batches_equal(tests[1], list(test_loader))}
+        rc, printed, total_p, _, wall_p = _train_entry(dict(flags, packed_dir=packed),
+                                                       f"{tmp}/packed_run")
+        train_p, val_p, test_p = _epoch_metrics(printed)
+        loss_tol = TRAIN_TOL[config.compute_dtype][0]
+        loss_err = {k: abs(train_p[k] - train_m[k]) for k in train_m}
+        bit_equal = (train_p, val_p, test_p) == (train_m, val_m, test_m)
+        ok = (rc == 0 and all(equal.values()) and total_p == total
+              and all(e <= loss_tol for e in loss_err.values()))
+        _line("cohort", step="packed", pack_s=round(pack_s, 2),
+              prefetch_build_s=round(prefetch_build_s, 2), batches_equal=equal,
+              native_workers2_mb_s=native_mb_s, numpy_mb_s=numpy_mb_s,
+              train_metrics=train_p, loss_abs_err=loss_err, loss_tol=loss_tol,
+              bit_equal_to_readers_run=bit_equal, launches_equal=total_p == total,
+              entry_point_wall_s=round(wall_p, 2), ok=ok, card=card["nvidia_smi"])
+        if not ok:
+            raise AssertionError(f"cohort packed: rc={rc} batches {equal}, loss {loss_err}")
+
+        # 3) attribution: pathomic (classification) and MCAT (survival), one
+        # epoch each from the readers, weights from best_modal.npz
+        failures = []
+        runs = ((dict(mode="pathomic"), ATTRIBUTIONS),
+                (dict(mode="mcat", task_type="survival"), ("mcat_groups",)))
+        for extra, kinds in runs:
+            aflags = {"dataset": "both", "dataDir": data, "fixdim": MAIN_FIXDIM,
+                      "batch_size": 8, "epochs": 1, "novalset": True, **extra}
+            ckpt = f"{tmp}/{extra['mode']}"
+            rc, _, total_a, _, wall_a = _train_entry(aflags, ckpt)
+            if rc != 0 or any(total_a.values()) or \
+                    not os.path.exists(f"{ckpt}/best_modal.npz"):
+                raise AssertionError(f"{extra['mode']} run: rc={rc} launches {total_a}")
+            for kind in kinds:
+                res = _attribute(aflags, ckpt, kind, n_genes)
+                _line("cohort", step="attribution", mode=extra["mode"], train_wall_s=round(
+                    wall_a, 2), **res, card=card["nvidia_smi"])
+                if not res["ok"]:
+                    failures.append(kind)
+        if failures:
+            raise AssertionError(f"cohort attribution failed: {failures}")
+    _line("cohort", step="phase", wall_s=round(time.perf_counter() - t_phase, 1))
+
+
 def _host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1891,6 +2255,8 @@ def main() -> int:
     # 17. resume, 18. remat: the rest of a training run
     phase_resume(card)
     phase_remat(card)
+    # 19. cohort: the real-data workflow (readers, packed files, attribution)
+    phase_cohort(card)
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]

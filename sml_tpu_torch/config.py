@@ -32,6 +32,7 @@ class Config:
     synthetic_size: int = 256
     bucket_sizes: str = ""
     variable_bags: bool = False
+    packed_dir: str = ""                # {Train,Val,Test}.bin from sml_tpu_torch.pack_data
 
     # --- distributed / host ---
     workers: int = 0

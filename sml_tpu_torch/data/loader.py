@@ -1,5 +1,8 @@
-"""Batching (counterpart of ``sml_tpu/data/loader.py``: ``Loader`` and
-``BucketedLoader``, single host).
+"""Datasets by name and batching (counterpart of ``sml_tpu/data/loader.py``:
+``build_datasets``, ``Loader`` and ``BucketedLoader``, single host).
+
+``dataset`` synthetic, IvYGAP, TCGA, or both (the two cohorts concatenated,
+IvYGAP first).
 
 Eval mode: sequential order; the final batch is padded to ``batch_size`` by
 repeating its last sample, and ``sample_mask`` (1 = real, 0 = pad) marks the
@@ -18,21 +21,46 @@ import threading
 import warnings
 from collections import Counter
 from queue import Queue
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
 from sml_tpu_torch.config import Config
 
 
+class ConcatDataset:
+    """The samples of each dataset in turn."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self.cum = np.cumsum([len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self.cum[-1]) if len(self.cum) else 0
+
+    def __getitem__(self, index: int):
+        ds_idx = int(np.searchsorted(self.cum, index, side="right"))
+        prev = 0 if ds_idx == 0 else int(self.cum[ds_idx - 1])
+        return self.datasets[ds_idx][index - prev]
+
+
 def build_datasets(config: Config, phase: str):
-    """dataset flag -> dataset for ``phase`` (``synthetic`` only in the port)."""
+    """dataset flag -> dataset for ``phase``: synthetic, IvYGAP, TCGA, or
+    both (IvYGAP then TCGA, the reference's default)."""
     if config.dataset == "synthetic":
         from sml_tpu_torch.data.synthetic import SyntheticDataset
 
         return SyntheticDataset(phase, config)
-    raise NotImplementedError(
-        f"dataset {config.dataset!r} is not ported yet (synthetic only)")
+    from sml_tpu_torch.data.datasets import IvYGAPDataset, TCGADataset
+
+    if config.dataset == "IvYGAP":
+        return IvYGAPDataset(phase, config)
+    if config.dataset == "TCGA":
+        return TCGADataset(phase, config)
+    if config.dataset == "both":
+        return ConcatDataset([IvYGAPDataset(phase, config), TCGADataset(phase, config)])
+    raise ValueError(f"unknown dataset {config.dataset!r} "
+                     "(synthetic, IvYGAP, TCGA or both)")
 
 
 class Loader:

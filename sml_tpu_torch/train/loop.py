@@ -1,11 +1,13 @@
 """Training orchestration (counterpart of ``sml_tpu/train/loop.py``: ``setup``,
 ``_is_better`` and ``train`` in their single-device, per-step form).
 
-With ``bucket_sizes`` set, the loaders are ``BucketedLoader``s (one bucket per
-batch); ``workers > 0`` collates the train batches on a thread ahead of the
-step.  ``reload`` starts from ``<checkpoints>/best_modal.npz`` with a fresh
-optimizer; ``resume`` continues the run that wrote ``<checkpoints>/
-last_state.pt`` (and starts afresh without one).  Per epoch: the seeded
+With ``packed_dir`` set, the splits come from its packed files through the
+native prefetcher; else from the datasets, with ``bucket_sizes`` through
+``BucketedLoader``s (one bucket per batch), and ``workers > 0`` collates the
+train batches on a thread ahead of the step.  ``reload`` starts from
+``<checkpoints>/best_modal.npz`` with a fresh optimizer; ``resume`` continues
+the run that wrote ``<checkpoints>/last_state.pt`` (and starts afresh without
+one).  Per epoch: the seeded
 shuffled train batches, one train step each (every ``eval_every_iters``
 iterations inside the epoch a Test and Val pass, logged with that step's train
 metrics, else the train metrics every 10 iterations), then Test and Val
@@ -51,15 +53,7 @@ def setup(config: Config, device: str | torch.device = "cuda"):
         # f32 products and convolutions in full f32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    # mixed bag-size buckets: every batch holds one bucket, masks keep the
-    # padding exact
-    loader_cls = BucketedLoader if config.bucket_list() else Loader
-    train_loader = loader_cls(build_datasets(config, "Train"), config.batch_size,
-                              shuffle=True, drop_last=True, seed=config.seed,
-                              workers=config.workers)
-    test_loader = loader_cls(build_datasets(config, "Test"), config.batch_size)
-    val_loader = (None if config.novalset
-                  else loader_cls(build_datasets(config, "Val"), config.batch_size))
+    train_loader, val_loader, test_loader = _loaders(config)
     model = define_net(config, device, train=True)
     optimizer, scheduler = define_optimizer(config, model, max(len(train_loader), 1))
     state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(config.seed, device))
@@ -69,6 +63,39 @@ def setup(config: Config, device: str | torch.device = "cuda"):
         ckpt.restore_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
     return (state, make_train_step(config, model), make_eval_step(config, model),
             (train_loader, val_loader, test_loader))
+
+
+def _loaders(config: Config):
+    """(train, val or None, test) loaders: the packed splits of ``packed_dir``
+    through the native prefetcher (``max(workers, 2)`` threads), else the
+    datasets, per bag-size bucket with ``bucket_sizes``."""
+    if config.packed_dir:
+        if config.bucket_list():
+            raise ValueError("packed_dir holds fixed-size records: bucket_sizes needs "
+                             "the datasets (drop packed_dir)")
+        from sml_tpu_torch.data.packed import PackedLoader
+
+        def packed(phase, **kw):
+            return PackedLoader(os.path.join(config.packed_dir, f"{phase}.bin"),
+                                config.batch_size, workers=max(config.workers, 2), **kw)
+
+        return (packed("Train", shuffle=True, drop_last=True, seed=config.seed),
+                None if config.novalset else packed("Val"), packed("Test"))
+    train_ds = build_datasets(config, "Train")
+    loader_cls = Loader
+    if config.bucket_list():
+        # mixed bag-size buckets: every batch holds one bucket, masks keep the
+        # padding exact
+        if not hasattr(train_ds, "bucket_of"):
+            raise ValueError(f"dataset {config.dataset!r} does not expose "
+                             "bucket_of(i) metadata for bucket_sizes")
+        loader_cls = BucketedLoader
+    train_loader = loader_cls(train_ds, config.batch_size, shuffle=True, drop_last=True,
+                              seed=config.seed, workers=config.workers)
+    val_loader = (None if config.novalset
+                  else loader_cls(build_datasets(config, "Val"), config.batch_size))
+    return train_loader, val_loader, loader_cls(build_datasets(config, "Test"),
+                                                config.batch_size)
 
 
 def _is_better(config: Config, val: Dict[str, float], best: Dict[str, float]) -> bool:

@@ -117,9 +117,9 @@ def test_bridge_round_trips_batch_stats_and_the_new_leaf_kinds(extra, tmp_path):
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sml_tpu", "yaml", "sklearn",
-            "h5py", "pandas")
+            "h5py", "pandas", "PIL", "openpyxl")
 
-_IMPORT_PROBE = r"""
+_BLOCK = r"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = set(sys.argv[1].split(","))
 
@@ -133,6 +133,9 @@ for mod in list(sys.modules):
     if mod.split(".")[0] in BLOCKED:
         del sys.modules[mod]
 sys.meta_path.insert(0, Block())
+"""
+
+_IMPORT_PROBE = _BLOCK + r"""
 import sml_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sml_tpu_torch.__path__, "sml_tpu_torch.")]
 for name in names:
@@ -149,6 +152,42 @@ def test_port_imports_no_jax_no_sml_tpu_no_host_only_libraries():
     assert proc.returncode == 0, proc.stderr
     n_modules = len(list(pkgutil.walk_packages(sml_tpu_torch.__path__, "sml_tpu_torch.")))
     assert int(proc.stdout.split()[-1]) == n_modules >= 20
+
+
+# the cohort, packed and attribution paths run under the same block, so that an
+# import inside a function (pandas, h5py, PIL, ...) fails as well
+_PATH_PROBE = _BLOCK + r"""
+from sml_tpu_torch import inference
+from sml_tpu_torch.config import Config
+from sml_tpu_torch.data.loader import build_datasets
+from sml_tpu_torch.data.packed import PackedLoader, pack_dataset
+
+root, out = sys.argv[2], sys.argv[3]
+genes = dict(input_size_omic=12, input_size_omic_tumor=5, input_size_omic_immune=7)
+ds = build_datasets(Config(dataset="both", dataDir=root, fixdim=16, **genes), "Train")
+assert ds[0]["x_path"].shape == (16, 1024)
+pack_dataset(ds, out + "/Train.bin")
+assert next(iter(PackedLoader(out + "/Train.bin", 2, workers=2)))["x_omic"].shape == (2, 12)
+argv = ["--dataset=both", f"--dataDir={root}", "--fixdim=16", "--mode=omic", "--batch_size=4",
+        "--device=cpu", "--debug", f"--checkpoints={out}", "--attribution=ablation"]
+assert inference.main(argv + [f"--{k}={v}" for k, v in genes.items()]) == 0
+print(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
+"""
+
+
+def test_cohort_packed_and_attribution_paths_import_no_blocked_library(tmp_path):
+    """The readers, the packer, the native prefetcher and ``--attribution``
+    run with the blocked libraries unimportable."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_data import _write_fake_corpus
+
+    _write_fake_corpus(str(tmp_path), fixdim=16, n_patients=8)
+    proc = subprocess.run([sys.executable, "-c", _PATH_PROBE, ",".join(_BLOCKED),
+                           str(tmp_path) + "/", str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[-2] == "[]"
+    assert os.path.exists(tmp_path / "difference_acc_list.csv")
 
 
 def test_chip_smoke_imports_no_jax():
