@@ -155,6 +155,27 @@ TCGA, 16 patients each, 2500 x 1024 f32 features per slide in .h5 files from
             CSV of 431 finite rows and a ``metrics.jsonl`` record, no kernel
             launch, timed; then the phase's wall time.
 
+The device loop and the last utilities, deformpathomic at 2500 patches (B = 8,
+bf16):
+
+20. device-loop  one epoch of 6 train steps through ``main.main`` per step and
+            with ``--device_loop true --device_loop_chunk 4`` (a chunk of 4 and
+            a remainder of 2), from one seed: the final parameters within
+            RESUME_PARAM_TOL and Adam's moments within RESUME_OPT_TOL (bit
+            equality reported), the rest of the state exactly, each of #1-#4
+            launched 12 times in both runs; the median step time both ways
+            (``utils/profiling.StepTimer``), a chunk's stacked copy to the
+            card, the peak memory; ``return_attn`` of a TransMIL (bf16, dh =
+            64) and a CMTA (f32, dh = 32) Nystrom attention at 2501 tokens
+            against its kernel route (SLICE_TOL, no launch, the attention
+            finite and of JAX's shape); ``utils/profiling.trace`` around a
+            train step naming the kernel functions of #1-#4;
+            ``utils/flops.deformpathomic_flops`` at S2500 / S4096, train and
+            eval, beside its time at the bf16 peak and phase 4's kernel times;
+            ``utils/torch_compat.load_reference_state_dict`` of a reference
+            state dict (``reference_state_dict``) into a model on the card,
+            then an eval step.
+
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs no network, imports nothing of JAX, and exits non-zero without a
@@ -1814,6 +1835,173 @@ def phase_remat(card: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def reference_state_dict(variables: dict, mode: str, attn_dim: int = 2) -> dict:
+    """A reference model's ``state_dict`` (numpy) that holds the flax
+    ``variables`` of ``mode`` (a ``--mode``, or ``"transmil"``): the key names
+    and layouts that ``convert_reference_state_dict`` reads, so that
+    converting it gives ``variables`` back.  The reference also declares keys
+    the converter reads and drops (the unused 1-D or 2-D deformable attention,
+    the 2-D model's ``cls_token``); they are filled from the used ones."""
+    import numpy as np
+
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = {}
+
+    def put(key, a):
+        sd[key] = np.ascontiguousarray(a)
+
+    def dense(p, t):
+        put(p + ".weight", t["kernel"].T)
+        if "bias" in t:
+            put(p + ".bias", t["bias"])
+
+    def conv(p, t):                  # Conv (kh, kw, in/g, out) or Conv1 (k, in/g, out)
+        k = t["kernel"]
+        put(p + ".weight", k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.transpose(2, 1, 0))
+        if "bias" in t:
+            put(p + ".bias", t["bias"])
+
+    def layernorm(p, t):
+        put(p + ".weight", t["scale"])
+        put(p + ".bias", t["bias"])
+
+    def packed_mha(p, t):
+        qkv = ("q_proj", "k_proj", "v_proj")
+        put(p + ".in_proj_weight", np.concatenate([t[n]["kernel"].T for n in qkv]))
+        put(p + ".in_proj_bias", np.concatenate([t[n]["bias"] for n in qkv]))
+        dense(p + ".out_proj", t["out_proj"])
+
+    def maxnet(p, t):
+        for i in range(4):
+            dense(f"{p}encoder.{i}.0", t[f"encoder{i + 1}"])
+        dense(p + "classifier.0", t["classifier"])
+
+    def abmil(p, t):
+        dense(p + "attention.0", t["attention_0"])
+        dense(p + "attention.2", t["attention_1"])
+        dense(p + "classifier.0", t["classifier"])
+        dense(p + "multimodal_projection", t["multimodal_projection"])
+
+    def transformer(p, t):           # TransMIL's, CMTA's Transformer_P and _G
+        put(p + "cls_token", t["cls_token"])
+        for layer in ("layer1", "layer2"):
+            a = t[layer]["attn"]
+            layernorm(f"{p}{layer}.norm", t[layer]["norm"])
+            put(f"{p}{layer}.attn.to_qkv.weight", a["to_qkv"]["kernel"].T)
+            dense(f"{p}{layer}.attn.to_out.0", a["to_out"])
+            put(f"{p}{layer}.attn.res_conv.weight", a["res_conv_kernel"].T[:, None, :, None])
+        for proj in ("proj", "proj1", "proj2") if "pos_layer" in t else ():
+            conv(f"{p}pos_layer.{proj}", t["pos_layer"][proj])
+        layernorm(p + "norm", t["norm"])
+
+    def bilinear_fusion(p, t, s):
+        for i in (1, 2):
+            dense(f"{p}linear_h{i}.0", t[f"linear_h{i}"])
+            put(f"{p}linear_z{i}.weight", t[f"linear_z{i}"]["weight"])
+            put(f"{p}linear_z{i}.bias", t[f"linear_z{i}"]["bias"])
+            dense(f"{p}linear_o{i}.0", t[f"linear_o{i}"])
+            dense(f"{p}encoder{i}.0", t[f"encoder{i}"])
+            layernorm(f"{p}encoder{i}.1", t[f"bn{i}"])
+            put(f"{p}encoder{i}.1.running_mean", s[f"bn{i}"]["mean"])
+            put(f"{p}encoder{i}.1.running_var", s[f"bn{i}"]["var"])
+
+    def deform_attn(p, t):
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            conv(p + name, t[name])
+        conv(p + "to_offsets.0", t["offset_conv"])
+        conv(p + "to_offsets.2", t["offset_proj"])
+        for i, name in enumerate(("mlp.0.0", "mlp.1.0", "mlp.2")):
+            put(f"{p}rel_pos_bias.{name}.weight", t["rel_pos_bias"][f"w{i}"].T)
+            put(f"{p}rel_pos_bias.{name}.bias", t["rel_pos_bias"][f"b{i}"])
+
+    def other_dim(t):                # the unused attention: 2-D kernels as 1-D, or back
+        return {k: other_dim(v) if isinstance(v, dict) else
+                (v[0] if v.ndim == 4 else v[None]) if k == "kernel" else v
+                for k, v in t.items()}
+
+    def deform_mil(p, t):
+        dense(p + "_fc1.0", t["fc1"])
+        dense(p + "fusion_layer.fusion_layer", t["fusion_layer"]["fusion_layer"])
+        layernorm(p + "layer3.norm", t["layer3"]["norm"])
+        used = t["layer3"]["attn2d" if attn_dim == 2 else "attn1d"]
+        deform_attn(f"{p}layer3.attn{attn_dim}d.", used)
+        deform_attn(f"{p}layer3.attn{3 - attn_dim}d.", other_dim(used))
+        if attn_dim == 2:
+            put(p + "cls_token", np.zeros((1, 1, t["norm"]["scale"].shape[0]), np.float32))
+            dense(p + "pooler.dense", t["pooler"]["dense"])
+        else:
+            put(p + "cls_token", t["cls_token"])
+        layernorm(p + "norm", t["norm"])
+        dense(p + "_fc2", t["fc2"])
+        dense(p + "multimodal_projection", t["multimodal_projection"])
+
+    def coattn_model(p):             # MCAT and CMTA: wsi net, signature nets, fusion
+        dense("wsi_net.0", p["wsi_net"])
+        for i in range(4):
+            for j in range(2):
+                dense(f"sig_networks.{i}.{j}.0", p[f"sig_net{i}"][f"SNNBlock_{j}"]["Dense_0"])
+        if "mm0" in p:
+            dense("mm.0", p["mm0"])
+            dense("mm.2", p["mm1"])
+        else:
+            bilinear_fusion("mm.", p["mm"], stats["mm"])
+        dense("classifier", p["classifier"])
+
+    p = params
+    if mode == "omic":
+        maxnet("", p)
+    elif mode == "path":
+        abmil("", p)
+    elif mode == "transmil":
+        transformer("", p)
+        dense("_fc1.0", p["fc1"])
+        dense("_fc2", p["fc2"])
+        dense("multimodal_projection", p["multimodal_projection"])
+    elif mode in ("pathomic", "pathomic_original"):
+        if mode == "pathomic":
+            abmil("path_net.", p["path_net"])
+        else:
+            dense("path_net.0", p["path_net"])
+            dense("path_classifier.0", p["path_classifier"])
+        maxnet("omic_net.", p["omic_net"])
+        dense("classifier.0", p["classifier"])
+    elif mode == "deformpathomic":
+        for branch in ("tumor", "immune"):
+            maxnet(f"omic_net_{branch}.", p[f"omic_net_{branch}"])
+            deform_mil(f"pathomic_net_{branch}.", p[f"pathomic_net_{branch}"])
+        dense("classifier", p["classifier"])
+        dense("classifier_tumor.0", p["classifier_tumor"])
+        dense("classifier_immune.0", p["classifier_immune"])
+    elif mode == "mcat":
+        coattn_model(p)
+        packed_mha("coattn", p["coattn"])
+        for prefix in ("path", "omic"):
+            for j in range(2):
+                t, q = p[f"{prefix}_transformer"][f"layer{j}"], f"{prefix}_transformer.layers.{j}."
+                packed_mha(q + "self_attn", t["self_attn"])
+                for name in ("linear1", "linear2"):
+                    dense(q + name, t[name])
+                for name in ("norm1", "norm2"):
+                    layernorm(q + name, t[name])
+            for name in ("attention_a", "attention_b"):
+                dense(f"{prefix}_attention_head.{name}.0", p[f"{prefix}_attention_head"][name])
+            dense(f"{prefix}_attention_head.attention_c",
+                  p[f"{prefix}_attention_head"]["attention_c"])
+            dense(f"{prefix}_rho.0", p[f"{prefix}_rho"])
+    elif mode == "cmta":
+        coattn_model(p)
+        for name in ("pathomics_encoder", "pathomics_decoder", "genomics_encoder",
+                     "genomics_decoder"):
+            transformer(name + ".", p[name])
+        packed_mha("P_in_G_Att", p["P_in_G_Att"])
+        packed_mha("G_in_P_Att", p["G_in_P_Att"])
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if "fusion" in p:
+        bilinear_fusion("fusion.", p["fusion"], stats["fusion"])
+    return sd
+
+
 def write_h5(path: str, name: str, arr) -> None:
     """A minimal HDF5 file holding one contiguous little-endian f32 dataset
     ``name`` in its root group, as h5py lays it out by default (superblock 0,
@@ -2161,6 +2349,271 @@ def phase_cohort(card: dict) -> None:
     _line("cohort", step="phase", wall_s=round(time.perf_counter() - t_phase, 1))
 
 
+# phase 20: one deformpathomic epoch of DEVICE_LOOP_STEPS train steps, per step
+# and in chunks of DEVICE_LOOP_CHUNK (a chunk and a shorter remainder)
+DEVICE_LOOP_STEPS = 6
+DEVICE_LOOP_CHUNK = 4
+# the kernel functions a bf16 deformpathomic train step launches (#1-#4), which
+# the profiler's trace must name
+TRACE_KERNELS = ("cpb_bias_fwd_tc", "cpb_bias_bwd_tc", "attn_fwd_tc", "attn_bwd_rows_tc",
+                 "attn_bwd_keys_tc")
+# the Nystrom attentions held with return_attn: TransMIL's TransLayer (bf16,
+# dh = 64) and CMTA's (f32, dh = 32), each at 2501 tokens (n_pad 2560)
+RETURN_ATTN = (("transmil", "layer1"), ("cmta", "pathomics_encoder.layer1"))
+
+
+def _device_loop_runs() -> dict:
+    """Phase 20's first part: the epoch per step and in chunks through
+    ``main.main``; returns the line's fields (``ok`` among them)."""
+    import os
+    import tempfile
+
+    from sml_tpu_torch.train import checkpoint as ckpt
+
+    flags = _flags("deformpathomic", synthetic_size=8 * DEVICE_LOOP_STEPS,
+                   fixdim=MAIN_FIXDIM, epochs=1)
+    loop_flags = {"device_loop": True, "device_loop_chunk": DEVICE_LOOP_CHUNK}
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, extra in (("per_step", {}), ("device_loop", loop_flags)):
+            ck = os.path.join(root, name)
+            rc, _, total, eval_l, wall_s = _train_entry({**flags, **extra}, ck)
+            with open(os.path.join(ck, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            runs[name] = {"rc": rc, "launches": {k: total[k] - eval_l[k] for k in total},
+                          "wall_s": round(wall_s, 2),
+                          "training_records": sum("training/loss" in r for r in records),
+                          "state": torch.load(os.path.join(ck, ckpt.LAST_STATE),
+                                              weights_only=True)}
+    want = {k: TRAIN_LAUNCHES["deformpathomic"].get(k, 0) * DEVICE_LOOP_STEPS
+            for k in runs["per_step"]["launches"]}
+    diff = _state_diff(runs["per_step"].pop("state"), runs["device_loop"].pop("state"))
+    split = _split_diff(diff)
+    ok = (all(r["rc"] == 0 and r["launches"] == want for r in runs.values())
+          and runs["device_loop"]["training_records"] == 1
+          and split["params"] <= RESUME_PARAM_TOL and split["optimizer"] <= RESUME_OPT_TOL
+          and not split["exact"])
+    return {"runs": runs, "expected_launches": want, "param_rel_l2_max": split["params"],
+            "optimizer_rel_l2_max": split["optimizer"],
+            "exact_entries_differing": split["exact"], "entries_compared": len(diff),
+            "state_bit_equal": all(v == 0.0 for v in diff.values()),
+            "param_tol": RESUME_PARAM_TOL, "optimizer_tol": RESUME_OPT_TOL, "ok": ok}
+
+
+def _device_loop_timing(config, state, host_batches: list, batches: list) -> dict:
+    """Train-step time per step and in one chunk of the device loop, in turns
+    (``StepTimer`` medians, the card waited for), the copy of a chunk's stack
+    beside one batch's ``batch_to_device``, and each way's peak memory."""
+    from sml_tpu_torch.train.evaluate import batch_to_device, stack_to_device
+    from sml_tpu_torch.train.steps import make_epoch_loop, make_train_step
+    from sml_tpu_torch.utils.profiling import StepTimer
+
+    dev = torch.device("cuda")
+    chunk = len(host_batches)
+    stacked = stack_to_device(config, host_batches, dev)
+    train_step = make_train_step(config, state.model)
+    epoch_loop = make_epoch_loop(config, state.model)
+    per_step, looped = StepTimer(warmup=chunk), StepTimer(warmup=1)
+    peak = {}
+    for turn in range(5):
+        for name in ("per_step", "device_loop") if turn % 2 else ("device_loop", "per_step"):
+            torch.cuda.reset_peak_memory_stats()
+            if name == "per_step":
+                for b in batches:
+                    with per_step.step(block_on=dev):
+                        train_step(state, b)
+            else:
+                with looped.step(block_on=dev):
+                    epoch_loop(state, stacked)
+            peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated() / 1e9)
+    copy_ms = {"chunk": [], "batch": []}
+    for _ in range(3):
+        copy_ms["chunk"].append(_host_ms(lambda: stack_to_device(config, host_batches, dev)))
+        copy_ms["batch"].append(_host_ms(lambda: batch_to_device(config, host_batches[0],
+                                                                 dev)))
+    return {"step_ms_per_step": per_step.stats()["p50_ms"],
+            "step_ms_device_loop": looped.stats()["p50_ms"] / chunk,
+            "steps_timed": {"per_step": per_step.stats()["steps"],
+                            "device_loop_chunks": looped.stats()["steps"]},
+            "chunk_steps": chunk, "h2d_ms_per_chunk": statistics.median(copy_ms["chunk"]),
+            "h2d_ms_per_batch": statistics.median(copy_ms["batch"]), "h2d_ms": copy_ms,
+            "chunk_mb": sum(t.numel() * t.element_size() for t in stacked.values()) / 1e6,
+            "peak_mem_gb": peak}
+
+
+def _return_attn_checks() -> dict:
+    """Phase 20's second part: each RETURN_ATTN attention with ``return_attn``
+    (the formed chains) against its default route through the kernels."""
+    import functools
+
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.models.factory import define_net
+    from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    for path, name in RETURN_ATTN:
+        config = Config(**_flags(path, fixdim=MAIN_FIXDIM))
+        model = define_net(config, "cuda")
+        attn = functools.reduce(getattr, name.split("."), model).attn
+        g = torch.Generator(device="cuda").manual_seed(20)
+        x = torch.randn(config.batch_size, MAIN_FIXDIM + 1, attn.to_qkv.in_features,
+                        device="cuda", generator=g)
+        with torch.inference_mode():
+            reset_launch_counts()
+            kernel_out = attn(x)
+            torch.cuda.synchronize()
+            kernel_launches = {k: v for k, v in launch_counts().items() if v}
+            reset_launch_counts()
+            formed_out, matrix = attn(x, return_attn=True)
+            torch.cuda.synchronize()
+            formed_launches = {k: v for k, v in launch_counts().items() if v}
+        n_pad = -(-x.shape[1] // attn.num_landmarks) * attn.num_landmarks
+        shape = (config.batch_size, attn.heads, n_pad, n_pad)
+        tol = SLICE_TOL[config.compute_dtype]
+        cmp = _compare(formed_out, kernel_out, tol)
+        finite = bool(torch.isfinite(matrix.float()).all())
+        out[path] = {"dtype": config.compute_dtype, "dh": attn.dim_head, "tokens": x.shape[1],
+                     "attn_shape": list(matrix.shape), "attn_finite": finite,
+                     "out_vs_kernel_route": cmp, "tol": tol,
+                     "launches_kernel_route": kernel_launches,
+                     "launches_return_attn": formed_launches,
+                     "ok": (cmp["ok"] and tuple(matrix.shape) == shape and finite
+                            and not formed_launches and bool(kernel_launches))}
+        del model, attn, x, kernel_out, formed_out, matrix
+        torch.cuda.empty_cache()
+    return out
+
+
+def _trace_kernels(config, state, batch) -> dict:
+    """One train step under ``profiling.trace``: the count of each
+    TRACE_KERNELS function among the trace's kernel events."""
+    import tempfile
+
+    from sml_tpu_torch.train.steps import make_train_step
+    from sml_tpu_torch.utils import profiling
+
+    train_step = make_train_step(config, state.model)
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir) as path:
+            with profiling.annotate("train_step"):
+                train_step(state, batch)
+            torch.cuda.synchronize()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    found = {k: sum(k in name for name in kernels) for k in TRACE_KERNELS}
+    return {"kernel_events": len(kernels), "found": found,
+            "annotated": any(e.get("name") == "train_step" for e in events),
+            "ok": all(found.values())}
+
+
+def _flops_lines(entries: dict) -> dict:
+    """``deformpathomic_flops`` at S2500 / S4096, train and eval, each with the
+    time it takes at the bf16 peak and, at S2500, phase 4's measured time of
+    the kernels that count covers (launches per step x ms)."""
+    from sml_tpu_torch.utils.flops import deformpathomic_flops
+
+    per_step = {True: {"cpb_bias": 2, "cpb_bias_bwd": 2, "deform_attention_fwd_dropout": 2,
+                       "deform_attention_bwd": 2},
+                False: {"cpb_bias": 2, "deform_attention_fwd": 2}}
+    out = {}
+    for fixdim in SHAPES:
+        for training in (True, False):
+            flops = deformpathomic_flops(8, fixdim, training=training)
+            at_peak_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            kernel_ms = None
+            if fixdim == MAIN_FIXDIM:
+                kernel_ms = sum(n * entries[k]["ms"] for k, n in per_step[training].items())
+            out[f"S{fixdim}_{'train' if training else 'eval'}"] = {
+                "flops": flops, "at_bf16_peak_ms": at_peak_ms,
+                "kernels_measured_ms": kernel_ms,
+                "achieved_tflops": None if kernel_ms is None else flops / kernel_ms / 1e9}
+    return out
+
+
+def _converter_check(config, batch) -> dict:
+    """A reference state dict of a deformpathomic model's weights loaded by
+    ``load_reference_state_dict`` into a model of another seed on the card,
+    then one eval step."""
+    from sml_tpu_torch.bridge import export_flax_batch_stats, export_flax_params
+    from sml_tpu_torch.models.factory import define_net
+    from sml_tpu_torch.train.steps import make_eval_step
+    from sml_tpu_torch.utils.torch_compat import load_reference_state_dict, reference_mode
+
+    source = define_net(config, "cuda")
+    sd = reference_state_dict({"params": export_flax_params(source),
+                               "batch_stats": export_flax_batch_stats(source)},
+                              reference_mode(config), config.attn_dim)
+    loaded = define_net(config, "cuda", seed=config.seed + 1)
+    load_reference_state_dict(loaded, {k: torch.from_numpy(v) for k, v in sd.items()}, config)
+    same = all(torch.equal(a, b) for a, b in zip(source.state_dict().values(),
+                                                  loaded.state_dict().values()))
+    eval_batch = dict(batch, sample_mask=torch.ones(config.batch_size, device="cuda"))
+    got = make_eval_step(config, loaded)(eval_batch)
+    want = make_eval_step(config, source)(eval_batch)
+    return {"reference_keys": len(sd), "weights_equal_source": same,
+            "eval_finite": _finite(got),
+            "eval_max_abs_diff_vs_source": max(float((got[k] - want[k]).abs().max())
+                                               for k in got),
+            "ok": same and _finite(got)}
+
+
+def phase_device_loop(card: dict, entries: dict) -> None:
+    """20. The device loop, and the utilities of the last slice on the card:
+    deformpathomic at S2500 (B = 8, bf16, dropout 0.1, gradient modulation,
+    batch-similarity loss, Adam) trains one epoch of DEVICE_LOOP_STEPS steps
+    from one seed through ``main.main``, per step and with ``--device_loop true
+    --device_loop_chunk`` DEVICE_LOOP_CHUNK (a chunk and a remainder): the
+    final parameters within RESUME_PARAM_TOL and Adam's moments within
+    RESUME_OPT_TOL (relative L2 per tensor; ``F.grid_sample``'s backward adds
+    with atomics, so bit equality is reported, not required), the rest of the
+    state exactly, #1-#4 launched twice per step in both runs, one
+    ``training`` record in the device loop's ``metrics.jsonl``; the median
+    step time both ways (``StepTimer``), the stacked copy of a chunk and the
+    peak memory.  Then ``return_attn`` of RETURN_ATTN's attentions against
+    their kernel route (``SLICE_TOL``; no launch with ``return_attn``, the
+    attention finite and (b, h, n_pad, n_pad)); ``profiling.trace`` around a
+    train step naming every TRACE_KERNELS function; ``deformpathomic_flops``
+    beside the kernel time it implies; and ``load_reference_state_dict`` into
+    a model on the card, then an eval step."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import Loader, build_datasets
+    from sml_tpu_torch.models.factory import define_net, define_optimizer
+    from sml_tpu_torch.ops.common import DropoutRNG
+    from sml_tpu_torch.train.evaluate import batch_to_device
+    from sml_tpu_torch.train.state import TrainState
+
+    t_phase = time.perf_counter()
+    fields = _device_loop_runs()
+    config = Config(**_flags("deformpathomic", synthetic_size=8 * DEVICE_LOOP_STEPS,
+                             fixdim=MAIN_FIXDIM))
+    host = list(Loader(build_datasets(config, "Train"), config.batch_size, shuffle=True,
+                       drop_last=True, seed=config.seed))[:DEVICE_LOOP_CHUNK]
+    for b in host:
+        b.pop("sample_mask")
+    dev = torch.device("cuda")
+    model = define_net(config, dev, train=True)
+    state = TrainState(model, *define_optimizer(config, model, DEVICE_LOOP_STEPS),
+                       DropoutRNG.from_seed(1, dev))
+    batches = [batch_to_device(config, b, dev) for b in host]
+    timing = _device_loop_timing(config, state, host, batches)
+    trace = _trace_kernels(config, state, batches[0])
+    converter = _converter_check(config, batches[0])
+    del state, model, batches
+    torch.cuda.empty_cache()
+    return_attn = _return_attn_checks()
+    ok = (fields["ok"] and trace["ok"] and converter["ok"]
+          and all(r["ok"] for r in return_attn.values()))
+    _line("device-loop", fixdim=MAIN_FIXDIM, batch=config.batch_size,
+          dtype=config.compute_dtype, steps=DEVICE_LOOP_STEPS, chunk=DEVICE_LOOP_CHUNK,
+          **fields, timing=timing, return_attn=return_attn, trace=trace,
+          flops=_flops_lines(entries), converter=converter,
+          wall_s=round(time.perf_counter() - t_phase, 1), card=card["nvidia_smi"])
+    if not ok:
+        raise AssertionError("device-loop: see the line above")
+    torch.cuda.empty_cache()
+
+
 def _host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2257,6 +2710,8 @@ def main() -> int:
     phase_remat(card)
     # 19. cohort: the real-data workflow (readers, packed files, attribution)
     phase_cohort(card)
+    # 20. device-loop: the device loop, return_attn, the profiler, FLOPs, the converter
+    phase_device_loop(card, entries)
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]

@@ -81,6 +81,8 @@ class Config:
                                         # launches its kernels on cuda tensors
     eval_every_iters: int = 0
     remat: bool = False
+    device_loop: bool = False           # train steps over stacked chunks of batches
+    device_loop_chunk: int = 0          # steps per chunk; 0 = the whole epoch
 
     # --- losses ---
     gradient_modulate: bool = True

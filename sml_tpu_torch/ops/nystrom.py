@@ -14,7 +14,11 @@ go through the bias-less attention kernels (``ops/kernels/deform_attn.py``)
 as ``attn1 @ (pinv @ (attn3 @ v))``: the (b, h, n, m) probabilities never
 reach device memory in either direction.  A mask becomes two per-bag spans
 (``landmark_spans``).  Otherwise the module takes the XLA formulation
-``(attn1 @ pinv) @ (attn3 @ v)``.  The JAX gate's VMEM-fit test belongs to
+``(attn1 @ pinv) @ (attn3 @ v)``.  ``return_attn`` also returns the (b, h,
+n_pad, n_pad) attention ``attn1 @ pinv @ attn3``, which needs the
+probabilities formed, so it takes the XLA formulation whatever the shape, on
+the card too: the JAX module's own routing (``not return_attn`` in its gate),
+not a fallback.  The JAX gate's VMEM-fit test belongs to
 the TPU and is left out.  The gate admits dh = 64 (TransMIL, f32 and bf16)
 and dh = 32 in f32 only (CMTA's 256-wide layers); the CUDA kernels take both,
 dh = 32 in its f32 form without bias, span or dropout, and raise on any other
@@ -23,13 +27,13 @@ dh.
 The masked softmaxes of the landmark kernel and of the XLA chains fill in
 f32: in bf16, -f32max rounds to -inf and a fully masked landmark row is NaN
 (as in the JAX module at bf16); in f32 the two agree exactly.
-``seq_mesh`` (sequence parallelism) and ``return_attn`` are not ported yet.
+``seq_mesh`` (sequence parallelism) is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -100,13 +104,13 @@ class NystromAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None, interval_mask: bool = True,
-                return_attn: bool = False) -> torch.Tensor:
+                return_attn: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """x (b, n, dim); mask (b, n) bool or None; ``rng`` feeds the output
         dropout in training mode.  ``interval_mask`` (the JAX module's
         ``pallas_masked``) says the mask is an interval per bag, so the fused
-        route may take it; other masks keep the XLA formulation."""
-        if return_attn:
-            raise NotImplementedError("return_attn is not ported yet")
+        route may take it; other masks keep the XLA formulation.  With
+        ``return_attn``: (out, attn), attn (b, h, n_pad, n_pad)."""
         b, n, _ = x.shape
         h, m, dh = self.heads, self.num_landmarks, self.dim_head
         padding = (m - n % m) % m                  # at the front, like the reference
@@ -145,7 +149,7 @@ class NystromAttention(nn.Module):
         attn2 = _softmax(sim2, None if mask is None else ml & mlT)
         attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations)
 
-        if ((mask is None or interval_mask)
+        if (not return_attn and (mask is None or interval_mask)
                 and fused_chains_supported(n_pad, m, dh, q.dtype)):
             bg = b * h
             span3 = span1 = None
@@ -166,7 +170,9 @@ class NystromAttention(nn.Module):
             if mask is not None:
                 valid1 = mask[:, None, :, None] & mlT
                 valid3 = ml & mask[:, None, None, :]
-            out = (_softmax(sim1, valid1) @ attn2_inv) @ (_softmax(sim3, valid3) @ v)
+            attn1, attn3 = _softmax(sim1, valid1), _softmax(sim3, valid3)
+            attn12 = attn1 @ attn2_inv
+            out = attn12 @ (attn3 @ v)
         out = out.transpose(1, 2).reshape(b, n_pad, h * dh)
 
         if self.res_conv_kernel is not None:
@@ -179,4 +185,6 @@ class NystromAttention(nn.Module):
             out = out + res.transpose(1, 2)
         out = self.to_out(out)
         out = dropout(out, self.dropout, self.training, rng.device if rng else None)
+        if return_attn:
+            return out[:, -n:], attn12 @ attn3
         return out[:, -n:]

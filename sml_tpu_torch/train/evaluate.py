@@ -8,7 +8,7 @@ batch contribute nothing.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -29,6 +29,38 @@ def batch_to_device(config: Config, batch: Dict[str, np.ndarray],
         if k == "x_path":
             t = t.to(feature_dtype(config))
         out[k] = t.to(device)
+    return out
+
+
+def stack_to_device(config: Config, batches: List[Dict[str, np.ndarray]],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy batches -> one (len(batches), ...) tensor per field on ``device``
+    (counterpart of ``shard_stacked_batches`` on one device), x_path cast to
+    the feature dtype on the host.  Each batch's field is cast and copied in
+    one pass into its slot of the stack, which on a card lies in pinned
+    memory; the stack is then copied to the card once, on a side stream, so
+    that the copy of the next chunk runs while the current one computes.  The
+    current stream waits for the copy before it reads the chunk, and
+    ``record_stream`` keeps the allocator from handing a chunk's memory out
+    again before the current stream is done with it.  On the CPU the stacked
+    tensors are returned as they are."""
+    pin = device.type == "cuda"
+    host = {}
+    for k in batches[0]:
+        fields = [torch.from_numpy(np.asarray(b[k])) for b in batches]
+        dtype = feature_dtype(config) if k == "x_path" else fields[0].dtype
+        host[k] = torch.empty((len(fields), *fields[0].shape), dtype=dtype, pin_memory=pin)
+        for slot, field in zip(host[k], fields):
+            slot.copy_(field)
+    if not pin:
+        return host
+    stream = torch.cuda.Stream(device)              # one of torch's pooled streams
+    with torch.cuda.stream(stream):
+        out = {k: t.to(device, non_blocking=True) for k, t in host.items()}
+    compute = torch.cuda.current_stream(device)
+    compute.wait_stream(stream)
+    for t in out.values():
+        t.record_stream(compute)
     return out
 
 

@@ -19,10 +19,20 @@ which ``python -m sml_tpu_torch.inference --weights`` reads), and last the
 whole train state and its meta (``train/checkpoint.py``).
 The train metrics of an epoch stay on the device and are fetched once, at its
 end, unless a log record needs them.
+
+With ``device_loop`` the epoch's train batches go to the card in chunks of
+``device_loop_chunk`` steps (0: the whole epoch; capped at the epoch, then at
+its gcd with ``eval_every_iters``), each stacked and copied once
+(``stack_to_device``, the next chunk's copy beside the current chunk's
+steps), and run by ``make_epoch_loop``; a shorter last chunk takes the
+remainder.  A mid-epoch Test / Val pass follows a chunk that ends on the
+interval, logged without train metrics, and the epoch's mean train metrics
+make one ``training`` record (the JAX loop's ``device_loop`` branch).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Dict, Tuple
@@ -38,9 +48,9 @@ from sml_tpu_torch.models.factory import (ReduceLROnPlateau, define_net, define_
                                           resolve_device, set_learning_rate)
 from sml_tpu_torch.ops.common import DropoutRNG
 from sml_tpu_torch.train import checkpoint as ckpt
-from sml_tpu_torch.train.evaluate import batch_to_device, evaluate
+from sml_tpu_torch.train.evaluate import batch_to_device, evaluate, stack_to_device
 from sml_tpu_torch.train.state import TrainState
-from sml_tpu_torch.train.steps import make_eval_step, make_train_step
+from sml_tpu_torch.train.steps import make_epoch_loop, make_eval_step, make_train_step
 from sml_tpu_torch.utils.logging import MetricLogger
 
 
@@ -90,6 +100,9 @@ def _loaders(config: Config):
             raise ValueError(f"dataset {config.dataset!r} does not expose "
                              "bucket_of(i) metadata for bucket_sizes")
         loader_cls = BucketedLoader
+        if config.device_loop:
+            raise ValueError("bucket_sizes requires per-step dispatch "
+                             "(device_loop scans need one static shape)")
     train_loader = loader_cls(train_ds, config.batch_size, shuffle=True, drop_last=True,
                               seed=config.seed, workers=config.workers)
     val_loader = (None if config.novalset
@@ -129,6 +142,77 @@ def train(config: Config, device: str | torch.device = "cuda"
         logger.close()
 
 
+def _mid_epoch_eval(config: Config, evaluation: Tuple, dev: torch.device, cur_iters: int,
+                    epoch_end_iters: int):
+    """The Test (and Val) metrics when a mid-epoch evaluation falls after
+    iteration ``cur_iters``, else None."""
+    if not (config.eval_every_iters and cur_iters % config.eval_every_iters == 0
+            and cur_iters < epoch_end_iters):
+        return None
+    eval_step, val_loader, test_loader = evaluation
+    log = {"test": evaluate(config, eval_step, test_loader, dev)}
+    if val_loader is not None:
+        log["validation"] = evaluate(config, eval_step, val_loader, dev)
+    return log
+
+
+def _per_step_epoch(config: Config, state: TrainState, train_step, train_loader,
+                    evaluation: Tuple, dev: torch.device, logger: MetricLogger,
+                    epoch: int, cur_iters: int, epoch_end_iters: int) -> int:
+    """One epoch of train steps, one per batch; returns the iteration count
+    after it."""
+    step_metrics = []
+    for batch in train_loader:
+        batch.pop("sample_mask", None)
+        metrics = train_step(state, batch_to_device(config, batch, dev))
+        step_metrics.append(metrics)
+        cur_iters += 1
+        log = _mid_epoch_eval(config, evaluation, dev, cur_iters, epoch_end_iters)
+        if log is not None:
+            logger.log({"training": _host(metrics), **log})
+        elif cur_iters % 10 == 0:
+            logger.log({"training": _host(metrics)})
+    if step_metrics:
+        stacked = {k: torch.stack([m[k] for m in step_metrics]).float().mean().item()
+                   for k in step_metrics[0]}
+        print(f"epoch {epoch + 1}/{config.epochs} train={stacked}", flush=True)
+    return cur_iters
+
+
+def _device_loop_epoch(config: Config, state: TrainState, epoch_loop, chunk: int,
+                       train_loader, evaluation: Tuple, dev: torch.device,
+                       logger: MetricLogger, epoch: int, cur_iters: int,
+                       epoch_end_iters: int) -> int:
+    """One epoch of the device loop, ``chunk`` steps to a stack (the last one
+    shorter where the epoch leaves a remainder); returns the iteration count
+    after it."""
+    chunk_metrics, buf = [], []
+
+    def dispatch(buf):
+        nonlocal cur_iters
+        chunk_metrics.append(epoch_loop(state, stack_to_device(config, buf, dev)))
+        cur_iters += len(buf)
+        log = _mid_epoch_eval(config, evaluation, dev, cur_iters, epoch_end_iters)
+        if log is not None:
+            logger.log(log)
+
+    for batch in train_loader:
+        batch.pop("sample_mask", None)
+        buf.append(batch)
+        if len(buf) == chunk:
+            dispatch(buf)
+            buf = []
+    if buf:
+        dispatch(buf)
+    if chunk_metrics:
+        means = {k: float(np.mean(np.concatenate([m[k].float().cpu().numpy()
+                                                  for m in chunk_metrics])))
+                 for k in chunk_metrics[0]}
+        logger.log({"training": means})
+        print(f"epoch {epoch + 1}/{config.epochs} train={means}", flush=True)
+    return cur_iters
+
+
 def _train(config: Config, device: str | torch.device, logger: MetricLogger
            ) -> Tuple[TrainState, Dict[str, float]]:
     state, train_step, eval_step, (train_loader, val_loader, test_loader) = setup(
@@ -151,30 +235,27 @@ def _train(config: Config, device: str | torch.device, logger: MetricLogger
             plateau.num_bad = meta["plateau"]["num_bad"]
         print(f"resuming from epoch {start_epoch} (step {state.step})", flush=True)
 
+    if config.device_loop:
+        steps_per_epoch = max(len(train_loader), 1)
+        chunk = min(config.device_loop_chunk or steps_per_epoch, steps_per_epoch)
+        if config.eval_every_iters:
+            # chunks end on the mid-epoch evaluations
+            chunk = math.gcd(chunk, config.eval_every_iters)
+        epoch_loop = make_epoch_loop(config, state.model)
+
     for epoch in range(start_epoch, config.epochs):
         train_loader.set_epoch(epoch)
         # the epoch-end evaluation below always runs: a mid-epoch one landing
         # on the epoch's last iteration would repeat it
         epoch_end_iters = cur_iters + max(len(train_loader), 1)
-        step_metrics = []
-        for batch in train_loader:
-            batch.pop("sample_mask", None)
-            metrics = train_step(state, batch_to_device(config, batch, dev))
-            step_metrics.append(metrics)
-            cur_iters += 1
-            if (config.eval_every_iters and cur_iters % config.eval_every_iters == 0
-                    and cur_iters < epoch_end_iters):
-                log = {"training": _host(metrics),
-                       "test": evaluate(config, eval_step, test_loader, dev)}
-                if val_loader is not None:
-                    log["validation"] = evaluate(config, eval_step, val_loader, dev)
-                logger.log(log)
-            elif cur_iters % 10 == 0:
-                logger.log({"training": _host(metrics)})
-        if step_metrics:
-            stacked = {k: torch.stack([m[k] for m in step_metrics]).float().mean().item()
-                       for k in step_metrics[0]}
-            print(f"epoch {epoch + 1}/{config.epochs} train={stacked}", flush=True)
+        if config.device_loop:
+            cur_iters = _device_loop_epoch(config, state, epoch_loop, chunk, train_loader,
+                                           (eval_step, val_loader, test_loader), dev,
+                                           logger, epoch, cur_iters, epoch_end_iters)
+        else:
+            cur_iters = _per_step_epoch(config, state, train_step, train_loader,
+                                        (eval_step, val_loader, test_loader), dev,
+                                        logger, epoch, cur_iters, epoch_end_iters)
 
         test_m = evaluate(config, eval_step, test_loader, dev)
         val_m = evaluate(config, eval_step, val_loader, dev) if val_loader else test_m

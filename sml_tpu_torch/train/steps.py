@@ -227,3 +227,25 @@ def make_train_step(config: Config, model: torch.nn.Module
         return metrics
 
     return train_step
+
+
+def make_epoch_loop(config: Config, model: torch.nn.Module
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """(state, stacked batches) -> stacked metrics: one train step for each
+    slice [i] along the stack's leading dimension (counterpart of
+    ``make_epoch_scan``, whose ``lax.scan`` becomes this Python loop over the
+    train step: the same kernels launch as in per-step training, as often).
+    The metrics stay on the device, (steps,) per key; nothing waits for the
+    device inside."""
+    train_step = make_train_step(config, model)
+
+    def epoch_loop(state: TrainState, batches: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        lengths = {k: v.shape[0] for k, v in batches.items()}
+        if len(set(lengths.values())) != 1:
+            raise ValueError(f"stacked batches of unequal lengths {lengths}")
+        metrics = [train_step(state, {k: v[i] for k, v in batches.items()})
+                   for i in range(next(iter(lengths.values())))]
+        return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    return epoch_loop

@@ -140,6 +140,8 @@ import sml_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sml_tpu_torch.__path__, "sml_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {f"sml_tpu_torch.utils.{m}" for m in ("flops", "profiling", "regularize",
+                                             "torch_compat")} <= set(names)
 print(len(names))
 """
 
@@ -154,9 +156,12 @@ def test_port_imports_no_jax_no_sml_tpu_no_host_only_libraries():
     assert int(proc.stdout.split()[-1]) == n_modules >= 20
 
 
-# the cohort, packed and attribution paths run under the same block, so that an
-# import inside a function (pandas, h5py, PIL, ...) fails as well
-_PATH_PROBE = _BLOCK + r"""
+# the cohort, packed, attribution and device-loop paths run under the same
+# block, so that an import inside a function (pandas, h5py, PIL, ...) fails as
+# well.  torch's optimizers import ``torch._dynamo`` on first use, which asks
+# ``find_spec`` for pandas and others: on a machine without them that returns
+# None, under the block it raises, so it is imported before the block
+_PATH_PROBE = "import torch._dynamo\n" + _BLOCK + r"""
 from sml_tpu_torch import inference
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.data.loader import build_datasets
@@ -171,13 +176,18 @@ assert next(iter(PackedLoader(out + "/Train.bin", 2, workers=2)))["x_omic"].shap
 argv = ["--dataset=both", f"--dataDir={root}", "--fixdim=16", "--mode=omic", "--batch_size=4",
         "--device=cpu", "--debug", f"--checkpoints={out}", "--attribution=ablation"]
 assert inference.main(argv + [f"--{k}={v}" for k, v in genes.items()]) == 0
+from sml_tpu_torch import main
+argv = [a for a in argv if not a.startswith("--attribution")]
+assert main.main(argv + ["--epochs=1", "--device_loop=true", "--device_loop_chunk=2"]
+                 + [f"--{k}={v}" for k, v in genes.items()]) == 0
 print(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED))
 """
 
 
 def test_cohort_packed_and_attribution_paths_import_no_blocked_library(tmp_path):
-    """The readers, the packer, the native prefetcher and ``--attribution``
-    run with the blocked libraries unimportable."""
+    """The readers, the packer, the native prefetcher, ``--attribution`` and
+    a ``--device_loop`` train run work with the blocked libraries
+    unimportable."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from test_data import _write_fake_corpus
 

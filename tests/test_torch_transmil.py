@@ -248,7 +248,43 @@ def test_train_cli_two_bucketed_epochs(tmp_path, capsys):
     assert (ckpt / "best_modal.npz").exists()
 
 
-def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="return_attn"):
-        define_net(Config(**SMALL), CPU).layer1.attn(torch.zeros(1, 8, 512),
-                                                    return_attn=True)
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "interval_masked"])
+def test_nystrom_return_attn_matches_jax(masked):
+    """``return_attn`` gives JAX's (out, attn), attn = attn1 @ pinv @ attn3 of
+    shape (b, h, n_pad, n_pad), on the formed chains at a shape whose default
+    route is fused; its out is the fused route's."""
+    from unittest import mock
+
+    from sml_tpu.ops.nystrom import NystromAttention as JNystrom
+    from sml_tpu_torch.ops import nystrom
+
+    kw = dict(dim=64, dim_head=32, heads=2, num_landmarks=16, dropout=0.0)
+    b, n, n_pad = 2, 200, 208
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(b, n, kw["dim"])).astype(np.float32)
+    idx = np.arange(n)[None, :]
+    mask = (idx >= np.array([[0], [20]])) & (idx < np.array([[150], [200]])) if masked \
+        else None
+    assert _fused_chains_supported(n_pad, 16, 32, jnp.float32, has_span=masked)
+    jmod = JNystrom(**kw, use_pallas=False)      # return_attn keeps JAX off Pallas
+    jmask = None if mask is None else jnp.asarray(mask)
+    params = jax.eval_shape(functools.partial(jmod.init, deterministic=True),
+                            jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(
+        lambda a: (rng.normal(size=a.shape) * 0.1).astype(np.float32), params)
+    want_out, want_attn = jax.jit(functools.partial(
+        jmod.apply, deterministic=True, return_attn=True))({"params": params},
+                                                          jnp.asarray(x), mask=jmask)
+    port = nystrom.NystromAttention(**kw)
+    load_flax_params(port, params)
+    tx, tmask = torch.from_numpy(x), None if mask is None else torch.from_numpy(mask)
+    with torch.no_grad(), mock.patch.object(nystrom, "deform_attention_trainable",
+                                            wraps=nystrom.deform_attention_trainable) as chains:
+        out, attn = port(tx, mask=tmask, return_attn=True)
+        assert chains.call_count == 0
+        fused = port(tx, mask=tmask)
+        assert chains.call_count == 2
+    assert attn.shape == want_attn.shape == (b, kw["heads"], n_pad, n_pad)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **TOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), **TOL)
+    np.testing.assert_allclose(out.numpy(), fused.numpy(), **TOL)
