@@ -176,6 +176,23 @@ bf16):
             state dict (``reference_state_dict``) into a model on the card,
             then an eval step.
 
+Several ranks, children of this script (``--parallel-child``) sharing the card
+over gloo, as the port's bootstrap chooses when ranks outnumber cards:
+
+21. parallel  two ranks: deformpathomic at S2500 data-parallel (bf16, a
+            global batch of 8, 4 a rank, dropout off, 3 train steps; one f32
+            step); on a (1, 2) grid deformpathomic at S4096 seq-parallel (one
+            train step with dropout off, one with dropout on: 32 of the 64
+            query rows a rank, J = 256) and TransMIL at S4096 seq-parallel (an eval batch
+            and a train step: chain 1 of 2176 of the 4352 tokens a rank on
+            #3 / #4); then one rank in an NCCL group against the same step
+            without a group.  Each rank's launches of #1-#4 and their shapes,
+            the first step's loss and summed gradients against this process's
+            run (TRAIN_TOL; the bf16 data-parallel gradients against this
+            process running the model on each rank's half of the batch), the
+            TransMIL outputs (SLICE_TOL), the ranks' states bit-equal after
+            every step, median step times.
+
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs no network, imports nothing of JAX, and exits non-zero without a
@@ -2614,6 +2631,429 @@ def phase_device_loop(card: dict, entries: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 21: the ranks of the parallel runs (children of this script, sharing the
+# card over gloo), and what each holds against the one-process run
+PARALLEL_DP_STEPS, PARALLEL_TIMED = 3, 5
+PARALLEL_FLAGS = {
+    "dp": _flags("deformpathomic", synthetic_size=24, fixdim=MAIN_FIXDIM, dropout_rate=0.0),
+    "dp_f32": _flags("deformpathomic", synthetic_size=24, fixdim=MAIN_FIXDIM, dropout_rate=0.0,
+                     compute_dtype="float32"),
+    "seq_deform": _flags("deformpathomic", synthetic_size=8, fixdim=4096, dropout_rate=0.0,
+                         seq_devices=2),
+    "seq_transmil": _flags("transmil", synthetic_size=8, fixdim=4096, seq_devices=2),
+}
+PARALLEL_TIMEOUT_S = 300
+# the launches of each wrapper per rank: the data-parallel steps (4 bags a rank),
+# the seq-sharded deformable step (each rank its 32 of 64 query rows) and the
+# seq-sharded TransMIL's eval batch and train step (chain 1 on each rank's rows)
+_STEP_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES["deformpathomic"].items()
+                  if k != "deform_attention_fwd_dropout"}
+PARALLEL_LAUNCHES = {
+    "dp": {k: v * PARALLEL_DP_STEPS for k, v in _STEP_LAUNCHES.items()},
+    "dp_f32": _STEP_LAUNCHES, "seq_deform": _STEP_LAUNCHES,
+    "seq_transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4,
+                     "deform_attention_bwd": 2, "deform_attention_bwd_nobias": 2},
+}
+
+
+@contextlib.contextmanager
+def _kernel_shapes(shapes: dict):
+    """Record into ``shapes`` the operand shapes of each kernel's first call,
+    at the autograd Functions that call the wrappers (the wrappers and their
+    launch counts stay as they are): the CPB's dx, dy (forward) and dbias
+    (backward); the attention's q, k, v, bias and span (forward) and dout
+    (backward)."""
+    import importlib
+
+    cpb = importlib.import_module("sml_tpu_torch.ops.kernels.cpb_bias")
+    attn = importlib.import_module("sml_tpu_torch.ops.kernels.deform_attn")
+
+    def shape(t):
+        return list(t.shape) if torch.is_tensor(t) else t
+
+    def recorder(cls, method, name, n_args):
+        fn = getattr(cls, method)
+
+        def call(ctx, *args):
+            shapes.setdefault(name, [shape(a) for a in args[:n_args]])
+            return fn(ctx, *args)
+        return mock.patch.object(cls, method, staticmethod(call))
+
+    with recorder(cpb.CPBBiasTrainable, "forward", "cpb_bias", 2), \
+            recorder(cpb.CPBBiasTrainable, "backward", "cpb_bias_bwd", 1), \
+            recorder(attn.DeformAttentionTrainable, "forward", "deform_attention_fwd", 4), \
+            recorder(attn.DeformAttentionTrainable, "backward", "deform_attention_bwd", 1):
+        yield
+
+
+def _parallel_batches(flags: dict, n: int) -> list:
+    """The first ``n`` global train batches of ``flags`` (numpy, no sample_mask)."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data.loader import Loader, build_datasets
+
+    config = Config(**flags)
+    loader = Loader(build_datasets(config, "Train"), config.batch_size, shuffle=True,
+                    drop_last=True, seed=config.seed)
+    batches = []
+    for b in loader:
+        b.pop("sample_mask")
+        batches.append(b)
+        if len(batches) == n:
+            return batches
+    raise AssertionError(f"only {len(batches)} train batches")
+
+
+def _parallel_train(flags: dict, batches: list, timed: int = 0) -> dict:
+    """Train steps of ``flags``'s model from its seeded init on ``batches`` (each
+    global; this rank takes its data rows) on the grid of ``seq_devices``: each
+    step's loss, the first step's gradients, the final parameters, whether the
+    ranks' states were bit-equal after every step, then ``timed`` more steps'
+    host times (the card waited for)."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.models.factory import define_net, define_optimizer
+    from sml_tpu_torch.ops.common import DropoutRNG
+    from sml_tpu_torch.parallel.collectives import fold_seed
+    from sml_tpu_torch.parallel.mesh import make_grid, replicas_equal, shard_batch
+    from sml_tpu_torch.train.evaluate import batch_to_device
+    from sml_tpu_torch.train.state import TrainState
+    from sml_tpu_torch.train.steps import make_train_step
+
+    config, dev = Config(**flags), torch.device("cuda")
+    grid = make_grid(config.seq_devices)
+    model = define_net(config, dev, train=True)
+    optimizer, scheduler = define_optimizer(config, model, len(batches))
+    state = TrainState(model, optimizer, scheduler,
+                       DropoutRNG.from_seed(fold_seed(config.seed, grid.data_index), dev))
+    step = make_train_step(config, model)
+    local = [batch_to_device(config, shard_batch(b, grid), dev) for b in batches]
+    losses, equal, grads = [], [], None
+    for i, b in enumerate(local):
+        losses.append(step(state, b)["loss"].float().item())
+        if i == 0:
+            grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+        equal.append(replicas_equal(state, grid))
+    times = [_host_ms(lambda: step(state, local[0])) for _ in range(timed)]
+    return {"losses": losses, "grads": grads, "equal": equal, "step_ms": times,
+            "params": {n: p.detach().float().cpu() for n, p in model.named_parameters()}}
+
+
+def _halves_grads(flags: dict, batch: dict) -> dict:
+    """The first train step's (modulated) gradients of ``flags``'s model from
+    its seeded init, in one process, with the model run on the batch's two
+    halves and the loss taken over their outputs together."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.models.factory import define_net, model_inputs
+    from sml_tpu_torch.train.evaluate import batch_to_device
+    from sml_tpu_torch.train.steps import compute_mode_loss, modulate_classifier_grads
+
+    config, dev = Config(**flags), torch.device("cuda")
+    model = define_net(config, dev, train=True)
+    b = batch_to_device(config, batch, dev)
+    half = len(b["labels"]) // 2
+    outs = [model(**model_inputs(config, {k: v[i:i + half] for k, v in b.items()}))
+            for i in (0, half)]
+    out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    compute_mode_loss(config, out, b["labels"])[0].backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if config.gradient_modulate and config.fusion_type == "concat":
+        with torch.no_grad():
+            modulate_classifier_grads(config, model, out, b["labels"])
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def _parallel_eval(flags: dict, batch: dict, timed: int = 0) -> dict:
+    """The eval step's outputs on one global batch on the grid of ``seq_devices`` (each
+    data rank its rows, the outputs the global batch's), then ``timed`` more
+    eval steps' host times."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.models.factory import define_net
+    from sml_tpu_torch.parallel.mesh import make_grid, shard_batch
+    from sml_tpu_torch.train.evaluate import batch_to_device
+    from sml_tpu_torch.train.steps import make_eval_step
+
+    config, dev = Config(**flags), torch.device("cuda")
+    step = make_eval_step(config, define_net(config, dev))
+    b = batch_to_device(config, shard_batch(batch, make_grid(config.seq_devices)), dev)
+    out = {k: v.float().cpu() for k, v in step(b).items()}
+    out["step_ms"] = [_host_ms(lambda: step(b)) for _ in range(timed)]
+    return out
+
+
+def _parallel_runs() -> dict:
+    """A rank's part of phase 21 on the current process group: the data-parallel
+    deformpathomic steps, then on a (1, 2) grid the seq-sharded deformable
+    step (dropout off, then on) and the seq-sharded TransMIL eval batch and
+    train step; each with its launches and the kernels' shapes, and apart
+    from them the step times."""
+    from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+
+    def counted(name, fn):
+        shapes = {}
+        reset_launch_counts()
+        with _kernel_shapes(shapes):
+            result = fn()
+        torch.cuda.synchronize()
+        result.update(launches=launch_counts(), shapes=shapes)
+        out[name] = result
+
+    dp_flags = PARALLEL_FLAGS["dp"]
+    dp_batches = _parallel_batches(dp_flags, PARALLEL_DP_STEPS)
+    counted("dp", lambda: _parallel_train(dp_flags, dp_batches))
+    out["dp"]["step_ms"] = _parallel_train(dp_flags, dp_batches[:1],
+                                           PARALLEL_TIMED)["step_ms"]
+    counted("dp_f32", lambda: _parallel_train(PARALLEL_FLAGS["dp_f32"], dp_batches[:1]))
+    seq_flags = PARALLEL_FLAGS["seq_deform"]
+    seq_batch = _parallel_batches(seq_flags, 1)
+    counted("seq_deform", lambda: _parallel_train(seq_flags, seq_batch))
+    drop_flags = dict(seq_flags, dropout_rate=0.1)
+    counted("seq_deform_dropout", lambda: _parallel_train(drop_flags, seq_batch))
+    out["seq_deform_dropout"]["step_ms"] = _parallel_train(drop_flags, seq_batch,
+                                                           PARALLEL_TIMED)["step_ms"]
+    tm_flags = PARALLEL_FLAGS["seq_transmil"]
+    tm_batch = _parallel_batches(tm_flags, 1)
+
+    def transmil():
+        result = _parallel_eval(tm_flags, tm_batch[0])
+        result["train"] = _parallel_train(tm_flags, tm_batch)
+        return result
+
+    counted("seq_transmil", transmil)
+    out["seq_transmil"]["step_ms"] = _parallel_eval(tm_flags, tm_batch[0],
+                                                    PARALLEL_TIMED)["step_ms"]
+    return out
+
+
+def _nccl_w1_run() -> dict:
+    """One deformpathomic train step (S2500, dropout off) without a process
+    group, then the same step in a one-rank NCCL group (the path of a machine
+    with a card per rank): both steps' losses and parameters."""
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.parallel import distributed
+
+    flags = PARALLEL_FLAGS["dp"]
+    batches = _parallel_batches(flags, 1)
+    alone = _parallel_train(flags, batches)
+    again = _parallel_train(flags, batches)
+    port = _free_port()
+    config = Config(**flags, num_processes=1, process_id=0,
+                    coordinator_address=f"127.0.0.1:{port}")
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        distributed.initialize(config, "cuda")
+    try:
+        grouped = _parallel_train(flags, batches)
+    finally:
+        distributed.shutdown()
+    return {"alone": alone, "again": again, "nccl": grouped,
+            "printed": captured.getvalue().strip()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_child(spec_path: str, rank: int) -> int:
+    """Body of a phase-21 rank (``chip_smoke.py --parallel-child SPEC RANK``)."""
+    import os
+
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["kind"] == "nccl_w1":
+        result = _nccl_w1_run()
+    else:
+        config = Config(num_processes=spec["world"], process_id=rank,
+                        coordinator_address=f"127.0.0.1:{spec['port']}")
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            distributed.initialize(config, "cuda")
+        try:
+            result = _parallel_runs()
+        finally:
+            distributed.shutdown()
+        result["printed"] = captured.getvalue().strip()
+    torch.save(result, os.path.join(spec["dir"], f"{spec['kind']}_rank{rank}.pt"))
+    return 0
+
+
+def _spawn_ranks(kind: str, world: int, root: str) -> list:
+    """Run ``world`` ranks of ``kind`` as children of this script; their results."""
+    import os
+
+    spec = {"kind": kind, "world": world, "port": _free_port(), "dir": root}
+    path = os.path.join(root, f"{kind}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-child",
+                               path, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PARALLEL_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"parallel rank {r} of {kind} exited {p.returncode}:\n"
+                                 f"{log[-6000:]}")
+    return [torch.load(os.path.join(root, f"{kind}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _rel_l2(got: dict, want: dict) -> dict:
+    """Each tensor's ||got - want|| / ||want||, a tensor under 1e-3 of the
+    largest norm against that floor (as in phase 6)."""
+    floor = 1e-3 * max(t.norm().item() for t in want.values())
+    return {n: (got[n] - want[n]).norm().item() / max(want[n].norm().item(), floor)
+            for n in want}
+
+
+def _top(d: dict, n: int = 3) -> dict:
+    return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
+
+
+def phase_parallel(card: dict) -> dict:
+    """21. Two ranks as children of this script sharing the card over gloo (the
+    port's backend choice: fewer cards than ranks): deformpathomic at S2500
+    data-parallel (bf16, global B = 8, 4 a rank, dropout off, 3 train steps;
+    one step in f32), deformpathomic at S4096 seq-parallel on a (1, 2) grid (one train step
+    with dropout off, held; one with dropout on, the Philox form on each
+    rank's rows), TransMIL at S4096 seq-parallel (an eval batch and a train
+    step, chain 1 of each rank's rows on #3 / #4); then one rank in an NCCL
+    group against the same step without a group.  Each is held against this
+    process's run without ranks: the first step's loss and gradients within
+    TRAIN_TOL (the later losses and the parameters reported; the bf16
+    data-parallel gradients against the one process run on each rank's half
+    of the batch, beside the whole batch's, the f32 step against the whole
+    batch's), serving outputs within SLICE_TOL; the ranks' states bit-equal after every step; each
+    rank's launches of #1-#4 and their shapes; median step times.  The NCCL
+    step is reported bit for bit against the one without a group, and held
+    to RESUME_PARAM_TOL only where that step does not repeat itself bit for
+    bit (``F.grid_sample``'s CUDA backward adds with atomics)."""
+    import tempfile
+
+    # the children compute as the CLIs do, in full f32 (no TF32); so must this
+    # process, also when the phase runs alone
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    lt, gt = TRAIN_TOL["bfloat16"]
+    dp_batches = _parallel_batches(PARALLEL_FLAGS["dp"], PARALLEL_DP_STEPS)
+    want = {"dp": _parallel_train(PARALLEL_FLAGS["dp"], dp_batches),
+            "dp_f32": _parallel_train(PARALLEL_FLAGS["dp_f32"], dp_batches[:1])}
+    # the one-process step that runs the model on each rank's half of the
+    # batch, as the ranks do, then the loss over both: the bf16 reference of
+    # the ranks' arithmetic (a bf16 product or convolution rounds otherwise
+    # at another batch size)
+    halves = _halves_grads(PARALLEL_FLAGS["dp"], dp_batches[0])
+    seq_flags = {k: v for k, v in PARALLEL_FLAGS["seq_deform"].items() if k != "seq_devices"}
+    want["seq_deform"] = _parallel_train(seq_flags, _parallel_batches(seq_flags, 1))
+    tm_flags = {k: v for k, v in PARALLEL_FLAGS["seq_transmil"].items() if k != "seq_devices"}
+    tm_batch = _parallel_batches(tm_flags, 1)
+    want["seq_transmil"] = _parallel_eval(tm_flags, tm_batch[0])
+    want["seq_transmil_train"] = _parallel_train(tm_flags, tm_batch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ranks = _spawn_ranks("grid2", 2, root)
+        nccl = _spawn_ranks("nccl_w1", 1, root)[0]
+    runs, ok = {}, True
+
+    def train_fields(got, ref, tol=(lt, gt), grads_ref=None):
+        # held: the first step's loss and summed gradients (against
+        # ``grads_ref`` where given); reported: the later steps' losses and the
+        # parameters, which Adam moves by about +-lr wherever a gradient lies
+        # under its eps, by the sign of rounding noise
+        loss_err = [abs(a - b) for a, b in zip(got["losses"], ref["losses"])]
+        grad = _rel_l2(got["grads"], ref["grads"])
+        held = grad if grads_ref is None else _rel_l2(got["grads"], grads_ref)
+        param = _rel_l2(got["params"], ref["params"])
+        good = loss_err[0] <= tol[0] and max(held.values()) <= tol[1] and all(got["equal"])
+        fields = {"loss_abs_err": loss_err, "grad_rel_l2_top": _top(grad),
+                  "param_rel_l2_top": _top(param), "bit_equal_each_step": got["equal"]}
+        if grads_ref is not None:
+            fields["grad_rel_l2_halves_top"] = _top(held)
+        return good, fields
+
+    for name in ("dp", "dp_f32", "seq_deform", "seq_deform_dropout", "seq_transmil"):
+        per_rank = []
+        for r, res in enumerate(ranks):
+            got = res[name]
+            launches = {k: v for k, v in got["launches"].items() if v}
+            expect = PARALLEL_LAUNCHES.get(name)
+            good = expect is None or launches == expect
+            fields = {"launches": launches, "shapes": got["shapes"]}
+            if name in ("dp", "dp_f32", "seq_deform"):
+                g, f = train_fields(got, want[name],
+                                    TRAIN_TOL["float32"] if name == "dp_f32" else (lt, gt),
+                                    halves if name == "dp" else None)
+                good &= g
+                fields.update(f, step_ms_median=statistics.median(got["step_ms"] or [math.nan]))
+            elif name == "seq_deform_dropout":
+                good &= (all(got["equal"]) and all(math.isfinite(v) for v in got["losses"])
+                         and launches.get("deform_attention_fwd_dropout") == 2)
+                fields.update(losses=got["losses"], bit_equal_each_step=got["equal"],
+                              step_ms_median=statistics.median(got["step_ms"]))
+            else:
+                cmp = {k: _compare(got[k], want["seq_transmil"][k], SLICE_TOL["bfloat16"])
+                       for k in ("probs", "loss")}
+                g, f = train_fields(got["train"], want["seq_transmil_train"])
+                good &= g and all(c["ok"] for c in cmp.values())
+                fields.update({"eval_max_abs_err": {k: c["max_abs_err"] for k, c in cmp.items()},
+                               "eval_step_ms_median": statistics.median(got["step_ms"]),
+                               "train": f})
+            fields["ok"] = bool(good)
+            ok &= bool(good)
+            per_rank.append(fields)
+        runs[name] = per_rank
+    # ranks of one run hold one state: their final parameters bit-equal
+    for name in ("dp", "seq_deform", "seq_deform_dropout"):
+        same = all(torch.equal(ranks[0][name]["params"][n], ranks[1][name]["params"][n])
+                   for n in ranks[0][name]["params"])
+        runs[f"{name}_ranks_bit_equal"] = same
+        ok &= same
+    nccl_bit = (nccl["nccl"]["losses"] == nccl["alone"]["losses"]
+                and all(torch.equal(nccl["nccl"]["params"][n], nccl["alone"]["params"][n])
+                        for n in nccl["alone"]["params"]))
+    repeat_bit = all(torch.equal(nccl["again"]["params"][n], nccl["alone"]["params"][n])
+                     for n in nccl["alone"]["params"])
+    nccl_param = max(_rel_l2(nccl["nccl"]["params"], nccl["alone"]["params"]).values())
+    nccl_ok = "backend nccl" in nccl["printed"] and (nccl_bit or (
+        not repeat_bit and nccl_param <= RESUME_PARAM_TOL))
+    ok &= nccl_ok
+    _line("parallel", backend=ranks[0]["printed"], runs=runs,
+          nccl_w1={"printed": nccl["printed"], "bit_equal": nccl_bit,
+                   "alone_repeats_bit_equal": repeat_bit, "param_rel_l2_max": nccl_param,
+                   "ok": nccl_ok},
+          loss_tol=lt, grad_tol=gt, slice_tol=SLICE_TOL["bfloat16"],
+          wall_s=round(time.perf_counter() - t_phase, 1), card=card["nvidia_smi"])
+    if not ok:
+        raise AssertionError("parallel: see the line above")
+    launches = {}
+    for name in ("dp", "seq_deform", "seq_deform_dropout", "seq_transmil"):
+        counts = dict(ranks[0][name]["launches"])
+        counts["deform_attention_fwd_eval"] = (counts["deform_attention_fwd"]
+                                               - counts["deform_attention_fwd_dropout"])
+        launches[name] = counts
+    return launches
+
+
 def _host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2712,6 +3152,8 @@ def main() -> int:
     phase_cohort(card)
     # 20. device-loop: the device loop, return_attn, the profiler, FLOPs, the converter
     phase_device_loop(card, entries)
+    # 21. parallel: data- and sequence-parallel ranks against the one-process runs
+    parallel = phase_parallel(card)
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]
@@ -2720,6 +3162,8 @@ def main() -> int:
                         **{k: e[k] for k in _TIMES},
                         "design": DESIGN_BF16,
                         "launches_serving_s2500": serving[MAIN_FIXDIM].get(name, 0),
+                        "launches_parallel_rank0": {run: c[count]
+                                                    for run, c in parallel.items()},
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16"})
     for name, source, replaces, count, run in CHAIN_KERNELS:
         e, e1 = chains[(name, "chain3")], chains[(name, "chain1")]
@@ -2728,6 +3172,8 @@ def main() -> int:
                         "launches_run": run, **{k: e[k] for k in _TIMES},
                         "design": DESIGN_BF16,
                         "launches_tm_serving_s2500": tm_serving[MAIN_FIXDIM].get(count, 0),
+                        "launches_parallel_rank0": {run: c[count]
+                                                    for run, c in parallel.items()},
                         "shape": f"chain 3: BG={BG} N={e['n']} J={e['j']} bf16",
                         "chain1": {"shape": f"BG={BG} N={e1['n']} J={e1['j']} bf16",
                                    **{k: e1[k] for k in _TIMES}}})
@@ -2757,4 +3203,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -35,9 +35,16 @@ class Config:
     packed_dir: str = ""                # {Train,Val,Test}.bin from sml_tpu_torch.pack_data
 
     # --- distributed / host ---
+    coordinator_address: str = ""       # "host:port" of rank 0's rendezvous; "" =
+                                        # MASTER_ADDR:MASTER_PORT, else one process
+    num_processes: int = 0              # ranks in all; 0 = WORLD_SIZE
+    process_id: int = -1                # this rank; -1 = RANK
     workers: int = 0
     data_axis: str = "data"
     num_devices: int = 0
+    seq_devices: int = 0                # ranks sharing one batch, each holding a
+                                        # share of the Nystrom / 2-D deformable
+                                        # attentions' token rows (0 / 1 = off)
 
     # --- modality fusion ---
     fusion_type: str = "concat"

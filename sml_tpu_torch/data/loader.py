@@ -13,6 +13,11 @@ permutation of ``np.random.default_rng(seed * 100003 + epoch)``, set by
 Loader's.  With ``workers > 0`` one thread collates the batches ahead of the
 consumer, at most ``max(2, workers)`` of them (the JAX Loader's Python
 prefetch): the same batches in the same order, only sooner.
+
+Several data ranks: ``num_shards`` / ``shard_id`` give each rank the
+contiguous slice of every global batch of ``batch_size * num_shards``
+(``sharded_index_batches``), ``batch_size`` being the rank's local batch; all
+ranks shuffle with the same seed.
 """
 
 from __future__ import annotations
@@ -63,35 +68,65 @@ def build_datasets(config: Config, phase: str):
                      "(synthetic, IvYGAP, TCGA or both)")
 
 
+def sharded_index_batches(idx: np.ndarray, local_bs: int, num_shards: int,
+                          shard_id: int, drop_last: bool) -> List[np.ndarray]:
+    """The JAX ``sharded_index_batches``: global batches of ``local_bs *
+    num_shards`` indices in ``idx``'s order, of each the ``shard_id``-th
+    contiguous slice, so the gathered global batch is the one-process batch
+    row for row.  A short last batch is dropped (``drop_last``) or
+    wrap-padded, as torch's DistributedSampler pads."""
+    global_bs = local_bs * num_shards
+    out = []
+    for start in range(0, len(idx), global_bs):
+        chunk = idx[start:start + global_bs]
+        if len(chunk) < global_bs:
+            if drop_last:
+                continue
+            chunk = np.tile(chunk, -(-global_bs // len(chunk)))[:global_bs]
+        out.append(chunk[shard_id * local_bs:(shard_id + 1) * local_bs])
+    return out
+
+
 class Loader:
     """Yields dict batches of stacked numpy arrays."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, workers: int = 0):
+                 drop_last: bool = False, seed: int = 0, workers: int = 0,
+                 num_shards: int = 1, shard_id: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.workers = workers
+        self.num_shards = max(num_shards, 1)
+        self.shard_id = shard_id
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self) -> int:
+        global_bs = self.batch_size * self.num_shards
         if self.drop_last:
-            return len(self.dataset) // self.batch_size
-        return -(-len(self.dataset) // self.batch_size)
+            return len(self.dataset) // global_bs
+        return -(-len(self.dataset) // global_bs)
+
+    def _batches_of(self, idx: np.ndarray) -> List[np.ndarray]:
+        """``idx`` in batches (this shard's slices of the global ones)."""
+        if self.num_shards > 1:
+            return sharded_index_batches(idx, self.batch_size, self.num_shards,
+                                         self.shard_id, self.drop_last)
+        chunks = [idx[s:s + self.batch_size] for s in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            chunks = [c for c in chunks if len(c) == self.batch_size]
+        return chunks
 
     def _index_batches(self) -> List[np.ndarray]:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed * 100_003 + self.epoch).shuffle(idx)
-        chunks = [idx[s:s + self.batch_size] for s in range(0, len(idx), self.batch_size)]
-        if self.drop_last:
-            chunks = [c for c in chunks if len(c) == self.batch_size]
-        return chunks
+        return self._batches_of(idx)
 
     def _collate(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
         samples = [self.dataset[int(i)] for i in chunk]
@@ -140,15 +175,15 @@ class Loader:
 
 
 class BucketedLoader(Loader):
-    """Loader whose every batch holds one bag-size bucket (single host; the
-    JAX package's ``BucketedLoader``).  The dataset gives ``bucket_of(i)``.
+    """Loader whose every batch holds one bag-size bucket (the JAX package's
+    ``BucketedLoader``).  The dataset gives ``bucket_of(i)``.
     Each bucket is batched on its own (dropping or padding its own
     remainder); in train mode the epoch's batches are then put in the order
     of ``np.random.default_rng(seed * 900007 + epoch)``, so buckets
     interleave."""
 
     def __len__(self) -> int:
-        bs = self.batch_size
+        bs = self.batch_size * self.num_shards
         sizes = Counter(self.dataset.bucket_of(i) for i in range(len(self.dataset)))
         return sum(n // bs if self.drop_last else -(-n // bs) for n in sizes.values())
 
@@ -160,16 +195,14 @@ class BucketedLoader(Loader):
         for i in idx:
             by_bucket.setdefault(self.dataset.bucket_of(int(i)), []).append(i)
         batches: List[np.ndarray] = []
+        global_bs = self.batch_size * self.num_shards
         for bucket in sorted(by_bucket):
             bidx = np.asarray(by_bucket[bucket])
-            if self.drop_last and len(bidx) < self.batch_size:
+            if self.drop_last and len(bidx) < global_bs:
                 warnings.warn(f"bucket {bucket} holds {len(bidx)} samples < batch "
-                              f"{self.batch_size} and drop_last=True: they never train",
+                              f"{global_bs} and drop_last=True: they never train",
                               stacklevel=2)
-            chunks = [bidx[s:s + self.batch_size] for s in range(0, len(bidx),
-                                                                  self.batch_size)]
-            batches.extend(c for c in chunks
-                           if not self.drop_last or len(c) == self.batch_size)
+            batches.extend(self._batches_of(bidx))
         if self.shuffle:
             order = np.random.default_rng(self.seed * 900_007 + self.epoch).permutation(
                 len(batches))

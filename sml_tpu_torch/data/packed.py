@@ -6,7 +6,9 @@ fields' little-endian bytes, concatenated) with a JSON sidecar describing the
 fields: the JAX package's files, byte for byte.  ``PackedLoader`` batches them
 as the ``Loader`` batches the dataset (the same seeded epoch order, train
 drops the last partial batch, eval pads it by repeating its last record with
-``sample_mask`` 0).  With ``workers > 0`` the native C++ prefetcher
+``sample_mask`` 0; several data ranks take ``num_shards`` / ``shard_id``,
+each the contiguous slice of every global batch, whose wrap-padded rows count
+as real, as in the JAX loader).  With ``workers > 0`` the native C++ prefetcher
 (``sml_tpu_torch.runtime``) reads the records on ``workers`` threads, at most
 ``queue_depth`` batches ahead; a failed build, a failed ``pf_open`` or a
 short read raises.  ``workers == 0`` reads through a numpy memmap on the
@@ -20,6 +22,8 @@ import json
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from sml_tpu_torch.data.loader import sharded_index_batches
 
 
 def pack_dataset(dataset, path: str) -> dict:
@@ -89,7 +93,7 @@ class PackedLoader:
 
     def __init__(self, path: str, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, workers: int = 2,
-                 queue_depth: int = 4):
+                 queue_depth: int = 4, num_shards: int = 1, shard_id: int = 0):
         self.ds = PackedDataset(path)
         self.path = path
         self.batch_size = batch_size
@@ -98,15 +102,18 @@ class PackedLoader:
         self.seed = seed
         self.workers = workers
         self.queue_depth = queue_depth
+        self.num_shards = max(num_shards, 1)
+        self.shard_id = shard_id
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def __len__(self) -> int:
+        global_bs = self.batch_size * self.num_shards
         if self.drop_last:
-            return len(self.ds) // self.batch_size
-        return -(-len(self.ds) // self.batch_size)
+            return len(self.ds) // global_bs
+        return -(-len(self.ds) // global_bs)
 
     def _epoch_indices(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         """Each batch's record indices (a short eval batch padded with its last
@@ -114,6 +121,10 @@ class PackedLoader:
         idx = np.arange(len(self.ds), dtype=np.int64)
         if self.shuffle:
             np.random.default_rng(self.seed * 100_003 + self.epoch).shuffle(idx)
+        if self.num_shards > 1:
+            batches = sharded_index_batches(idx, self.batch_size, self.num_shards,
+                                            self.shard_id, self.drop_last)
+            return batches, [np.ones(self.batch_size, np.float32) for _ in batches]
         batches, masks = [], []
         for start in range(0, len(idx), self.batch_size):
             chunk = idx[start:start + self.batch_size]

@@ -26,6 +26,12 @@ gene, and an ``attribution`` record to ``metrics.jsonl``: ``ablation`` and
 ``permutation``, ``gradient_shap`` and ``deep_shap`` for the modes with a
 whole gene vector (omic, pathomic, pathomic_original, mcat, cmta; deep_shap
 omic and pathomic only), ``mcat_groups`` for mcat.
+
+Several ranks take the train CLI's flags (``--num_processes``,
+``--process_id``, ``--coordinator_address``, ``--seq_devices``; or torchrun's
+variables): each data rank scores its rows of every Test batch, all get the
+global metrics, and rank 0 prints and logs them.  ``--attribution`` runs in
+one process.
 """
 
 from __future__ import annotations
@@ -58,12 +64,23 @@ def main(argv=None) -> int:
     attribution = args.pop("attribution")
     config = Config(**args)
 
+    from sml_tpu_torch.parallel import distributed
+
+    device = distributed.initialize(config, device)
+    try:
+        return _serve(config, weights, device, attribution)
+    finally:
+        distributed.shutdown()
+
+
+def _serve(config: Config, weights: str, device, attribution: str) -> int:
     import numpy as np
     import torch
 
     from sml_tpu_torch.bridge import load_npz
     from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
     from sml_tpu_torch.models.factory import define_net, resolve_device
+    from sml_tpu_torch.parallel.mesh import make_grid
     from sml_tpu_torch.train.evaluate import evaluate
     from sml_tpu_torch.train.steps import make_eval_step
     from sml_tpu_torch.utils.logging import MetricLogger
@@ -73,6 +90,9 @@ def main(argv=None) -> int:
         # f32 products and convolutions in full f32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    grid = make_grid(config.seq_devices)
+    if attribution and grid.world > 1:
+        raise ValueError("--attribution runs in one process (drop --num_processes)")
     loader_cls = BucketedLoader if config.bucket_list() else Loader
     test_loader = loader_cls(build_datasets(config, "Test"), config.batch_size)
     model = define_net(config, device)
@@ -80,11 +100,13 @@ def main(argv=None) -> int:
         load_npz(model, weights)
     eval_step = make_eval_step(config, model)
     metrics = evaluate(config, eval_step, test_loader, device)
-    print(f"test metrics: {metrics}")
+    if grid.primary:
+        print(f"test metrics: {metrics}")
 
     if not config.debug:
         os.makedirs(config.checkpoints, exist_ok=True)
-    logger = MetricLogger(config, out_dir=config.checkpoints, disabled=config.debug)
+    logger = MetricLogger(config, out_dir=config.checkpoints,
+                          disabled=config.debug or not grid.primary)
     try:
         logger.log({"test": metrics})
         if attribution == "mcat_groups":

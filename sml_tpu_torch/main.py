@@ -20,6 +20,13 @@ best-on-val weights as ``best_modal.npz`` and under the reference's
 every epoch ``last_state.pt`` and ``last_state_meta.json``, from which
 ``--resume true`` continues the run; ``--reload true`` starts from
 ``best_modal.npz``.
+
+Several processes, one device each (``sml_tpu_torch/parallel``), are
+launched with the same flags plus ``--num_processes W --process_id R
+--coordinator_address host:port`` each (or by torchrun, whose variables
+stand in for the three); ``--seq_devices S`` makes every S ranks share a
+batch and split its attentions' token rows.  Without a coordinator the
+process trains alone.
 """
 
 from __future__ import annotations
@@ -37,10 +44,17 @@ def main(argv=None) -> int:
     device = args.pop("device")
     config = Config(**args)
 
-    from sml_tpu_torch.train.loop import train
+    from sml_tpu_torch.parallel import distributed
 
-    _, best = train(config, device)
-    print(f"\nbest (val): {best}")
+    device = distributed.initialize(config, device)
+    try:
+        from sml_tpu_torch.train.loop import train
+
+        _, best = train(config, device)
+        if distributed.is_primary():
+            print(f"\nbest (val): {best}")
+    finally:
+        distributed.shutdown()
     return 0
 
 

@@ -9,6 +9,14 @@ pathomic, pathomic_original, mcat and cmta (both ``coattn_fusion``s).
 The JAX factory turns its kernels off unless the backend is a TPU; the port
 has no such switch: its kernel wrappers launch their CUDA kernels whenever the
 tensors are on ``cuda``.
+
+Under several ranks (``parallel/mesh.py``'s grid) ``define_net`` hands
+every BatchNorm the data group when it holds more than one rank, and with
+``seq_devices > 1`` hands the sharded attentions their seq group: TransMIL's
+Nystrom attentions, those of CMTA's pathomics branch (not the genomics
+stream's five tokens), and deformpathomic's 2-D deformable cross-attentions.
+``seq_checks`` refuses what the sharded bodies cannot split, first, as the
+JAX ``_seq_mesh`` does.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from sml_tpu_torch.models.maxnet import MaxNet
 from sml_tpu_torch.models.mil import ABMIL, TransMIL
 from sml_tpu_torch.models.pathomic import PathomicNet, PathomicNetOriginal
 from sml_tpu_torch.ops.common import dtype_of, init_params
+from sml_tpu_torch.ops.fusion import BatchNorm
+from sml_tpu_torch.ops.nystrom import NystromAttention
+from sml_tpu_torch.parallel.mesh import Grid, make_grid
 
 # which batch keys each mode's forward consumes
 MODE_INPUTS = {"path": ("x_path",),
@@ -62,12 +73,73 @@ def feature_dtype(config: Config) -> torch.dtype:
     return dtype_of(name)
 
 
+def seq_checks(config: Config) -> None:
+    """What ``seq_devices > 1`` needs of the mode (the JAX ``_seq_mesh``'s
+    checks and messages): the Nystrom landmark count divisible by it, attn_dim
+    2 for deformpathomic, and a query grid side that splits into whole kv rows
+    per shard (a multiple of 4 * seq_devices)."""
+    if config.seq_devices <= 1:
+        return
+    layer_dims = []
+    if config.mode == "cmta":
+        layer_dims = [256]                              # CMTA feature_dim
+    elif config.mode == "path" and config.path_arch == "transmil":
+        layer_dims = [512]                              # TransMIL TransLayer dim
+    for dim in layer_dims:
+        if (dim // 2) % config.seq_devices:
+            raise ValueError(
+                f"seq_devices={config.seq_devices} must divide the Nystrom "
+                f"landmark count {dim // 2} (TransLayer dim {dim} // 2) for "
+                f"mode={config.mode!r}")
+    if config.mode == "deformpathomic":
+        if config.attn_dim != 2:
+            raise ValueError("seq_devices requires attn_dim=2 for "
+                             "deformpathomic (1-D branch is not sharded)")
+        side = math.isqrt(config.fixdim - 1) + 1
+        if side % (4 * config.seq_devices):
+            raise ValueError(
+                f"seq_devices={config.seq_devices}: the {side}x{side} query "
+                f"grid must split into whole kv rows per shard — side must "
+                f"be a multiple of 4*seq_devices")
+
+
+def _sharded_attentions(config: Config, model: nn.Module):
+    """The attention modules whose token rows a seq group splits."""
+    if config.mode == "path" and config.path_arch == "transmil":
+        return [model.layer1.attn, model.layer2.attn]
+    if config.mode == "cmta":
+        return [layer.attn for enc in (model.pathomics_encoder, model.pathomics_decoder)
+                for layer in (enc.layer1, enc.layer2)]
+    if config.mode == "deformpathomic":
+        return [getattr(model, f"pathomic_net_{b}").layer3.attn2d for b in ("tumor", "immune")]
+    return []
+
+
+def attach_grid(config: Config, model: nn.Module, grid: Grid) -> None:
+    """Hand the model's BatchNorms and Nystrom attentions (the pinv's scale) the
+    data group (more than one data rank), and its sharded attentions the grid
+    (``seq_devices > 1``)."""
+    if grid.data > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = grid.data_group
+            elif isinstance(m, NystromAttention):
+                m.data_group = grid.data_group
+    if config.seq_devices > 1:
+        if grid.seq != config.seq_devices:
+            raise ValueError(f"seq_devices={config.seq_devices} but the grid has "
+                             f"{grid.seq} seq rank(s)")
+        for attn in _sharded_attentions(config, model):
+            attn.seq = grid
+
+
 def define_net(config: Config, device: str | torch.device = "cuda",
                seed: int | None = None, train: bool = False) -> nn.Module:
     """The model on ``device`` in eval mode (``train=True``: training mode),
     seeded-initialized from ``seed`` (default ``config.seed``), then
     re-initialized by ``init_type`` unless it is max or none; parameters stay
-    float32."""
+    float32; then handed the current grid's groups (``attach_grid``)."""
+    seq_checks(config)
     dtype, init_max = compute_dtype(config), config.init_type == "max"
     if config.mode == "path" and config.path_arch == "transmil":
         model = TransMIL(label_dim=config.label_dim, path_dim=config.path_dim,
@@ -114,6 +186,7 @@ def define_net(config: Config, device: str | torch.device = "cuda",
     if config.init_type not in ("max", "none"):
         reinit_params(model, config.init_type, config.init_gain,
                       torch.Generator().manual_seed(seed))
+    attach_grid(config, model, make_grid(config.seq_devices))
     device = resolve_device(device)
     return model.to(device).train(train)
 

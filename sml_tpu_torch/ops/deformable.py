@@ -40,7 +40,9 @@ per branch.  The JAX fused route pads the sampled points to
 a multiple of 8 (a TPU tiling rule) and masks the padding with a span; the
 port passes J = Nd points and no span.
 
-Not ported yet: the sequence-parallel branch.
+``seq`` (a ``parallel.mesh.Grid`` with more than one seq rank, set by the
+model factory) splits the 2-D module's query rows over the seq group
+(``parallel/seq_deform.py``), with the module's own parameters.
 """
 
 from __future__ import annotations
@@ -140,17 +142,23 @@ class CPB2D(nn.Module):
         for b in (self.b0, self.b1, self.b2):
             nn.init.zeros_(b)
 
+    def raw(self):
+        """(w0, w1, w2, b0, b1, b2)."""
+        return self.w0, self.w1, self.w2, self.b0, self.b1, self.b2
+
     def factors(self, x_coords: torch.Tensor, y_coords: torch.Tensor,
-                grid_kv: torch.Tensor):
+                grid_kv: torch.Tensor, raw=None):
         """Kernel operands (dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
         dx (BG, W*J) f32 in lane order x*J + j, dy (BG, H, J) f32, and the MLP
-        weights in the compute dtype."""
+        weights in the compute dtype (from ``raw``, ``raw()``'s tuple, in place
+        of the module's own where given).  Any rows of the query grid may be
+        asked for: the MLP is separable in y."""
         cdt = self.compute_dtype
         gk = grid_kv.float()
         dx = _signlog(x_coords[None, :, None] - gk[:, None, :, 0])      # (BG, W, J)
         dy = _signlog(y_coords[None, :, None] - gk[:, None, :, 1])      # (BG, H, J)
-        weights = (self.w0[0], self.w0[1], self.b0, self.w1, self.b1, self.w2,
-                   self.b2)
+        w0, w1, w2, b0, b1, b2 = self.raw() if raw is None else raw
+        weights = (w0[0], w0[1], b0, w1, b1, w2, b2)
         return (dx.reshape(dx.shape[0], -1).contiguous(), dy.contiguous(),
                 *(w.to(cdt).contiguous() for w in weights))
 
@@ -208,6 +216,7 @@ class DeformCrossAttention2D(nn.Module):
         self.to_v = Conv(dim, inner, groups=g, bias=False, dtype=dtype)
         self.to_out = Conv(inner, dim, dtype=dtype)
         self.rel_pos_bias = CPB2D(dim // 4, heads, g, dtype=dtype)
+        self.seq = None
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, return_vgrid: bool = False,
                 rng: Optional[DropoutRNG] = None, mask: Optional[torch.Tensor] = None):
@@ -218,6 +227,11 @@ class DeformCrossAttention2D(nn.Module):
         if h * w != n:
             raise ValueError(f"token count {n} must be a perfect square (the model pads "
                              "a bag to the next square grid, with a mask)")
+        if self.seq is not None:
+            from sml_tpu_torch.parallel.seq_deform import seq_parallel_deform_2d
+
+            out, vgrid = seq_parallel_deform_2d(self, x1, x2, mask, rng)
+            return (out, vgrid) if return_vgrid else out
         x1, x2 = _masked(x1, x2, mask)
         g, heads, dh = self.groups, self.heads, self.dim_head
         inner = dh * heads

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sml_tpu_torch.ops.common import Bilinear, Dense, DropoutRNG, dropout
+from sml_tpu_torch.parallel.batchnorm import moments
 
 
 class FusionNet(nn.Module):
@@ -50,16 +51,20 @@ class BatchNorm(nn.BatchNorm1d):
     pass E[x^2] - E[x]^2 is the same in exact arithmetic but cancels where a
     feature's batch mean is far above its spread, as in small batches
     (tests/test_torch_fusion_modes.py::
-    test_bilinear_fusion_b3_gradients_nearer_float64_than_jax)."""
+    test_bilinear_fusion_b3_gradients_nearer_float64_than_jax).  With ``group``
+    (a data group of more than one rank, set by the model factory) the batch's
+    moments are the global batch's, taken over the group
+    (``parallel/batchnorm.py:moments``), as flax's BatchNorm sees the global
+    batch under the JAX package's jit; the running variance stays biased."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__(features, eps=eps, momentum=1.0 - momentum)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
-            mean = x.mean(dim=0)
-            var = ((x - mean) ** 2).mean(dim=0)
+            mean, var, _ = moments(x, self.group)
             with torch.no_grad():
                 self.running_mean.lerp_(mean.detach(), self.momentum)
                 self.running_var.lerp_(var.detach(), self.momentum)

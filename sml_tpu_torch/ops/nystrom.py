@@ -27,7 +27,12 @@ dh.
 The masked softmaxes of the landmark kernel and of the XLA chains fill in
 f32: in bf16, -f32max rounds to -inf and a fully masked landmark row is NaN
 (as in the JAX module at bf16); in f32 the two agree exactly.
-``seq_mesh`` (sequence parallelism) is not ported yet.
+
+``seq`` (a ``parallel.mesh.Grid`` with more than one seq rank, set by the
+model factory) splits the token rows over the seq group
+(``parallel/seq_parallel.py``); ``return_attn`` is refused there, as the JAX
+module asserts.  ``data_group`` (more than one data rank) takes the pinv's
+scale over the global batch.
 """
 
 from __future__ import annotations
@@ -82,10 +87,9 @@ class NystromAttention(nn.Module):
                  num_landmarks: int = 256, pinv_iterations: int = 6,
                  residual: bool = True, residual_conv_kernel: int = 33,
                  eps: float = 1e-8, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, seq_mesh: object = None):
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if seq_mesh is not None:
-            raise NotImplementedError("sequence-parallel Nystrom attention is not ported yet")
+        self.seq = self.data_group = None
         inner = heads * dim_head
         self.dim_head, self.heads, self.num_landmarks = dim_head, heads, num_landmarks
         self.pinv_iterations, self.eps, self.dropout = pinv_iterations, eps, dropout
@@ -120,6 +124,14 @@ class NystromAttention(nn.Module):
                 mask = torch.cat([mask.new_zeros(b, padding), mask], dim=1)
         n_pad = n + padding
         seg = n_pad // m
+        if self.seq is not None:
+            if return_attn:
+                raise ValueError("return_attn is not supported under sequence parallelism")
+            from sml_tpu_torch.parallel.seq_parallel import seq_parallel_nystrom
+
+            out = seq_parallel_nystrom(self, x, mask, interval_mask)
+            out = dropout(out, self.dropout, self.training, rng.device if rng else None)
+            return out[:, -n:]
 
         q, k, v_flat = self.to_qkv(x).chunk(3, dim=-1)
         if mask is not None:
@@ -147,7 +159,7 @@ class NystromAttention(nn.Module):
 
         sim2 = torch.einsum("bhid,bhjd->bhij", q_l, k_l)
         attn2 = _softmax(sim2, None if mask is None else ml & mlT)
-        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations)
+        attn2_inv = moore_penrose_pinv(attn2, self.pinv_iterations, self.data_group)
 
         if (not return_attn and (mask is None or interval_mask)
                 and fused_chains_supported(n_pad, m, dh, q.dtype)):

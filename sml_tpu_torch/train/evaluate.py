@@ -1,9 +1,11 @@
-"""Evaluation loop (counterpart of ``sml_tpu/train/evaluate.py``, without a mesh).
+"""Evaluation loop (counterpart of ``sml_tpu/train/evaluate.py``).
 
 Every batch is enqueued first and the outputs are fetched once at the end.
 Quality metrics and the per-batch loss count exactly the real samples: the
 ``sample_mask`` rides into the eval step, so the padded tail rows of the final
-batch contribute nothing.
+batch contribute nothing.  Under several data ranks every rank holds each
+global eval batch, runs the eval step on its own rows (``shard_batch``) and
+gets back the global batch's outputs, so every rank computes the same metrics.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.models.factory import feature_dtype
+from sml_tpu_torch.parallel.mesh import make_grid, shard_batch
 from sml_tpu_torch.train.losses import TASK_LABEL_SLOT
 from sml_tpu_torch.train.metrics import cindex, compute_avg_metrics
 
@@ -68,9 +71,10 @@ def evaluate(config: Config, eval_step: Callable, loader,
              device: torch.device) -> Dict[str, float]:
     """One pass; returns {'loss', 'cindex'} (survival) or the loss and the seven
     classification metrics (acc, f1, auc, bac, sens, spec, prec)."""
+    grid = make_grid(config.seq_devices)
     outs, host_labels, host_masks = [], [], []
     for batch in loader:
-        outs.append(eval_step(batch_to_device(config, batch, device)))
+        outs.append(eval_step(batch_to_device(config, shard_batch(batch, grid), device)))
         host_labels.append(np.asarray(batch["labels"]))
         host_masks.append(np.asarray(batch["sample_mask"]))
     outs = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]

@@ -28,6 +28,15 @@ steps), and run by ``make_epoch_loop``; a shorter last chunk takes the
 remainder.  A mid-epoch Test / Val pass follows a chunk that ends on the
 interval, logged without train metrics, and the epoch's mean train metrics
 make one ``training`` record (the JAX loop's ``device_loop`` branch).
+
+Several ranks (``parallel/``; the JAX loop over a mesh): the (data, seq) grid
+is made first; the train loader yields each data rank's slice of every global
+batch (``batch_size`` divided by the data ranks, which must divide it), the
+eval loaders the global batches, of which each rank evaluates its rows; each
+data rank draws its own dropout streams; rank 0's initial or restored state
+is put on every rank; only rank 0 prints, logs and writes files, and every
+epoch ends with a check that the ranks still hold the same state, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ from sml_tpu_torch.data.loader import BucketedLoader, Loader, build_datasets
 from sml_tpu_torch.models.factory import (ReduceLROnPlateau, define_net, define_optimizer,
                                           resolve_device, set_learning_rate)
 from sml_tpu_torch.ops.common import DropoutRNG
+from sml_tpu_torch.parallel.collectives import barrier, fold_seed
+from sml_tpu_torch.parallel.mesh import Grid, make_grid, replicas_equal, replicate_state
 from sml_tpu_torch.train import checkpoint as ckpt
 from sml_tpu_torch.train.evaluate import batch_to_device, evaluate, stack_to_device
 from sml_tpu_torch.train.state import TrainState
@@ -57,39 +68,53 @@ from sml_tpu_torch.utils.logging import MetricLogger
 def setup(config: Config, device: str | torch.device = "cuda"):
     """(state, train_step, eval_step, (train_loader, val_loader, test_loader));
     the state from ``best_modal.npz`` (``reload``) and then from
-    ``last_state.pt`` (``resume``, where there is one)."""
+    ``last_state.pt`` (``resume``, where there is one), then the first rank's
+    on every rank."""
     device = resolve_device(device)
     if device.type == "cuda":
         # f32 products and convolutions in full f32, as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    train_loader, val_loader, test_loader = _loaders(config)
+    grid = make_grid(config.seq_devices)
+    train_loader, val_loader, test_loader = _loaders(config, grid)
     model = define_net(config, device, train=True)
     optimizer, scheduler = define_optimizer(config, model, max(len(train_loader), 1))
-    state = TrainState(model, optimizer, scheduler, DropoutRNG.from_seed(config.seed, device))
+    rng = DropoutRNG.from_seed(fold_seed(config.seed, grid.data_index), device)
+    state = TrainState(model, optimizer, scheduler, rng)
     if config.reload:
         load_npz(model, os.path.join(config.checkpoints, "best_modal.npz"))
     if config.resume and ckpt.has_resume_state(config.checkpoints):
         ckpt.restore_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
+        if grid.data_index:   # the file holds rank 0's streams: fold this rank's off them
+            state.rng = DropoutRNG.from_seed(
+                fold_seed(state.rng.philox_seed(), grid.data_index), device)
+    replicate_state(state, grid)
     return (state, make_train_step(config, model), make_eval_step(config, model),
             (train_loader, val_loader, test_loader))
 
 
-def _loaders(config: Config):
+def _loaders(config: Config, grid: Grid):
     """(train, val or None, test) loaders: the packed splits of ``packed_dir``
     through the native prefetcher (``max(workers, 2)`` threads), else the
-    datasets, per bag-size bucket with ``bucket_sizes``."""
+    datasets, per bag-size bucket with ``bucket_sizes``.  The train loader
+    yields this data rank's slice of each global batch."""
+    if config.batch_size % grid.data:
+        raise ValueError(f"batch_size={config.batch_size} must be divisible by the "
+                         f"{grid.data} data ranks")
+    local_bs = config.batch_size // grid.data
+    shards = dict(num_shards=grid.data, shard_id=grid.data_index)
     if config.packed_dir:
         if config.bucket_list():
             raise ValueError("packed_dir holds fixed-size records: bucket_sizes needs "
                              "the datasets (drop packed_dir)")
         from sml_tpu_torch.data.packed import PackedLoader
 
-        def packed(phase, **kw):
+        def packed(phase, batch_size=config.batch_size, **kw):
             return PackedLoader(os.path.join(config.packed_dir, f"{phase}.bin"),
-                                config.batch_size, workers=max(config.workers, 2), **kw)
+                                batch_size, workers=max(config.workers, 2), **kw)
 
-        return (packed("Train", shuffle=True, drop_last=True, seed=config.seed),
+        return (packed("Train", local_bs, shuffle=True, drop_last=True, seed=config.seed,
+                       **shards),
                 None if config.novalset else packed("Val"), packed("Test"))
     train_ds = build_datasets(config, "Train")
     loader_cls = Loader
@@ -103,8 +128,8 @@ def _loaders(config: Config):
         if config.device_loop:
             raise ValueError("bucket_sizes requires per-step dispatch "
                              "(device_loop scans need one static shape)")
-    train_loader = loader_cls(train_ds, config.batch_size, shuffle=True, drop_last=True,
-                              seed=config.seed, workers=config.workers)
+    train_loader = loader_cls(train_ds, local_bs, shuffle=True, drop_last=True,
+                              seed=config.seed, workers=config.workers, **shards)
     val_loader = (None if config.novalset
                   else loader_cls(build_datasets(config, "Val"), config.batch_size))
     return train_loader, val_loader, loader_cls(build_datasets(config, "Test"),
@@ -125,6 +150,14 @@ def save_weights(model: torch.nn.Module, path: str) -> None:
     np.savez(path, **flatten_params(export_flax_params(model)), **stats)
 
 
+def _print(msg: str) -> None:
+    """Print on rank 0 alone."""
+    from sml_tpu_torch.parallel.distributed import is_primary
+
+    if is_primary():
+        print(msg, flush=True)
+
+
 def _host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(v) for k, v in metrics.items()}
 
@@ -133,9 +166,12 @@ def train(config: Config, device: str | torch.device = "cuda"
           ) -> Tuple[TrainState, Dict[str, float]]:
     """Train to ``config.epochs`` epochs; returns (state, best val metrics +
     epoch).  The records go to ``<checkpoints>/metrics.jsonl`` (none under
-    ``debug``)."""
+    ``debug``; none but rank 0's under several ranks)."""
+    from sml_tpu_torch.parallel.distributed import is_primary
+
     os.makedirs(config.checkpoints, exist_ok=True)
-    logger = MetricLogger(config, out_dir=config.checkpoints, disabled=config.debug)
+    logger = MetricLogger(config, out_dir=config.checkpoints,
+                          disabled=config.debug or not is_primary())
     try:
         return _train(config, device, logger)
     finally:
@@ -175,7 +211,7 @@ def _per_step_epoch(config: Config, state: TrainState, train_step, train_loader,
     if step_metrics:
         stacked = {k: torch.stack([m[k] for m in step_metrics]).float().mean().item()
                    for k in step_metrics[0]}
-        print(f"epoch {epoch + 1}/{config.epochs} train={stacked}", flush=True)
+        _print(f"epoch {epoch + 1}/{config.epochs} train={stacked}")
     return cur_iters
 
 
@@ -209,7 +245,7 @@ def _device_loop_epoch(config: Config, state: TrainState, epoch_loop, chunk: int
                                                   for m in chunk_metrics])))
                  for k in chunk_metrics[0]}
         logger.log({"training": means})
-        print(f"epoch {epoch + 1}/{config.epochs} train={means}", flush=True)
+        _print(f"epoch {epoch + 1}/{config.epochs} train={means}")
     return cur_iters
 
 
@@ -218,6 +254,7 @@ def _train(config: Config, device: str | torch.device, logger: MetricLogger
     state, train_step, eval_step, (train_loader, val_loader, test_loader) = setup(
         config, device)
     dev = next(state.model.parameters()).device
+    grid = make_grid(config.seq_devices)
     best: Dict[str, float] = {}
     cur_iters = 0
     start = time.time()
@@ -233,7 +270,7 @@ def _train(config: Config, device: str | torch.device, logger: MetricLogger
             plateau.lr = meta["plateau"]["lr"]
             plateau.best = meta["plateau"]["best"]
             plateau.num_bad = meta["plateau"]["num_bad"]
-        print(f"resuming from epoch {start_epoch} (step {state.step})", flush=True)
+        _print(f"resuming from epoch {start_epoch} (step {state.step})")
 
     if config.device_loop:
         steps_per_epoch = max(len(train_loader), 1)
@@ -262,22 +299,30 @@ def _train(config: Config, device: str | torch.device, logger: MetricLogger
         elapsed = time.time() - start
         logger.log({"epoch": epoch, "test": test_m, "validation": val_m,
                     "elapsed_sec": elapsed})
-        print(f"epoch {epoch + 1}/{config.epochs} val={val_m} test={test_m} "
-              f"elapsed_sec={elapsed:.1f}", flush=True)
+        _print(f"epoch {epoch + 1}/{config.epochs} val={val_m} test={test_m} "
+               f"elapsed_sec={elapsed:.1f}")
         if plateau is not None:
             # takes effect from the next epoch's first update
             set_learning_rate(state, plateau.step(val_m["loss"]))
+        if not replicas_equal(state, grid):
+            raise RuntimeError(f"epoch {epoch + 1}: the ranks' train states differ")
+        # the Val metrics are the global batch's on every rank: all take one branch
         if _is_better(config, val_m, best):
             best = dict(val_m, epoch=epoch)
-            name = ckpt.best_checkpoint_name(config.checkpoints, epoch, config.task_type,
-                                             test_m)
-            save_weights(state.model, name + ".npz")
-            save_weights(state.model, os.path.join(config.checkpoints, "best_modal.npz"))
-        ckpt.save_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
-        meta = {"epoch": epoch, "iters": cur_iters,
-                "best": {k: float(v) for k, v in best.items()}}
-        if plateau is not None:
-            meta["plateau"] = {"lr": plateau.lr, "best": plateau.best,
-                               "num_bad": plateau.num_bad}
-        ckpt.save_resume_meta(config.checkpoints, meta)
+            if grid.primary:
+                name = ckpt.best_checkpoint_name(config.checkpoints, epoch,
+                                                 config.task_type, test_m)
+                save_weights(state.model, name + ".npz")
+                save_weights(state.model, os.path.join(config.checkpoints,
+                                                       "best_modal.npz"))
+        if grid.primary:
+            ckpt.save_train_state(os.path.join(config.checkpoints, ckpt.LAST_STATE), state)
+            meta = {"epoch": epoch, "iters": cur_iters,
+                    "best": {k: float(v) for k, v in best.items()}}
+            if plateau is not None:
+                meta["plateau"] = {"lr": plateau.lr, "best": plateau.best,
+                                   "num_bad": plateau.num_bad}
+            ckpt.save_resume_meta(config.checkpoints, meta)
+    if grid.active:
+        barrier(dev)             # rank 0's files are written when any rank returns
     return state, best

@@ -11,7 +11,15 @@ gradient modulation of the fused classifier, then ``optimizer.step()`` and
 the learning-rate scheduler.  The eval step runs the model in eval mode (the
 BatchNorms' running averages).  The JAX classifier kernel is (2*hs, L) and
 splits by rows; torch's ``weight`` is (L, 2*hs), so its tumor / immune halves
-are its columns."""
+are its columns.
+
+Several data ranks (``parallel/mesh.py``): as under the JAX package's jit,
+every loss sees the global batch.  Each rank gathers the model's outputs and
+the labels of the whole batch over its data group (the backward hands it the
+gradient of its own rows), every rank computes the same global loss, the
+gradients are summed over the data group, then modulated, so every rank takes
+the same update.  The eval step gathers the same way and returns the global
+batch's outputs and loss."""
 
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 from sml_tpu_torch.config import Config
 from sml_tpu_torch.models.factory import model_inputs
 from sml_tpu_torch.ops.common import DropoutRNG
+from sml_tpu_torch.parallel.mesh import gather_outputs, make_grid, sum_grads
 from sml_tpu_torch.train import losses
 from sml_tpu_torch.train.metrics import batch_cindex
 from sml_tpu_torch.train.state import TrainState
@@ -72,6 +81,17 @@ def _hazards_and_s(config: Config, out: Dict[str, torch.Tensor]
     return hazards, torch.cumprod(1.0 - hazards, dim=1)
 
 
+def ddp_world(config: Config) -> int:
+    """w of ``batchloss_grad_scale='ddp'``: ``num_devices``, else every rank of
+    the grid, seq ranks included (the JAX mesh's devices).  Under several ranks
+    the launch fixes the devices, so another ``num_devices`` raises."""
+    world = make_grid(config.seq_devices).world
+    if world > 1 and config.num_devices not in (0, world):
+        raise ValueError(f"num_devices={config.num_devices} under {world} ranks: the "
+                         "launch fixes the devices (set 0 or the number of ranks)")
+    return max(config.num_devices or world, 1)
+
+
 def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
                       labels: torch.Tensor, train: bool = True,
                       sample_mask: Optional[torch.Tensor] = None
@@ -81,8 +101,8 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
     ``mode=cmta`` adds the alignment term; ``mode=deformpathomic`` adds, with
     ``return_vgrid``, the mean of the two branches' batch-similarity losses.
     With ``batchloss_grad_scale='ddp'`` that term keeps its full value and its
-    gradient is scaled by 1/w, w = ``max(num_devices, 1)`` (one card when
-    ``num_devices`` is 0): the reference's GatherLayer over w processes."""
+    gradient is scaled by 1/w, w = ``num_devices``, else the number of ranks
+    (``ddp_world``): the reference's GatherLayer over w processes."""
     if config.task_type == "survival":
         hazards, s = _hazards_and_s(config, out)
         loss3 = _survival_loss(config, hazards, s, labels, sample_mask)
@@ -102,7 +122,7 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
               for b in ("tumor", "immune")]
         batch_sim = 0.5 * bs[0] + 0.5 * bs[1]
         if config.batchloss_grad_scale == "ddp":
-            w = max(config.num_devices, 1)
+            w = ddp_world(config)
             batch_sim = batch_sim / w + (batch_sim * (1.0 - 1.0 / w)).detach()
         aux["batch_sim_loss"] = batch_sim
         total = loss3 + batch_sim
@@ -112,12 +132,19 @@ def compute_mode_loss(config: Config, out: Dict[str, torch.Tensor],
 def make_eval_step(config: Config, model: torch.nn.Module
                    ) -> Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]:
     """(batch of device tensors) -> per-sample ``risk`` or ``probs``, and ``loss``
-    over the rows that ``sample_mask`` marks as real."""
+    over the rows that ``sample_mask`` marks as real.  Under several data ranks
+    the batch is this rank's slice of a global batch, and the outputs and the
+    loss are the global batch's."""
+    grid = make_grid(config.seq_devices)
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.eval()
         out = model(**model_inputs(config, batch))
+        if grid.active:
+            out = gather_outputs(out, grid)
+            batch = gather_outputs({k: batch[k] for k in ("labels", "sample_mask")
+                                    if k in batch}, grid)
         logits = out["logits"].float()
         result: Dict[str, torch.Tensor] = {}
         if config.task_type == "survival":
@@ -190,13 +217,19 @@ def modulate_classifier_grads(config: Config, model: torch.nn.Module,
 def make_grad_step(config: Config, model: torch.nn.Module
                    ) -> Callable[[Dict[str, Any], Optional[DropoutRNG]], Dict[str, torch.Tensor]]:
     """(batch of device tensors, rng) -> {'loss', 'loss3', 'batch_sim_loss'}
-    (detached device scalars), leaving the modulated gradients in ``.grad``."""
+    (detached device scalars), leaving the modulated gradients in ``.grad``.
+    Under several data ranks the batch is this rank's local batch and the
+    loss, its gradients and their modulation are the global batch's."""
+    grid = make_grid(config.seq_devices)
 
     def grad_step(batch: Dict[str, Any], rng: Optional[DropoutRNG]) -> Dict[str, torch.Tensor]:
         model.train()
         model.zero_grad(set_to_none=True)
         labels = batch["labels"]
         out = model(**model_inputs(config, batch), rng=rng)
+        if grid.active:
+            out = gather_outputs(out, grid, differentiable=True)
+            labels = gather_outputs({"labels": labels}, grid)["labels"]
         total, aux = compute_mode_loss(config, out, labels, train=True)
         total.backward()
         for p in model.parameters():
@@ -204,6 +237,7 @@ def make_grad_step(config: Config, model: torch.nn.Module
             # its weight decay and Adam update, as under optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sum_grads(model, grid)
         if (config.mode == "deformpathomic" and config.gradient_modulate
                 and config.fusion_type == "concat"):
             with torch.no_grad():

@@ -142,6 +142,9 @@ for name in names:
     importlib.import_module(name)
 assert {f"sml_tpu_torch.utils.{m}" for m in ("flops", "profiling", "regularize",
                                              "torch_compat")} <= set(names)
+assert {f"sml_tpu_torch.parallel.{m}" for m in ("distributed", "mesh", "collectives",
+                                                "batchnorm", "seq_parallel",
+                                                "seq_deform")} <= set(names)
 print(len(names))
 """
 
