@@ -193,6 +193,23 @@ over gloo, as the port's bootstrap chooses when ranks outnumber cards:
             TransMIL outputs (SLICE_TOL), the ranks' states bit-equal after
             every step, median step times.
 
+The raw patch reader (``RawPatchReader``, ``if_end2end``), whose JPEG pixel
+stage is the port's one kernel with no Pallas counterpart:
+
+22. raw-patches  ``jpeg_pixels`` against its plain version bit for bit on
+            every committed fixture (``tests/data/jpeg``: quality 50 / 75 / 95,
+            4:2:0 / 4:2:2 / 4:4:4, grey, optimised tables, restart markers, 100
+            x 60) and a 4:4:0 file made from the 4:2:2 one, uint8 and f32; then
+            at 2500 distinct 224 x 224 4:2:0 patches, timed beside its plain
+            version and its bound; then a fake TCGA raw cohort beside phase
+            19's, two Train slides of 3000 and 1000 coordinates (the subsample
+            and the repetition branches) read at fixdim 2500 by
+            ``TCGADataset("Train", config, if_end2end=True)`` on cuda through a
+            ``Loader`` of batch 2 with 2 workers: one launch per slide, each
+            ``x_path`` bit-equal to the CPU reading of its slide, per slide the
+            host entropy stage's ms and patches/s, the kernel's ms and bound,
+            the bytes copied to the card, and the peak memory.
+
 Then it prints the ``kernels`` JSON line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs no network, imports nothing of JAX, and exits non-zero without a
@@ -3054,6 +3071,207 @@ def phase_parallel(card: dict) -> dict:
     return launches
 
 
+# phase 22: the raw patch reader (if_end2end) on the card.  Two TCGA slides of
+# copies of the committed 224 x 224 fixtures, one listing RAW_SUBSAMPLE
+# coordinates (the uniform subsample to MAIN_FIXDIM) and one RAW_REPEAT (the
+# repetition); the kernel timed at RAW_TIMED distinct 4:2:0 patches
+JPEG_FIXTURES = "tests/data/jpeg"
+RAW_SUBSAMPLE, RAW_REPEAT, RAW_TIMED = 3000, 1000, 2500
+# integer operations the pixel stage does, for its bound on the CUDA cores:
+# dequantise and the IDCT's two passes per coefficient, upsampling and colour
+# per output value
+JPEG_OPS_PER_COEF, JPEG_OPS_PER_VALUE = 12, 10
+
+
+def _as_440(data: bytes) -> bytes:
+    """A 4:4:0 file (luma 1x2) from a square 4:2:2 one (luma 2x1): the MCUs hold
+    the same blocks, so re-marking the luma's sampling byte in SOF0 gives a
+    valid file of shuffled blocks."""
+    out = bytearray(data)
+    at = out.index(b"\xff\xc0") + 11
+    if out[at] != 0x21:
+        raise AssertionError("the 4:2:2 fixture's luma is not 2x1")
+    out[at] = 0x12
+    return bytes(out)
+
+
+def _jpeg_bound(coef_bytes: int, rows: int, pixels: int, coefs: int) -> tuple:
+    """(bound ms, what bounds it) of the pixel stage: the coefficients read
+    once and the f32 bag written once at HBM_BYTES_PER_S, against its integer
+    operations at the CUDA cores' f32 rate (no int32 peak is published)."""
+    n_bytes = coef_bytes + rows * pixels * 3 * 4
+    ops = coefs * JPEG_OPS_PER_COEF + rows * pixels * 3 * JPEG_OPS_PER_VALUE
+    return _bound(n_bytes, ops, torch.float32)
+
+
+def phase_raw_patches(card: dict) -> dict:
+    """22. The raw patch reader, ``RawPatchReader`` and ``if_end2end``, on the
+    card.  ``jpeg_pixels`` against ``jpeg_pixels_plain`` bit for bit on every
+    committed fixture (and a 4:4:0 file made from the 4:2:2 one), uint8 and
+    f32, then at RAW_TIMED distinct 4:2:0 patches, both timed (the plain
+    version on the card too) beside the bound.  A fake TCGA raw cohort beside
+    phase 19's (``write_cohort``), two Train slides of RAW_SUBSAMPLE and
+    RAW_REPEAT coordinates, read at fixdim MAIN_FIXDIM by ``TCGADataset("Train",
+    config, if_end2end=True)`` on cuda through a ``Loader`` of batch 2 with 2
+    workers (the reader on the loader's thread): one launch per slide and no
+    other, each ``x_path`` bit-equal to the CPU reading of its slide; per
+    slide the host entropy stage's ms and patches/s, the kernel's ms and bound,
+    the bytes copied to the card; the peak memory."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sml_tpu_torch.config import Config
+    from sml_tpu_torch.data import jpeg
+    from sml_tpu_torch.data.datasets import RawPatchReader, TCGADataset, bag_rows
+    from sml_tpu_torch.data.loader import Loader
+    from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from sml_tpu_torch.ops.kernels.jpeg import jpeg_pixels, jpeg_pixels_plain
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixtures = {n[:-4]: open(os.path.join(root, JPEG_FIXTURES, n), "rb").read()
+                for n in sorted(os.listdir(os.path.join(root, JPEG_FIXTURES)))
+                if n.endswith(".jpg")}
+    fixtures["q75_440"] = _as_440(fixtures["q75_422"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, data in fixtures.items():
+            with open(f"{tmp}/{name}.jpg", "wb") as f:
+                f.write(data)
+
+        # 1) the kernel against its plain version on every fixture, by size
+        _, hdr, _ = jpeg.read([f"{tmp}/{n}.jpg" for n in fixtures])
+        sizes = {}
+        for name, h in zip(fixtures, hdr.tolist()):
+            sizes.setdefault((h[1], h[0]), []).append(name)
+        equal = {}
+        for (height, width), names in sizes.items():
+            coef, hdr_s, offsets = jpeg.read([f"{tmp}/{n}.jpg" for n in names], pin=True)
+            index = torch.arange(len(names))
+            for dtype in (torch.uint8, torch.float32):
+                want = jpeg_pixels_plain(coef, hdr_s, offsets, index,
+                                         torch.empty((len(names), height, width, 3),
+                                                     dtype=dtype))
+                got = jpeg_pixels(coef.to(dev), hdr_s, offsets, index,
+                                  torch.empty((len(names), height, width, 3), dtype=dtype,
+                                              device=dev)).cpu()
+                for k, name in enumerate(names):
+                    equal[f"{name}/{str(dtype)[6:]}"] = bool(torch.equal(got[k], want[k]))
+        _line("raw-patches", step="fixtures", layouts=sorted(fixtures), equal=equal,
+              ok=all(equal.values()))
+        if not all(equal.values()):
+            raise AssertionError(f"jpeg_pixels differs from its plain version: {equal}")
+
+        # 2) at RAW_TIMED distinct 4:2:0 patches: one fixture's coefficients
+        # tiled (the kernel transforms each copy), against the plain version
+        coef1, hdr1, _ = jpeg.read([f"{tmp}/q75_420.jpg"])
+        n_coef = coef1.numel()
+        coef = coef1.repeat(RAW_TIMED).to(dev)
+        hdr_t = hdr1.repeat(RAW_TIMED, 1)
+        offsets = torch.arange(RAW_TIMED, dtype=torch.int64) * n_coef
+        index = torch.arange(RAW_TIMED)
+        out = torch.empty((RAW_TIMED, 224, 224, 3), device=dev)
+        plain = torch.empty_like(out)
+        run = lambda: jpeg_pixels(coef, hdr_t, offsets, index, out)   # noqa: E731
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: jpeg_pixels_plain(coef, hdr_t, offsets, index, plain),
+                            iters=3, warmup=1)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        bound_ms, bound_by = _jpeg_bound(coef.numel() * 2, RAW_TIMED, 224 * 224,
+                                         coef.numel())
+        timed = {"name": "jpeg_pixels", "shape": f"{RAW_TIMED} distinct 224x224 4:2:0 "
+                 "patches -> f32", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                 "coef_mb": coef.numel() * 2 / 1e6, "out_mb": out.numel() * 4 / 1e6}
+        _line("raw-patches", step="kernel", **timed, ok=err == 0.0, card=card["nvidia_smi"])
+        if err != 0.0:
+            raise AssertionError(f"jpeg_pixels at {RAW_TIMED} patches: max error {err}")
+        del coef, out, plain
+
+        # 3) the main path: two slides through TCGADataset(if_end2end) on cuda
+        data = f"{tmp}/data/"
+        write_cohort(data, MAIN_FIXDIM)
+        config = Config(dataset="TCGA", dataDir=data, fixdim=MAIN_FIXDIM)
+        dataset = TCGADataset("Train", config, if_end2end=True)
+        dataset.rows = dataset.rows[:2]          # one slide of each branch
+        bag_layouts = [n for n in sorted(sizes[(224, 224)]) if n in fixtures]
+        slides = {}
+        for row, count in zip(dataset.rows, (RAW_SUBSAMPLE, RAW_REPEAT)):
+            slide = row[1]
+            sdir = f"{data}TCGA/wsi/{slide}"
+            os.makedirs(sdir)
+            os.makedirs(f"{data}TCGA/read_details", exist_ok=True)
+            coords = np.array([[37 * i, 11 * i + 5] for i in range(count)], dtype=object)
+            np.save(f"{data}TCGA/read_details/{slide}.npy",
+                    np.array([coords], dtype=object), allow_pickle=True)
+            for i, (x, y) in enumerate(coords):
+                with open(f"{sdir}/{x}_{y}.jpg", "wb") as f:
+                    f.write(fixtures[bag_layouts[i % len(bag_layouts)]])
+            names = [f"{sdir}/{coords[i][0]}_{coords[i][1]}.jpg"
+                     for i in bag_rows(count, MAIN_FIXDIM)]
+            slides[slide] = {"coordinates": count, "distinct": len(set(names)),
+                             "paths": list(dict.fromkeys(names)), "names": names}
+        loader = Loader(dataset, 2, workers=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        batches = list(loader)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(batches) != 1:
+            raise AssertionError(f"expected one batch of 2 slides, got {len(batches)}")
+        x_path = batches[0]["x_path"]
+        cpu_reader = RawPatchReader(f"{data}TCGA", f"{data}TCGA/wsi", MAIN_FIXDIM,
+                                    device="cpu")
+        per_slide, ok = [], (x_path.device.type == "cuda"
+                             and tuple(x_path.shape) == (2, MAIN_FIXDIM, 224 * 224 * 3))
+        for k, (slide, info) in enumerate(slides.items()):
+            t0 = time.perf_counter()
+            want = cpu_reader(slide)
+            cpu_s = time.perf_counter() - t0
+            same = bool(torch.equal(x_path[k].cpu(), want))
+            # the slide's two stages apart: the host entropy stage, then the kernel
+            t0 = time.perf_counter()
+            coef, hdr_s, offsets = jpeg.read(info["paths"], pin=True)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            pos = {p: i for i, p in enumerate(info["paths"])}
+            index = torch.tensor([pos[n] for n in info["names"]])
+            coef_d = coef.to(dev)
+            out = torch.empty((MAIN_FIXDIM, 224, 224, 3), device=dev)
+            kernel_ms = _time_ms(lambda: jpeg_pixels(coef_d, hdr_s, offsets, index, out),
+                                 iters=10)
+            bound_ms, bound_by = _jpeg_bound(coef.numel() * 2, MAIN_FIXDIM, 224 * 224,
+                                             coef.numel())
+            h2d = coef.numel() * 2 + (hdr_s.numel() + 2 * offsets.numel()
+                                      + 2 * index.numel()) * 4
+            per_slide.append({
+                "slide": slide, "coordinates": info["coordinates"],
+                "branch": "subsample" if info["coordinates"] > MAIN_FIXDIM else "repeat",
+                "distinct_patches": info["distinct"], "equal_to_cpu_reading": same,
+                "host_entropy_ms": host_ms, "threads": jpeg.THREADS,
+                "patches_per_s": info["distinct"] / host_ms * 1e3,
+                "kernel_ms": kernel_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "h2d_bytes": h2d, "cpu_reading_s": round(cpu_s, 2)})
+            ok &= same
+            del coef_d, out
+        want_launches = {k: 2 if k == "jpeg_pixels" else 0 for k in launches}
+        ok &= launches == want_launches
+        _line("raw-patches", step="slides", slides=per_slide, loader_wall_s=round(wall_s, 3),
+              loader_patches_per_s=sum(s["distinct"] for s in slides.values()) / wall_s,
+              launches=launches, expected_launches=want_launches, peak_gb=peak_gb,
+              ok=ok, card=card["nvidia_smi"])
+        if not ok:
+            raise AssertionError("raw-patches: see the line above")
+    _line("raw-patches", step="phase", wall_s=round(time.perf_counter() - t_phase, 1))
+    return dict(timed, launches=launches["jpeg_pixels"])
+
+
 def _host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3154,6 +3372,8 @@ def main() -> int:
     phase_device_loop(card, entries)
     # 21. parallel: data- and sequence-parallel ranks against the one-process runs
     parallel = phase_parallel(card)
+    # 22. raw-patches: RawPatchReader and if_end2end, the JPEG pixel stage's kernel
+    raw = phase_raw_patches(card)
     kernels = []
     for name, source, replaces, count in JSON_KERNELS:
         e = entries[name]
@@ -3196,6 +3416,12 @@ def main() -> int:
                         **{k: e[k] for k in _DH32 if k in e},
                         "chain1": {"shape": f"f32 dh=32, BG={BG} N={e1['n']} J={e1['j']}",
                                    **{k: e1[k] for k in _TIMES + _DH32 if k in e1}}})
+    kernels.append({"name": "jpeg_pixels", "route": "cuda",
+                    "source": "sml_tpu_torch/csrc/jpeg_pixels.cu",
+                    "replaces": "sml_tpu/data/datasets.py:109 (PIL's decode; no Pallas kernel)",
+                    "launches": raw["launches"], "launches_run": "raw-patches",
+                    **{k: raw[k] for k in _TIMES}, "design": "CUDA cores, int32",
+                    "shape": raw["shape"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                              "count": card["count"]}}), flush=True)

@@ -69,6 +69,9 @@ class Config:
     resume: bool = False                # continue from <checkpoints>/last_state.pt
     seed: int = 42
     batch_size: int = 8
+    image_size: tuple = (224, 224)      # as in JAX, read by nothing (patches are
+                                        # 224 x 224); parsed as JAX parses a tuple
+                                        # flag: tuple(str), one item per character
     start_epoch: int = 0
     epochs: int = 20
     lr: float = 1.0e-3

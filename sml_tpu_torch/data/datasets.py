@@ -1,7 +1,9 @@
 """IvYGAP and TCGA cohort readers (counterpart of ``sml_tpu/data/datasets.py``).
 
 Sample contract: (x_path (fixdim, 1024) f32, x_omic (431,), x_omic_tumor (59,),
-x_omic_immune (361,), labels (12,)).  Splits are patient-level after a seeded
+x_omic_immune (361,), labels (12,)); with ``if_end2end`` x_path is the raw
+patch bag instead, a (fixdim, 224 * 224 * 3) f32 tensor on the reader's device
+(``RawPatchReader``).  Splits are patient-level after a seeded
 shuffle (0.8 / 0.1 / 0.1: Train first, then Test, Val last; 0.67 / 0.33 with
 ``novalset``).  WSI features come from per-slide HDF5 files
 (``Res50_feature_{fixdim}_fixdim0_norm/{id}.h5``, dataset ``Res_feature``),
@@ -27,9 +29,10 @@ import re
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from sml_tpu_torch.config import Config
-from sml_tpu_torch.data import h5
+from sml_tpu_torch.data import h5, jpeg
 from sml_tpu_torch.data.synthetic import QUANTILES_ALL, QUANTILES_UNCENSORED
 
 # label-vector slot layout (reference data/dataset.py:523)
@@ -217,21 +220,70 @@ class _H5FeatureReader:
         self.root = root
 
     def __call__(self, slide_id: str) -> np.ndarray:
-        return h5.read(os.path.join(self.root, f"{slide_id}.h5"), "Res_feature")[0]
+        return h5.read(os.path.join(self.root, f"{slide_id}.h5"),
+                       "Res_feature")[0].astype(np.float32)
 
 
-def _end2end_unported(if_end2end: bool) -> None:
+def bag_rows(num: int, max_num: int) -> List[int]:
+    """The detail row of each of the bag's ``max_num`` rows, as the JAX
+    reader picks them: the patches repeated in order (``times`` copies, then
+    the first ``remaining``), or, over ``max_num``, every ``num / max_num``-th
+    rounded half to even."""
+    if num <= max_num:
+        times, remaining = max_num // num, max_num % num
+        return list(range(num)) * times + list(range(num))[:remaining]
+    idx = [int(np.around(i * (num / max_num))) for i in range(max_num)]
+    return [min(i, num - 1) for i in idx]
+
+
+class RawPatchReader:
+    """End-to-end raw-JPEG bag reader (counterpart of the JAX
+    ``RawPatchReader``; reference ``read_img``, dataset.py:142-186).
+
+    Reads the patch JPEGs listed in ``read_details/{slide}.npy``, pads by
+    repetition (or uniformly subsamples) to exactly ``fixdim`` patches and
+    returns a (fixdim, patch_size * patch_size * 3) float32 tensor in [0, 1]
+    on ``device``, each patch decoded once by the port's decoder
+    (``data/jpeg.py``: entropy stage on host threads, pixel stage by the
+    ``jpeg_pixels`` kernel on a card); bit for bit the JAX reader's array.
+    """
+
+    def __init__(self, cohort_dir: str, wsi_root: str, fixdim: int,
+                 patch_size: int = 224, device="cuda"):
+        self.cohort_dir = cohort_dir
+        self.wsi_root = wsi_root
+        self.fixdim = fixdim
+        self.patch_size = patch_size
+        self.device = torch.device(device)
+
+    def __call__(self, slide_id: str) -> torch.Tensor:
+        details = np.load(os.path.join(self.cohort_dir, "read_details",
+                                       f"{slide_id}.npy"), allow_pickle=True)[0]
+        wsi_path = os.path.join(self.wsi_root, slide_id)
+        names = [os.path.join(wsi_path, f"{details[i][0]}_{details[i][1]}.jpg")
+                 for i in bag_rows(details.shape[0], self.fixdim)]
+        distinct = {name: k for k, name in enumerate(dict.fromkeys(names))}
+        size = self.patch_size
+        out = torch.empty((self.fixdim, size, size, 3), dtype=torch.float32,
+                          device=self.device)
+        jpeg.decode_into(list(distinct), [distinct[n] for n in names], out)
+        return out.view(self.fixdim, -1)
+
+
+def _slide_reader(config: Config, cohort: str, if_end2end: bool, device):
+    """A cohort's x_path reader: its raw patch JPEGs (``if_end2end``) or its
+    ResNet-50 feature files."""
+    root = os.path.join(config.dataDir, cohort)
     if if_end2end:
-        raise NotImplementedError(
-            "if_end2end (RawPatchReader, raw patch JPEGs) is not ported: see ROADMAP.md "
-            "queue 1, item 5")
+        return RawPatchReader(root, os.path.join(root, "wsi"), config.fixdim, device=device)
+    return _H5FeatureReader(os.path.join(root, f"Res50_feature_{config.fixdim}_fixdim0_norm"))
 
 
 class IvYGAPDataset:
     """Allen-Institute IvYGAP cohort: fpkm gene tables joined by specimen name."""
 
-    def __init__(self, phase: str, config: Config, if_end2end: bool = False):
-        _end2end_unported(if_end2end)
+    def __init__(self, phase: str, config: Config, if_end2end: bool = False,
+                 device="cuda"):
         self.config, self.phase = config, phase
         d = config.dataDir
         table = Table.read(os.path.join(d, "IvYGAP", "multimodal_diag_survival_IvY.csv"))
@@ -257,15 +309,14 @@ class IvYGAPDataset:
         self.specimens = ["-".join(x.split("-")[:3])
                           for x in self.columns_samples.col("specimen_name")]
         self.quantiles = _quantiles(config)
-        self.read_feature = _H5FeatureReader(
-            os.path.join(d, "IvYGAP", f"Res50_feature_{config.fixdim}_fixdim0_norm"))
+        self.read_feature = _slide_reader(config, "IvYGAP", if_end2end, device)
 
     def __len__(self) -> int:
         return len(self.rows)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         row = self.rows[index]
-        wsi = self.read_feature(row[1]).astype(np.float32)
+        wsi = self.read_feature(row[1])
         omic, tumor, immune = self._genes(row[1])
         return {"x_path": wsi, "x_omic": omic, "x_omic_tumor": tumor,
                 "x_omic_immune": immune, "labels": self._labels(row)}
@@ -294,16 +345,15 @@ class IvYGAPDataset:
 class TCGADataset:
     """TCGA cohort: per-sample GDC gene-expression TSVs, richer molecular labels."""
 
-    def __init__(self, phase: str, config: Config, if_end2end: bool = False):
-        _end2end_unported(if_end2end)
+    def __init__(self, phase: str, config: Config, if_end2end: bool = False,
+                 device="cuda"):
         self.config, self.phase = config, phase
         d = config.dataDir
         table = Table.read(os.path.join(d, "TCGA", "multimodal_diag_survival_TCGA.csv"))
         self.rows = _rows_of(table.values(), phase, config)
         self.share, self.share_tumor, self.share_immune = _read_gene_signature(d)
         self.quantiles = _quantiles(config)
-        self.read_feature = _H5FeatureReader(
-            os.path.join(d, "TCGA", f"Res50_feature_{config.fixdim}_fixdim0_norm"))
+        self.read_feature = _slide_reader(config, "TCGA", if_end2end, device)
         self.gene_root = os.path.join(d, "TCGA", "transcriptomeProfiling_geneExpression")
         # each sample's gene vectors, parsed once: a GDC file has ~60k rows
         self._genes_of: Dict[str, Tuple[np.ndarray, ...]] = {}
@@ -313,7 +363,7 @@ class TCGADataset:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         row = self.rows[index]
-        wsi = self.read_feature(row[1]).astype(np.float32)
+        wsi = self.read_feature(row[1])
         omic, tumor, immune = self._genes(row)
         return {"x_path": wsi, "x_omic": omic, "x_omic_tumor": tumor,
                 "x_omic_immune": immune, "labels": self._labels(row)}

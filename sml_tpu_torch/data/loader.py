@@ -14,6 +14,10 @@ Loader's.  With ``workers > 0`` one thread collates the batches ahead of the
 consumer, at most ``max(2, workers)`` of them (the JAX Loader's Python
 prefetch): the same batches in the same order, only sooner.
 
+A field that the samples hold as tensors (the raw patch bags of
+``if_end2end``, already on the card) is stacked and padded with torch, on
+its device; every other field with numpy.
+
 Several data ranks: ``num_shards`` / ``shard_id`` give each rank the
 contiguous slice of every global batch of ``batch_size * num_shards``
 (``sharded_index_batches``), ``batch_size`` being the rank's local batch; all
@@ -29,6 +33,7 @@ from queue import Queue
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
+import torch
 
 from sml_tpu_torch.config import Config
 
@@ -87,8 +92,22 @@ def sharded_index_batches(idx: np.ndarray, local_bs: int, num_shards: int,
     return out
 
 
+def _stack(values: list):
+    if isinstance(values[0], torch.Tensor):
+        return torch.stack(values)
+    return np.stack(values)
+
+
+def _pad(v, pad: int):
+    """``v`` with its last row repeated ``pad`` times."""
+    if isinstance(v, torch.Tensor):
+        return torch.cat([v, v[-1:].expand(pad, *v.shape[1:])])
+    return np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
+
+
 class Loader:
-    """Yields dict batches of stacked numpy arrays."""
+    """Yields dict batches of stacked numpy arrays (tensors where the samples
+    hold tensors)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, workers: int = 0,
@@ -130,12 +149,12 @@ class Loader:
 
     def _collate(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
         samples = [self.dataset[int(i)] for i in chunk]
-        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        batch = {k: _stack([s[k] for s in samples]) for k in samples[0]}
         pad = self.batch_size - len(samples)
         mask = np.ones(self.batch_size, dtype=np.float32)
         if pad > 0:
             for k, v in batch.items():
-                batch[k] = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
+                batch[k] = _pad(v, pad)
             mask[len(samples):] = 0.0
         batch["sample_mask"] = mask
         return batch

@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version:
+the CPB bias and the deformable attention (ported Pallas kernels) and the JPEG
+decoder's pixel stage (no Pallas counterpart: the JAX package decodes with PIL)."""
 
 from sml_tpu_torch.ops.kernels.cpb_bias import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                                 cpb_bias_plain, cpb_bias_trainable)
@@ -7,9 +9,10 @@ from sml_tpu_torch.ops.kernels.deform_attn import (deform_attention_bwd,
                                                    deform_attention_fwd,
                                                    deform_attention_fwd_plain,
                                                    deform_attention_trainable)
+from sml_tpu_torch.ops.kernels.jpeg import jpeg_pixels, jpeg_pixels_plain
 from sml_tpu_torch.ops.kernels.philox import philox_keep_mask
 
-KERNELS = (cpb_bias, cpb_bias_bwd, deform_attention_fwd, deform_attention_bwd)
+KERNELS = (cpb_bias, cpb_bias_bwd, deform_attention_fwd, deform_attention_bwd, jpeg_pixels)
 # the per-form counts of the attention wrappers: (wrapper, attribute, key)
 _FORMS = ((deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropout"),
           (deform_attention_fwd, "nobias_launches", "deform_attention_fwd_nobias"),
@@ -41,5 +44,6 @@ def launch_counts() -> dict:
 __all__ = ["cpb_bias", "cpb_bias_plain", "cpb_bias_bwd", "cpb_bias_bwd_plain",
            "cpb_bias_trainable", "deform_attention_fwd", "deform_attention_fwd_plain",
            "deform_attention_bwd", "deform_attention_bwd_plain",
-           "deform_attention_trainable", "philox_keep_mask", "KERNELS",
+           "deform_attention_trainable", "jpeg_pixels", "jpeg_pixels_plain",
+           "philox_keep_mask", "KERNELS",
            "reset_launch_counts", "launch_counts"]

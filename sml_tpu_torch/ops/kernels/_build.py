@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sml_tpu_torch"
-SOURCES = ("cpb_bias", "cpb_bias_bwd", "deform_attn", "deform_attn_bwd")
+SOURCES = ("cpb_bias", "cpb_bias_bwd", "deform_attn", "deform_attn_bwd", "jpeg_pixels")
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

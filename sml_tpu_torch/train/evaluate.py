@@ -25,10 +25,12 @@ from sml_tpu_torch.train.metrics import cindex, compute_avg_metrics
 def batch_to_device(config: Config, batch: Dict[str, np.ndarray],
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy batch -> device tensors; x_path is cast to the feature dtype on the
-    host first, so only those bytes cross to the device (``cast_features``)."""
+    host first, so only those bytes cross to the device (``cast_features``).
+    A field that is already a tensor on ``device`` (a raw patch bag decoded
+    there) stays there, x_path cast in place of the copy."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.asarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
         if k == "x_path":
             t = t.to(feature_dtype(config))
         out[k] = t.to(device)

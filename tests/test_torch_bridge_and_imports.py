@@ -117,7 +117,7 @@ def test_bridge_round_trips_batch_stats_and_the_new_leaf_kinds(extra, tmp_path):
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sml_tpu", "yaml", "sklearn",
-            "h5py", "pandas", "PIL", "openpyxl")
+            "h5py", "pandas", "PIL", "openpyxl", "torchvision")
 
 _BLOCK = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -229,6 +229,23 @@ def test_config_parser_builds_from_fields():
     assert set(args) == {f.name for f in dataclasses.fields(Config)}
     with pytest.raises(ValueError):
         Config(mode="nonsense")
+
+
+@pytest.mark.parametrize("argv", [[], ["--image_size", "96"], ["--image_size=224,224"]])
+def test_image_size_parses_as_jax(argv):
+    """``image_size``, the last field of the JAX ``Config``, with its default
+    and parsed from the CLI as the JAX parser parses a tuple flag
+    (``tuple(str)``, one item per character)."""
+    from sml_tpu.config import build_parser as j_build_parser
+    from sml_tpu.config import full_cli_config
+
+    from sml_tpu_torch.config import build_parser
+
+    want = vars(j_build_parser(full_cli_config({})).parse_args(argv))["image_size"]
+    got = vars(build_parser().parse_args(argv))["image_size"]
+    assert got == want and type(got) is type(want) is tuple
+    assert Config(image_size=got).image_size == JConfig(image_size=want).image_size
+    assert {f.name for f in dataclasses.fields(Config)} >= set(full_cli_config({})) - {"debug"}
 
 
 @pytest.mark.parametrize("phase", ["Train", "Test"])

@@ -1,16 +1,19 @@
 """The port's IvYGAP / TCGA readers (``sml_tpu_torch/data/datasets.py``, read
 with ``csv`` and the port's HDF5 reader) against the JAX package's (pandas and
 h5py): splits, ``x_path``, labels and gene vectors on the JAX tests' corpus
-and on a harder one, and the ``Loader`` over ``both``."""
+and on a harder one, the ``Loader`` over ``both``, and both readers over raw
+patch JPEGs (``if_end2end``) against JAX's PIL-decoded bags."""
 
 import csv
 import os
+import shutil
 import sys
 
 import h5py
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from sml_tpu.config import Config as JConfig
 from sml_tpu.data import datasets as jdatasets
@@ -22,6 +25,7 @@ from sml_tpu_torch.data.loader import Loader, build_datasets
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_data import _write_fake_corpus  # noqa: E402
+from test_torch_raw_reader import write_slide  # noqa: E402
 
 FIXDIM = 8
 SIG_TUMOR = ["G4", "G0", "G9", "G2", "G7"]
@@ -249,7 +253,32 @@ def test_signature_csv_is_required(tmp_path):
         datasets._read_gene_signature(str(tmp_path))
 
 
-def test_end2end_reader_is_not_ported(corpora):
-    cfg = Config(dataset="TCGA", dataDir=corpora["simple"], fixdim=FIXDIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.TCGADataset("Train", cfg, if_end2end=True)
+def test_end2end_reader_is_not_ported(corpora, tmp_path):
+    """``if_end2end=True``: both cohorts' readers over raw patch JPEGs (a
+    ``wsi/`` tree and ``read_details`` beside the simple corpus, slides of 3
+    patches, padded by repetition, and of 11, subsampled, to FIXDIM 8) give
+    JAX's samples, ``x_path`` the (8, 224 * 224 * 3) bag as a CPU tensor."""
+    root = str(tmp_path) + "/"
+    shutil.copytree(corpora["simple"], root, dirs_exist_ok=True)
+    for cohort, table in (("TCGA", "multimodal_diag_survival_TCGA.csv"),
+                          ("IvYGAP", "multimodal_diag_survival_IvY.csv")):
+        slides = pd.read_csv(os.path.join(root, cohort, table))["slide"]
+        for k, slide in enumerate(slides):
+            write_slide(os.path.join(root, cohort), os.path.join(root, cohort, "wsi"),
+                        slide, 3 if k % 2 else 11, first=k)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name in ("TCGADataset", "IvYGAPDataset"):
+            cfg, jcfg = (C(dataset=name[:-7], dataDir=root, fixdim=FIXDIM, seed=5)
+                         for C in (Config, JConfig))
+            want = getattr(jdatasets, name)("Train", jcfg, if_end2end=True)
+            got = getattr(datasets, name)("Train", cfg, if_end2end=True, device="cpu")
+            assert len(got) == len(want) > 0
+            for i in range(len(want)):
+                g, w = got[i], want[i]
+                assert isinstance(g["x_path"], torch.Tensor)
+                g["x_path"] = g["x_path"].numpy()
+                _same_sample(g, w, set(), (name, i))
+    finally:
+        torch.set_num_threads(threads)
