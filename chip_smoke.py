@@ -11,10 +11,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
 3. ragged   the attention forward and backward in all eight forms, and the
             f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
             100 and J = 20 / 72 / 37 (tails of a row tile, a key tile and a
-            16-key step; J not a multiple of 8, J odd), f32 and bf16, against
-            their plain versions (the forward at KERNEL_TOL and, in bf16,
-            FWD_ULPS of its largest output; the backward at GRAD_RTOL), and
-            two launches bit for bit;
+            16-key step; J not a multiple of 8, J odd), then the forms with a
+            bias at J = 38 / 39 / 41 / 42 / 43 and at N = 65 (one row past a
+            row tile), J = 37 / 72, so that every residue of J mod 8 meets the
+            staged bias tile's row shifts, f32 and bf16, against their plain
+            versions (the forward at KERNEL_TOL and, in bf16, FWD_ULPS of its
+            largest output; the backward at GRAD_RTOL), and two launches bit
+            for bit;
 3b. cpb-ragged  the CPB forward and backward at (H, W, J) = (8, 8, 4), (9,
             7, 20), (6, 11, 37) and (5, 9, 72) (a 64-token bag's J = 4; W*J
             not a multiple of 16; a J split across two backward tiles), dm 8
@@ -344,6 +347,23 @@ def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _attn_bound(n: int, j: int, dtype: torch.dtype, bias_size: int = 0, bwd: bool = False,
+                work=None):
+    """``_bound`` of the dh = DH attention forward (``bwd``: backward) of BG bags
+    of n rows and j keys in ``dtype``: q, k, v (and dout) read once, out (dq,
+    dk, dv) written once, the bias (and dbias) at ``bias_size`` bytes a pair;
+    4 DH FLOP a valid pair forward (+ 7 with a bias), 10 DH backward, and 2
+    DH a key for each uniform row.  ``work``: (valid pairs, uniform rows) of
+    a span batch (``_span_work``); all pairs without."""
+    size = torch.finfo(dtype).bits // 8
+    pairs, uniform = (BG * n * j, 0) if work is None else work
+    if bwd:
+        return _bound(size * (3 * BG * n * DH + 4 * BG * j * DH) + 2 * bias_size * BG * n * j,
+                      10 * DH * pairs + 2 * DH * j * uniform, dtype)
+    return _bound(size * (2 * BG * n * DH + 2 * BG * j * DH) + bias_size * BG * n * j,
+                  (4 * DH + (7 if bias_size else 0)) * pairs + 2 * DH * j * uniform, dtype)
+
+
 def phase_device() -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -514,8 +534,7 @@ def phase_kernels() -> dict:
             v = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
             dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
             fbias = bias.reshape(BG, n, j)
-            qkv_bytes = size * (2 * BG * n * DH + 2 * BG * j * DH)
-            bound_ms, bound_by = _bound(qkv_bytes + size * pairs, pairs * (4 * DH + 7), dtype)
+            bound_ms, bound_by = _attn_bound(n, j, dtype, size)
             lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, fbias, mask_grad=True)
             out = deform_attention_fwd(q, k, v, fbias)
             torch.cuda.synchronize()
@@ -549,9 +568,7 @@ def phase_kernels() -> dict:
                              iters=5),
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
 
-            # backward: q, k, v, bias, dout read once; dq, dk, dv, dbias written once
-            bwd_bytes = size * (3 * BG * n * DH + 4 * BG * j * DH)
-            bound_ms, bound_by = _bound(bwd_bytes + 2 * size * pairs, pairs * 10 * DH, dtype)
+            bound_ms, bound_by = _attn_bound(n, j, dtype, size, bwd=True)
             for keep_prob in (1.0, KEEP_PROB):
                 mask = None if keep_prob == 1.0 else keep
                 got = deform_attention_bwd(q, k, v, fbias, dout, keep_prob, SEED)
@@ -630,13 +647,12 @@ def _f32_bias_rows() -> list:
     v = torch.randn(BG, j, DH, device="cuda", generator=g).to(bf)
     bias = torch.randn(BG, n, j, device="cuda", generator=g)
     dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(bf)
-    pairs, io = BG * n * j, 2 * (2 * BG * n * DH + 2 * BG * j * DH)
     lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, bias.to(bf), mask_grad=True)
     out = deform_attention_fwd(q, k, v, bias)
     torch.cuda.synchronize()
     plain = deform_attention_fwd_plain(q, k, v, bias)
     # the bias f32: 4 bytes a pair read (and dbias 4 written in the backward)
-    bound_ms, bound_by = _bound(io + 4 * pairs, pairs * (4 * DH + 7), bf)
+    bound_ms, bound_by = _attn_bound(n, j, bf, 4)
     rows = [{"name": "deform_attention_fwd_f32bias", **_compare_fwd(out, plain),
              **_ulps_bf16(out, plain),
              "repeats": _repeats(lambda: (deform_attention_fwd(q, k, v, bias),), (out,)),
@@ -648,8 +664,7 @@ def _f32_bias_rows() -> list:
     got = deform_attention_bwd(q, k, v, bias, dout)
     torch.cuda.synchronize()
     want = deform_attention_bwd_plain(q, k, v, bias, dout)
-    bwd_io = 2 * (3 * BG * n * DH + 4 * BG * j * DH)
-    bound_ms, bound_by = _bound(bwd_io + 8 * pairs, pairs * 10 * DH, bf)
+    bound_ms, bound_by = _attn_bound(n, j, bf, 4, bwd=True)
     rows.append({"name": "deform_attention_bwd_f32bias",
                  **_compare_grads(got, want, GRAD_RTOL[bf]), **_compare_f32_dbias(got[3], want[3]),
                  "repeats": _repeats(lambda: deform_attention_bwd(q, k, v, bias, dout), got),
@@ -678,9 +693,14 @@ def _interval_spans(n: int, j: int) -> torch.Tensor:
 
 
 # (N, J): 36 rows past a 64-row tile; a partial 64-key tile of 20 / 8 / 37 keys, 4 / 8
-# / 5 keys past a 16-key step; 20 not a multiple of 8 (the bias staged element-wise),
-# 37 odd (bias pairs read and dbias pairs written element-wise)
+# / 5 keys past a 16-key step; each bias row starts at another 16-byte phase unless J
+# is a multiple of 8 (bf16) or 4 (f32), and J odd reads and writes the staged bias
+# element by element.  Every form runs at RAGGED; the bias forms also at RAGGED_BIAS,
+# so that the two cover every residue of J mod 8 (20, 37, 38, 39, 41, 42, 43, 72: 4,
+# 5, 6, 7, 1, 2, 3, 0), with N = 65 one row past a 64-row tile
 RAGGED = ((100, 20), (100, 72), (100, 37))
+RAGGED_BIAS = ((100, 38), (100, 39), (100, 41), (100, 42), (100, 43), (65, 37), (65, 72))
+BIAS_FORMS = ("bias", "span_bias", "bias_f32")
 
 
 def phase_ragged() -> None:
@@ -688,7 +708,8 @@ def phase_ragged() -> None:
     or none x dropout or none) at ragged shapes, f32 and bf16, and the f32
     bias beside bf16 q, k, v, against their plain versions (the forward at
     KERNEL_TOL and, in bf16, FWD_ULPS of its largest output; the backward at
-    GRAD_RTOL), and two launches bit for bit."""
+    GRAD_RTOL), and two launches bit for bit; the forms with a bias also at
+    RAGGED_BIAS."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
                                            deform_attention_fwd, deform_attention_fwd_plain,
                                            philox_keep_mask)
@@ -696,7 +717,7 @@ def phase_ragged() -> None:
     g = torch.Generator(device="cuda").manual_seed(2)
     g32 = torch.Generator(device="cuda").manual_seed(4)      # the f32 biases
     failures = []
-    for n, j in RAGGED:
+    for n, j in RAGGED + RAGGED_BIAS:
         span = _interval_spans(n, j)
         keep = philox_keep_mask(SEED, BG, n, j, KEEP_PROB, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
@@ -707,6 +728,8 @@ def phase_ragged() -> None:
             # bf16 q, k, v with an f32 bias: the 1-D path's form (no span, no dropout)
             forms = ("bias", "nobias", "span", "span_bias") + (
                 ("bias_f32",) if dtype == torch.bfloat16 else ())
+            if (n, j) in RAGGED_BIAS:
+                forms = tuple(f for f in forms if f in BIAS_FORMS)
             for form in forms:
                 b = bias if form in ("bias", "span_bias") else None
                 if form == "bias_f32":
@@ -830,7 +853,6 @@ def phase_chains() -> dict:
     for fixdim, n_pad in N_PAD.items():
         spans = dict(zip(("chain3", "chain1"), _bucketed_spans(fixdim, n_pad)))
         for dtype in (torch.float32, torch.bfloat16):
-            size = torch.finfo(dtype).bits // 8
             for chain, (n, j) in (("chain1", (n_pad, NYSTROM_M)),
                                   ("chain3", (NYSTROM_M, n_pad))):
                 q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5
@@ -838,12 +860,10 @@ def phase_chains() -> dict:
                 k = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
                 v = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
                 dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
-                io_bytes = size * (2 * BG * n * DH + 2 * BG * j * DH)
                 rows = []
                 for form in ("nobias", "span"):
                     span = spans[chain] if form == "span" else None
-                    pairs, uniform = ((BG * n * j, 0) if span is None
-                                      else _span_work(span, n, j))
+                    work = None if span is None else _span_work(span, n, j)
                     mask = None
                     if span is not None:
                         rv, cv = _span_valid(span, n, j)
@@ -853,8 +873,7 @@ def phase_chains() -> dict:
                     out = deform_attention_fwd(q, k, v, span=span)
                     torch.cuda.synchronize()
                     plain = deform_attention_fwd_plain(q, k, v, span=span)
-                    bound_ms, bound_by = _bound(io_bytes, 4 * DH * pairs + 2 * DH * j * uniform,
-                                                dtype)
+                    bound_ms, bound_by = _attn_bound(n, j, dtype, work=work)
                     rows.append({"name": f"deform_attention_fwd_{form}",
                                  **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
                                  "repeats": _repeats(lambda: (deform_attention_fwd(
@@ -868,9 +887,7 @@ def phase_chains() -> dict:
                     got = deform_attention_bwd(q, k, v, None, dout, span=span)
                     torch.cuda.synchronize()
                     want = deform_attention_bwd_plain(q, k, v, None, dout, span=span)
-                    # q, k, v, dout read once; dq, dk, dv written once
-                    bound_ms, bound_by = _bound(size * (3 * BG * n * DH + 4 * BG * j * DH),
-                                                10 * DH * pairs + 2 * DH * j * uniform, dtype)
+                    bound_ms, bound_by = _attn_bound(n, j, dtype, bwd=True, work=work)
                     rows.append({"name": f"deform_attention_bwd_{form}",
                                  **_compare_grads(got[:3], want[:3], GRAD_RTOL[dtype]),
                                  "repeats": _repeats(lambda: deform_attention_bwd(

@@ -22,10 +22,23 @@ and with dropout, the bias-less chains), the largest gradient error against
 the plain version relative to that tensor's max, a digest of the gradients'
 bits (equal digests of two trees: equal results), and the device time per
 launch of the rows and keys kernels under ``torch.profiler`` (mean of
-``--iters`` launches).  In f32 both passes also run CMTA's two chains on the
+``--iters`` launches).  The dh = 64 lines of both passes also give the
+case's bound as ``chip_smoke.py`` counts it (``_attn_bound``; span forms:
+the valid pairs), the plain version's median time over 5 launches, and that
+of one ``F.scaled_dot_product_attention`` call of the same function (the bias
+as its mask in q's dtype, a span as a 0 / -inf mask; none with dropout), as
+``chip_smoke.py`` times it.  In f32 both passes also run CMTA's two chains on the
 dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), which runs on the tf32
 tensor cores in both directions: the backward's rows, keys and combine
-kernels are timed apart.
+kernels are timed apart.  In bf16 both passes also run the f32 bias beside
+bf16 q, k, v at the 1-D path's shape (``f32bias_d1``: N 2501, J 625) and the
+bf16 bias at the deform-masked shape (``bias_s2000``: fixdim 2000 padded to
+45 x 45, N 2025, J 121), and the ``"pass": "ragged"`` lines give, for the bf16
+and the f32 bias at every residue of J mod 8 (and N = 65, one row past a
+64-row tile), a digest of the forward's and the backward's bits and whether a
+second launch repeats them: equal digests of two trees show that the two
+trees' kernels give the same bits there (the shapes of ``chip_smoke.py``'s
+phase 3, ``RAGGED`` and ``RAGGED_BIAS``).
 Its lines also give the largest gradient error of each gradient's max
 against float64, of the kernel and of the f32 plain version.  Two variants,
 built from a copy of the sources, measure what the design does to that
@@ -46,39 +59,48 @@ import hashlib
 import json
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import (RAGGED, RAGGED_BIAS, _attn_bound, _sdpa_ms,  # noqa: E402
+                        _span_work, _time_ms)
 from sml_tpu_torch.ops.kernels import (_build, deform_attention_bwd,  # noqa: E402
                                        deform_attention_bwd_plain, deform_attention_fwd,
                                        deform_attention_fwd_plain, philox_keep_mask)
+from sml_tpu_torch.ops.kernels.deform_attn import _span_valid  # noqa: E402
 
 SOURCES = ("deform_attn", "deform_attn_bwd")
 BG, DH, SEED = 64, 64, 7
+# the bias: None, "same" (q's dtype) or "f32" (beside bf16 q, k, v: bf16 runs only)
 # forward, name: (N, J, bias, keep_prob, span)
 FWD_CASES = {
-    "bias_s2500": (2500, 144, True, 1.0, False), "bias_drop_s2500": (2500, 144, True, 0.9, False),
-    "bias_s4096": (4096, 256, True, 1.0, False), "bias_drop_s4096": (4096, 256, True, 0.9, False),
-    "ch3_s2500": (256, 2560, False, 1.0, False), "ch1_s2500": (2560, 256, False, 1.0, False),
-    "ch3_s4096": (256, 4352, False, 1.0, False), "ch1_s4096": (4352, 256, False, 1.0, False),
-    "ch3_span_s2500": (256, 2560, False, 1.0, True),
-    "ch1_span_s2500": (2560, 256, False, 1.0, True),
-    "ch3_span_s4096": (256, 4352, False, 1.0, True),
-    "ch1_span_s4096": (4352, 256, False, 1.0, True),
-    "span_bias_drop_s2500": (2500, 144, True, 0.9, True)}
+    "bias_s2500": (2500, 144, "same", 1.0, False),
+    "bias_drop_s2500": (2500, 144, "same", 0.9, False),
+    "bias_s4096": (4096, 256, "same", 1.0, False),
+    "bias_drop_s4096": (4096, 256, "same", 0.9, False),
+    "ch3_s2500": (256, 2560, None, 1.0, False), "ch1_s2500": (2560, 256, None, 1.0, False),
+    "ch3_s4096": (256, 4352, None, 1.0, False), "ch1_s4096": (4352, 256, None, 1.0, False),
+    "ch3_span_s2500": (256, 2560, None, 1.0, True),
+    "ch1_span_s2500": (2560, 256, None, 1.0, True),
+    "ch3_span_s4096": (256, 4352, None, 1.0, True),
+    "ch1_span_s4096": (4352, 256, None, 1.0, True),
+    "span_bias_drop_s2500": (2500, 144, "same", 0.9, True),
+    "bias_s2000": (2025, 121, "same", 1.0, False),
+    "f32bias_d1": (2501, 625, "f32", 1.0, False)}
 # backward, name: (N, J, bias, keep_prob)
-BWD_CASES = {"bias_s2500": (2500, 144, True, 1.0), "bias_drop_s2500": (2500, 144, True, 0.9),
-             "bias_s4096": (4096, 256, True, 1.0), "bias_drop_s4096": (4096, 256, True, 0.9),
-             "ch3_s2500": (256, 2560, False, 1.0), "ch1_s2500": (2560, 256, False, 1.0),
-             "ch3_s4096": (256, 4352, False, 1.0), "ch1_s4096": (4352, 256, False, 1.0)}
+BWD_CASES = {"bias_s2500": (2500, 144, "same", 1.0), "bias_drop_s2500": (2500, 144, "same", 0.9),
+             "bias_s4096": (4096, 256, "same", 1.0), "bias_drop_s4096": (4096, 256, "same", 0.9),
+             "ch3_s2500": (256, 2560, None, 1.0), "ch1_s2500": (2560, 256, None, 1.0),
+             "ch3_s4096": (256, 4352, None, 1.0), "ch1_s4096": (4352, 256, None, 1.0),
+             "bias_s2000": (2025, 121, "same", 1.0), "f32bias_d1": (2501, 625, "f32", 1.0)}
 # the variants of the dh = 32 backward: (file, its text, the variant's)
 VARIANTS = {
     "nofold": ("attn_tf32.cuh", "constexpr bool kFoldTiles = true;",
@@ -104,8 +126,9 @@ def _kernel_name(mangled: str) -> str:
         bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
         dtype = "f32" if k.group(2).startswith("f") else "bf16"
         dh = re.search(r"Li(\d+)E", k.group(2))
-        return (f"{k.group(1)} {dtype} bias={bias} span={span} drop={drop}"
-                + (f" dh={dh.group(1)}" if dh else ""))
+        f32_bias = k.group(1).endswith("_tc") and k.group(2).endswith("f")  # BT = float
+        return (f"{k.group(1)} {dtype} bias={'f32' if f32_bias else bias} span={span} "
+                f"drop={drop}" + (f" dh={dh.group(1)}" if dh else ""))
     if t:
         second = "out" if t.group(1) == "attn_fwd_tf32" else "grad"
         return t.group(1) + (f" stats={t.group(2)} {second}={t.group(3)}" if t.group(2) else "")
@@ -145,20 +168,6 @@ def ptxas(tag: str) -> None:
             print(json.dumps(line), flush=True)
 
 
-def _time_ms(fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def _spans(n: int, j: int) -> torch.Tensor:
     """(BG, 4) int32 intervals: every sixteenth bag whole, then a bag with no
     valid row, the rest random."""
@@ -179,11 +188,47 @@ def _digest(tensors) -> str:
         .tobytes() for a in tensors if a is not None)).hexdigest()[:16]
 
 
+def _bias(spec, n: int, j: int, g: torch.Generator, bf: torch.dtype):
+    """The (BG, n, j) bias of a case: None, in ``bf`` ("same") or f32 ("f32")."""
+    if spec is None:
+        return None
+    return torch.randn(BG, n, j, device="cuda", generator=g).to(
+        torch.float32 if spec == "f32" else bf)
+
+
+def _bias_size(spec, dtype: torch.dtype) -> int:
+    """Bytes a pair of a case's bias: 0 without one."""
+    return 0 if spec is None else 4 if spec == "f32" else torch.finfo(dtype).bits // 8
+
+
+def _library_ms(q, k, v, bias, span, keep_prob: float, iters: int, dout=None):
+    """The time of one F.scaled_dot_product_attention forward (with ``dout``:
+    its backward, ``chip_smoke._sdpa_ms``) of the same function: the bias as
+    its mask in q's dtype, a span as a 0 / -inf mask; None with dropout,
+    which SDPA draws otherwise, or where PyTorch does not run the form."""
+    if keep_prob < 1:
+        return None
+    mask = None if bias is None else bias.to(q.dtype)
+    if span is not None:
+        rv, cv = _span_valid(span, q.shape[1], k.shape[1])
+        mask = torch.zeros(rv.shape[0], q.shape[1], k.shape[1], dtype=q.dtype,
+                           device="cuda").masked_fill_(~(rv & cv), float("-inf"))
+    if dout is None:
+        return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               scale=1.0), iters)
+    return _sdpa_ms(q, k, v, dout, mask, mask_grad=bias is not None)[1]
+
+
+def _cases(cases: dict, bf: torch.dtype):
+    """The cases this dtype runs: the f32 bias only beside bf16 q, k, v."""
+    return {name: c for name, c in cases.items() if c[2] != "f32" or bf == torch.bfloat16}
+
+
 def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
-    for name, (n, j, has_bias, keep_prob, has_span) in FWD_CASES.items():
+    for name, (n, j, bias_spec, keep_prob, has_span) in _cases(FWD_CASES, bf).items():
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
-        bias = rn(BG, n, j) if has_bias else None
+        bias = _bias(bias_spec, n, j, g, bf)
         span = _spans(n, j) if has_span else None
         run = lambda: deform_attention_fwd(q, k, v, bias, keep_prob, SEED, span)
         out = run()
@@ -191,11 +236,18 @@ def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
         keep = (philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
                 if keep_prob < 1 else None)
         want = deform_attention_fwd_plain(q, k, v, bias, keep, keep_prob, span).float()
+        plain = lambda: deform_attention_fwd_plain(  # the dropout form makes its mask
+            q, k, v, bias, philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
+            if keep_prob < 1 else None, keep_prob, span)
+        bound_ms, bound_by = _attn_bound(n, j, bf, _bias_size(bias_spec, bf),
+                                         work=None if span is None else _span_work(span, n, j))
         print(json.dumps({"tag": tag, "pass": "fwd", "case": name,
                           "max_abs_err": (out.float() - want).abs().max().item(),
                           "equal_share": (out.float() == want).float().mean().item(),
                           "repeats": torch.equal(out, again), "digest": _digest([out]),
-                          "ms": _time_ms(run, iters)}), flush=True)
+                          "ms": _time_ms(run, iters), "plain_ms": _time_ms(plain, 5),
+                          "library_ms": _library_ms(q, k, v, bias, span, keep_prob, iters),
+                          "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
         del q, k, v, bias, out, again, keep, want
         torch.cuda.empty_cache()
     for name, (n, j) in (DH32_CASES.items() if bf == torch.float32 else ()):
@@ -225,27 +277,35 @@ def _err_of_scale(got, want) -> float:
 
 
 def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
-    cases = [(name, n, j, has_bias, keep_prob, DH)
-             for name, (n, j, has_bias, keep_prob) in BWD_CASES.items()]
+    cases = [(name, n, j, bias_spec, keep_prob, DH)
+             for name, (n, j, bias_spec, keep_prob) in _cases(BWD_CASES, bf).items()]
     if bf == torch.float32:
-        cases += [(name, n, j, False, 1.0, 32) for name, (n, j) in DH32_CASES.items()]
-    for name, n, j, has_bias, keep_prob, dh in cases:
+        cases += [(name, n, j, None, 1.0, 32) for name, (n, j) in DH32_CASES.items()]
+    for name, n, j, bias_spec, keep_prob, dh in cases:
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, dh, scale=dh ** -0.5), rn(BG, j, dh), rn(BG, j, dh)
         dout = rn(BG, n, dh, scale=1e-2)
-        bias = rn(BG, n, j) if has_bias else None
+        bias = _bias(bias_spec, n, j, g, bf)
         run = lambda: deform_attention_bwd(q, k, v, bias, dout, keep_prob, SEED)
         got = run()
         keep = (philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
                 if keep_prob < 1 else None)
         want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob)
         err = _err_of_scale(got, want)
-        f64 = {}
+        extra = {}
         if dh == 32:
             exact = _bwd_f64(q, k, v, dout)
-            f64 = {"max_err_of_scale_f64": _err_of_scale(got, exact),
-                   "plain_err_of_scale_f64": _err_of_scale(want, exact)}
+            extra = {"max_err_of_scale_f64": _err_of_scale(got, exact),
+                     "plain_err_of_scale_f64": _err_of_scale(want, exact)}
             del exact
+        else:
+            bound_ms, bound_by = _attn_bound(n, j, bf, _bias_size(bias_spec, bf), bwd=True)
+            extra = {"plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
+                         q, k, v, bias, dout, philox_keep_mask(SEED, BG, n, j, keep_prob,
+                                                               device="cuda")
+                         if keep_prob < 1 else None, keep_prob), 5),
+                     "library_ms": _library_ms(q, k, v, bias, None, keep_prob, iters, dout),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
         again = run()
         repeats = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
         digest = _digest(got)
@@ -263,11 +323,31 @@ def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA and m:
                 ms[m.group(1)] = round(ms.get(m.group(1), 0.0)
                                        + e.self_device_time_total / 1e3 / iters, 4)
-        print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err, **f64,
-                          "repeats": repeats, "digest": digest, "ms": ms,
+        print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err,
+                          **extra, "repeats": repeats, "digest": digest, "ms": ms,
                           "total_ms": round(sum(ms.values()), 4)}), flush=True)
         del q, k, v, dout, bias, got
         torch.cuda.empty_cache()
+
+
+def ragged(tag: str, g: torch.Generator) -> None:
+    """Digests of the forward's and the backward's bits with the bf16 and the
+    f32 bias (bf16 q, k, v) at chip_smoke.py's ragged shapes, and whether a
+    second launch repeats them."""
+    bf = torch.bfloat16
+    for n, j in RAGGED + RAGGED_BIAS:
+        for spec in ("same", "f32"):
+            q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5).to(bf)
+            k, v = torch.randn(2, BG, j, DH, device="cuda", generator=g).to(bf)
+            dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(bf)
+            bias = _bias(spec, n, j, g, bf)
+            out = deform_attention_fwd(q, k, v, bias)
+            got = deform_attention_bwd(q, k, v, bias, dout)
+            repeats = torch.equal(out, deform_attention_fwd(q, k, v, bias)) and all(
+                torch.equal(a, b) for a, b in zip(got, deform_attention_bwd(q, k, v, bias, dout)))
+            print(json.dumps({"tag": tag, "pass": "ragged", "case": f"{spec}_n{n}_j{j}",
+                              "fwd_digest": _digest([out]), "bwd_digest": _digest(got),
+                              "repeats": repeats}), flush=True)
 
 
 def main() -> int:
@@ -305,6 +385,8 @@ def main() -> int:
     dtype = getattr(torch, args.dtype)
     forward(args.tag, args.iters, g, dtype)
     backward(args.tag, args.iters, g, dtype)
+    if dtype == torch.bfloat16:
+        ragged(args.tag, g)
     return 0
 
 

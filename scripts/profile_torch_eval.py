@@ -17,8 +17,10 @@ forward with dropout, backward, gradient modulation, Adam) under
 ``torch.profiler``.  Prints one JSON line per fixdim with the step time (host
 clock around synchronised steps), the kernel time and kernel launches per
 step and the kernel time's share of that step, the device's busy share of the
-profiled window (union of kernel intervals over the window), and the device
-time per step of the kernels that take the most, grouped by name.  The Chrome
+profiled window (union of kernel intervals over the window), the device
+time per step of the kernels that take the most, grouped by name, and that of
+each of the port's own kernels (``sml_tpu_torch/csrc``) the step launched,
+with their sum.  The Chrome
 trace goes to ``<trace_dir>/profile_<model>_<step>_<fixdim>.json``.
 """
 
@@ -27,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +46,11 @@ from sml_tpu_torch.ops.common import DropoutRNG  # noqa: E402
 from sml_tpu_torch.train.evaluate import batch_to_device  # noqa: E402
 from sml_tpu_torch.train.state import TrainState  # noqa: E402
 from sml_tpu_torch.train.steps import make_eval_step, make_train_step  # noqa: E402
+
+
+# the port's own kernels (sml_tpu_torch/csrc), by name
+PORT_KERNEL = re.compile(r"\b(cpb_bias_\w+|deform_attn_fwd_kernel|attn_(fwd|bwd)_\w+|idct_kernel"
+                         r"|colour_kernel)\b")
 
 
 def _busy_us(prof) -> tuple[float, float, float]:
@@ -116,9 +124,9 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.self_device_time_total, reverse=True)
     device_total = sum(e.self_device_time_total for e in rows) / 1e3 / steps
-    top = [{"name": e.key[:90], "calls_per_step": e.count / steps,
-            "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
-           for e in rows[:20]]
+    per_step = lambda e: {"name": e.key[:90], "calls_per_step": e.count / steps,
+                          "device_ms_per_step": e.self_device_time_total / 1e3 / steps}
+    port = [per_step(e) for e in rows if PORT_KERNEL.search(e.key)]
     # the profiler slows the host, so the busy share of its window understates the
     # device's share of an unprofiled step; device_ms / step_ms gives that one
     return {"model": name, "step": kind, "fixdim": fixdim, "batch": batch_size,
@@ -128,7 +136,9 @@ def profile_one(kind: str, fixdim: int, batch_size: int, steps: int, card: str,
             "device_share_of_step": device_total / step_ms,
             "kernels_per_step": sum(e.count for e in rows) / steps,
             "window_ms_per_step": (end - start) / 1e3 / steps,
-            "device_busy_share": busy / (end - start), "top": top}
+            "device_busy_share": busy / (end - start), "top": [per_step(e) for e in rows[:20]],
+            "port_kernels": port,
+            "port_kernels_ms_per_step": sum(e["device_ms_per_step"] for e in port)}
 
 
 def main(argv=None) -> int:

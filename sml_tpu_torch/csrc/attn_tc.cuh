@@ -7,11 +7,13 @@
 // registers (mma.cuh); lane (g, t) owns the rows g and g + 8 of them and, in
 // each n8 tile of keys, the columns 2t and 2t + 1.  K and V stream in 64-key
 // swizzled tiles through a two-stage cp.async ring (stage_pair / stage_tile),
-// read by ldmatrix.  Per 32-key half of a tile:
+// read by ldmatrix; the bias tile of the same 64 keys rides in the same ring
+// (stage_bias).  Per 32-key half of a tile:
 //
 //   s = q k^T               product_nt (the backward: dp = dout v^T beside it)
-//   s = mask(s + bias)      mask_scores: the bias, the span mask and the key
-//                           tail (keys >= J take -f32max, probability 0)
+//   s = mask(s + bias)      mask_scores: the bias from the staged tile, the
+//                           span mask and the key tail (keys >= J take
+//                           -f32max, probability 0)
 //   m                       drop_pair: the Philox multipliers {0, 1/keep}
 //   pass 1: RowStats        stats_update: lane-local running max and sum (and
 //                           sum of e dp), folded over the lane quad once by
@@ -21,6 +23,22 @@
 // so that the forward's p = exp(s - lse) is the one the backward recomputes;
 // nvcc compiles the two instantiations apart, and no check on the card holds
 // the two lse bit for bit (the forward returns none).
+//
+// The bias (BG, N, J), bf16 beside bf16 q, k, v or f32 (the 1-D deformable
+// attention's, whose CPB1D runs in f32), is the largest operand where it is
+// present: 2 or 4 bytes a pair, J of them a query row, against a row's 128
+// bytes of q; at J = 625 in f32 its reads bound these kernels by bytes.  A
+// row of it starts at a 16-byte phase that varies with the row unless J is a
+// multiple of kVec = 16 / sizeof(BT), and TMA would need a row stride of a
+// multiple of 16 bytes.  So stage_bias copies each row of a 64 x 64 tile by
+// 16-byte cp.async from the aligned segment holding its first key, one
+// segment more than 64 keys need at most (kBiasLd), and keeps the row's
+// element shift s_r: key j0 + c of tile row r sits at r kBiasLd + s_r + c.
+// The copy of the next tile is in flight while this one computes, whatever J;
+// segments past the row's keys or the bag's end are zero-filled (cp.async's
+// src-size).  The backward's rows kernel writes ds into the same tile in
+// place and stores each row's dbias in whole 16-byte segments, element by
+// element only in a row's head and tail segments (store_dbias).
 
 #pragma once
 
@@ -45,34 +63,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float exp_f(float x) { return exp2f(x * kLog2e); }
 
-// elements (r, j) and (r, j + 1), j even, of a row-major (rows, J) bf16 or
-// f32 matrix at p = &m[r][j]; j + 1 may be J when J is odd.  The bias (and
-// dbias) comes in bf16 beside bf16 q, k, v, or in f32 (the 1-D deformable
-// attention's, whose CPB1D runs in f32).
-__device__ __forceinline__ float2 load_pair(const bf16* p, int j, int J) {
-  if (!(J & 1)) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  return make_float2(__bfloat162float(p[0]), j + 1 < J ? __bfloat162float(p[1]) : 0.f);
-}
-__device__ __forceinline__ float2 load_pair(const float* p, int j, int J) {
-  if (!(J & 1)) return *reinterpret_cast<const float2*>(p);
-  return make_float2(p[0], j + 1 < J ? p[1] : 0.f);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y, int j, int J) {
-  if (!(J & 1)) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-    return;
-  }
-  p[0] = __float2bfloat16(x);
-  if (j + 1 < J) p[1] = __float2bfloat16(y);
-}
-__device__ __forceinline__ void store_pair(float* p, float x, float y, int j, int J) {
-  if (!(J & 1)) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-    return;
-  }
-  p[0] = x;
-  if (j + 1 < J) p[1] = y;
-}
 __device__ __forceinline__ float bias_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float bias_f32(float x) { return x; }
 
@@ -100,6 +90,148 @@ __device__ __forceinline__ void stage_pair(const bf16* a, const bf16* b, bf16* s
     const size_t off = (size_t)(ok ? r0 + r : 0) * 64 + c * 8;
     mma::cp_async16(mma::smem_u32(sa + mma::swz64(r, c)), a + off, ok);
     mma::cp_async16(mma::smem_u32(sb + mma::swz64(r, c)), b + off, ok);
+  }
+}
+
+// ---- the bias tile (see the note at the top) ---------------------------------
+
+constexpr int kBiasLd = kBlock + 8;  // elements of a staged bias row: 64 keys + a shift + pad
+
+template <typename BT>
+constexpr int kBiasVec = 16 / sizeof(BT);  // bias elements in 16 bytes
+
+// Dynamic shared-memory bytes of a rows kernel (forward and backward): the
+// bias tiles' two stages, beside the K and V ring in static shared memory
+// (32 KB; static shared memory stops at 48 KB).
+template <bool HAS_BIAS, typename BT>
+constexpr size_t bias_smem_bytes() {
+  return HAS_BIAS ? 2 * kBlock * kBiasLd * sizeof(BT) : 0;
+}
+
+// The element shift of global row grow (bag bg's row r: grow = bg N + r) in a
+// staged tile: (grow J) mod kVec, the same for every key tile (j0 % 64 == 0);
+// with a 16-byte aligned bias (the wrapper checks it) the row's key j0 lies
+// that many elements past a 16-byte boundary.
+template <typename BT>
+__device__ __forceinline__ int bias_shift(int grow, int J) {
+  return static_cast<int>((static_cast<unsigned>(grow) * static_cast<unsigned>(J)) &
+                          (kBiasVec<BT> - 1));
+}
+
+// One 16-byte segment of the bias from src to shared dst: the bytes before
+// end (the bag's end) when NEED, else none, the rest zero-filled.
+template <typename BT>
+__device__ __forceinline__ void stage_segment(uint32_t dst, const BT* src, bool need,
+                                              const BT* end, const BT* any) {
+  const long long left = need ? (end - src) * (long long)sizeof(BT) : 0;
+  const int bytes = left < 16 ? static_cast<int>(left) : 16;
+  mma::cp_async16n(dst, bytes ? src : any, bytes);
+}
+
+// Stage the tile of global rows [r0, r0 + kBlock) (rows >= rend, past the
+// bag, zero-filled) and keys [j0, j0 + kBlock) of the row-major (BG N, J)
+// bias (16-byte aligned) in sb, kBlock rows of kBiasLd, by cp.async: each row
+// from the aligned segment holding key j0 to the one holding key min(j0 +
+// kBlock, J) - 1, the rest of the row and any bytes past the bag's end
+// zero-filled.  Segments 0 .. kBlock / kVec - 1 of a row go to consecutive
+// threads (the 8 threads of a 16-byte shared store phase on 8 bank groups),
+// rows kRowStep apart to one thread at one shift; the last segment to one
+// thread a row, staged only at a shift past 0 (nothing reads it at 0).
+template <typename BT, int THREADS = kThreads>
+__device__ __forceinline__ void stage_bias(const BT* bias, BT* sb, int r0, int rend, int j0,
+                                           int J) {
+  constexpr int kVec = kBiasVec<BT>, kRowSegs = kBlock / kVec;
+  constexpr int kRowStep = THREADS / kRowSegs;  // rows a pass: 16 (bf16), 8 (f32)
+  static_assert(THREADS % kRowSegs == 0 && kRowStep % kVec == 0 && THREADS >= kBlock,
+                "a thread's rows share one shift; a thread a row for the last segment");
+  const BT* end = bias + (size_t)rend * J;
+  const int keys = min(kBlock, J - j0);
+  const int c = threadIdx.x % kRowSegs, r1 = threadIdx.x / kRowSegs;
+  const int shift = bias_shift<BT>(r0 + r1, J);  // that of rows r1 + kRowStep m too
+  const bool need = kVec * c < shift + keys;
+  const BT* src = bias + (size_t)(r0 + r1) * J + j0 - shift + kVec * c;
+  const uint32_t dst = mma::smem_u32(sb + r1 * kBiasLd + kVec * c);
+#pragma unroll
+  for (int m = 0; m < kBlock / kRowStep; ++m)
+    stage_segment(dst + m * kRowStep * kBiasLd * (int)sizeof(BT),
+                  src + (size_t)m * kRowStep * J, need && r0 + r1 + kRowStep * m < rend, end,
+                  bias);
+  if (threadIdx.x < kBlock) {
+    const int r = threadIdx.x, s = bias_shift<BT>(r0 + r, J);
+    if (s)
+      stage_segment(mma::smem_u32(sb + r * kBiasLd + kBlock),
+                    bias + (size_t)(r0 + r) * J + j0 - s + kBlock,
+                    kBlock < s + keys && r0 + r < rend, end, bias);
+  }
+}
+
+// Keys j, j + 1 (j even) of a staged bias row p (p: the row plus its shift)
+// as floats.  EVEN (J even): every row's shift is even, so the pair is one
+// aligned 4- (bf16) or 8-byte (f32) word; else two element loads.
+__device__ __forceinline__ float2 bias_pair(const bf16* p, bool even) {
+  if (even) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return make_float2(__bfloat162float(p[0]), __bfloat162float(p[1]));
+}
+__device__ __forceinline__ float2 bias_pair(const float* p, bool even) {
+  if (even) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], p[1]);
+}
+// x, y to the staged row p at keys j, j + 1, rounded to BT (to nearest)
+__device__ __forceinline__ void put_pair(bf16* p, float x, float y, bool even) {
+  if (even) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+    return;
+  }
+  p[0] = __float2bfloat16(x);
+  p[1] = __float2bfloat16(y);
+}
+__device__ __forceinline__ void put_pair(float* p, float x, float y, bool even) {
+  if (even) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    return;
+  }
+  p[0] = x;
+  p[1] = y;
+}
+
+// The part of segment c (of kVec elements) of a staged row with shift s that
+// holds keys of the tile, [s, end), to the row's segments seg0: one 16-byte
+// store when the segment lies inside, else element by element.
+template <typename BT>
+__device__ __forceinline__ void store_segment(BT* seg0, const BT* row, int c, int s, int end) {
+  constexpr int kVec = kBiasVec<BT>;
+  const int lo = max(kVec * c, s), hi = min(kVec * (c + 1), end);
+  if (hi - lo == kVec) {
+    *reinterpret_cast<uint4*>(seg0 + kVec * c) = *reinterpret_cast<const uint4*>(row + kVec * c);
+  } else {
+    for (int e = lo; e < hi; ++e) seg0[e] = row[e];
+  }
+}
+
+// One warp stores the dbias of its 16 staged rows sb (laid out by
+// stage_bias; global rows [r0, r0 + 16), rows >= rend skipped), keys [j0,
+// min(j0 + kBlock, J)), to the row-major dbias (16-byte aligned, the bias's
+// shape): a whole 16-byte segment inside the row's keys in one store, the
+// head and tail segments element by element; segments 0 .. kBlock / kVec - 1
+// of a row on consecutive lanes, as stage_bias copies them, the last one a
+// lane a row.
+template <typename BT>
+__device__ __forceinline__ void store_dbias(BT* dbias, const BT* sb, int r0, int rend, int j0,
+                                            int J, int lane) {
+  constexpr int kVec = kBiasVec<BT>, kRowSegs = kBlock / kVec, kRowStep = 32 / kRowSegs;
+  const int keys = min(kBlock, J - j0);
+  const int c = lane % kRowSegs;
+#pragma unroll
+  for (int m = 0; m < 16 / kRowStep; ++m) {
+    const int r = lane / kRowSegs + kRowStep * m;
+    if (r0 + r >= rend) break;
+    const int s = bias_shift<BT>(r0 + r, J);
+    store_segment(dbias + (size_t)(r0 + r) * J + j0 - s, sb + r * kBiasLd, c, s, s + keys);
+  }
+  if (lane < 16 && r0 + lane < rend) {
+    const int s = bias_shift<BT>(r0 + lane, J);
+    store_segment(dbias + (size_t)(r0 + lane) * J + j0 - s, sb + lane * kBiasLd, kRowSegs, s,
+                  s + keys);
   }
 }
 
@@ -141,20 +273,20 @@ __device__ __forceinline__ void product_nn(float (&acc)[8][4], const uint32_t (&
   }
 }
 
-// The masked scores of one 32-key half from key j0: s[i][2h + w] is row
-// row[h], key j0 + 8 i + col + w.  Adds the bias (bias_bg: the bag's (N, J)
-// rows, bf16 or f32), applies the span mask, and gives keys >= J -f32max.
+// The masked scores of the 32-key half from tile key c of the tile from key
+// j0: s[i][2h + w] is the lane's row h (brow[h]: its staged bias row, shift
+// included), key j0 + c + 8 i + col + w.  Adds the bias, applies the span
+// mask, and gives keys >= J -f32max (whatever the tile holds there).
 template <bool HAS_BIAS, bool HAS_SPAN, typename BT>
-__device__ __forceinline__ void mask_scores(float (&s)[4][4], const BT* bias_bg, int N,
-                                            int J, const int (&row)[2], int j0, int col,
+__device__ __forceinline__ void mask_scores(float (&s)[4][4], const BT* const* brow,
+                                            bool even, int J, int j0, int c, int col,
                                             const SpanMask& mask, const bool (&uniform)[2]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int j = j0 + 8 * i + col;
+    const int jt = c + 8 * i + col, j = j0 + jt;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float2 b = make_float2(0.f, 0.f);
-      if (HAS_BIAS && j < J && row[h] < N) b = load_pair(bias_bg + (size_t)row[h] * J + j, j, J);
+      const float2 b = HAS_BIAS ? bias_pair(brow[h] + jt, even) : make_float2(0.f, 0.f);
 #pragma unroll
       for (int w = 0; w < 2; ++w) {
         float& x = s[i][2 * h + w];

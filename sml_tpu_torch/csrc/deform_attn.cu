@@ -31,14 +31,20 @@
 //     the Pallas kernel rounds attn * mult to v's dtype), out += p V with V by
 //     ldmatrix.trans.
 // out, 16 x 64 f32 per warp in registers, is stored once as bf16.  Nothing of
-// the (BG, N, J) chain reaches device memory.  Two passes, not one online
-// softmax: the normalised p * m is what Pallas rounds, and a rescaled
-// accumulator would round exp(s - running max) instead, in key-tile order;
-// the second q k^T costs 2 DH FLOP per pair.  Pass 1 is the backward's pass 1
-// (the same code, the same sums in the same order), meant to give the
-// backward's lse and p; nvcc compiles the two instantiations apart, and no
-// check on the card holds them bit for bit.  A 32-key half past J (the last
-// tile of J = 144) is skipped.
+// the (BG, N, J) chain reaches device memory.  The bias is the largest
+// operand: at the 1-D path's J = 625 its f32 reads (4 bytes a pair, once a
+// pass) bound the kernel by bytes.  Its 64 x 64 tile rides in the ring beside
+// K (and V), copied by 16-byte cp.async at any J (attn_tc.cuh, stage_bias),
+// so the next tile's bias is in flight while this one computes and the
+// epilogue reads it from shared memory; the bias stages are dynamic shared
+// memory beside the 32 KB of K and V (18 KB in bf16, 36 KB in f32).  Two
+// passes, not one online softmax: the normalised p * m is what Pallas rounds,
+// and a rescaled accumulator would round exp(s - running max) instead, in
+// key-tile order; the second q k^T costs 2 DH FLOP per pair.  Pass 1 is the
+// backward's pass 1 (the same code, the same sums in the same order), meant
+// to give the backward's lse and p; nvcc compiles the two instantiations
+// apart, and no check on the card holds them bit for bit.  A 32-key half past
+// J (the last tile of J = 144) is skipped.
 //
 // f32 at dh = 64, the CUDA-core twin deform_attn_fwd_kernel, the
 // exact-arithmetic reference on the card: one block per (bg, tile of kRows
@@ -245,17 +251,21 @@ constexpr int kFwdMinBlocks = 512 / kFwdThreads;
 // Block (row tile, bg), warp w owns rows row0 + 16 w .. + 15, lane (g, t) the
 // rows g and g + 8 of them and, in each n8 tile of keys, the columns 2t and
 // 2t + 1; in the output, the columns 8 n + 2t, 8 n + 2t + 1 of n8 tile n.
-// BT: the bias's element type, bf16 or f32.
+// BT: the bias's element type, bf16 or f32.  Dynamic shared memory of
+// bias_smem_bytes<HAS_BIAS, BT>(): the bias stages.
 template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const BT* __restrict__ bias,
             const int* __restrict__ span, bf16* __restrict__ out, int N, int J,
             float keep_prob, float inv_keep, unsigned long long seed) {
-  __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
+  static_assert(kFwdRows == kBlock, "one bias tile row per query row of the block");
+  __shared__ __align__(128) bf16 s_kv[2][2][kTile];         // [stage][K, V]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BT* s_b = reinterpret_cast<BT*>(smem_raw);                  // [stage][kBlock][kBiasLd]
   const int bg = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow0 = blockIdx.x * kFwdRows + warp * 16;
+  const int row0 = blockIdx.x * kFwdRows, wrow0 = row0 + warp * 16;
   const int row[2] = {wrow0 + mma::frag_row(lane, 0), wrow0 + mma::frag_row(lane, 2)};
   const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
   const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
@@ -263,13 +273,22 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            HAS_SPAN && mask.uniform(row[1])};
   const bf16* kg = k + (size_t)bg * J * 64;
   const bf16* vg = v + (size_t)bg * J * 64;
-  const BT* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  // the lane's two rows in a staged bias tile, shift included
+  const int boff[2] = {
+      (row[0] - row0) * kBiasLd + bias_shift<BT>(bg * N + row[0], J),
+      (row[1] - row0) * kBiasLd + bias_shift<BT>(bg * N + row[1], J)};
+  const bool even = !(J & 1);
   const int nt = (J + kBlock - 1) / kBlock;
-  auto stage = [&](int it) {  // pass 1 reads K only, pass 2 K and V
+  auto stage = [&](int it) {  // pass 1 reads K only, pass 2 K and V; both the bias
+    bf16* skv = s_kv[it & 1][0];
+    const int j0 = (it < nt ? it : it - nt) * kBlock;
     if (it < nt)
-      stage_tile<kFwdThreads>(kg, s_kv[it & 1][0], it * kBlock, J);
+      stage_tile<kFwdThreads>(kg, skv, j0, J);
     else
-      stage_pair<kFwdThreads>(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], (it - nt) * kBlock, J);
+      stage_pair<kFwdThreads>(kg, vg, skv, skv + kTile, j0, J);
+    if (HAS_BIAS)
+      stage_bias<BT, kFwdThreads>(bias, s_b + (it & 1) * kBlock * kBiasLd, bg * N + row0,
+                                  bg * N + N, j0, J);
     mma::cp_async_commit();
   };
   stage(0);
@@ -299,13 +318,15 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (it == nt) stats_fold<false>(st, lse_r, no_delta);
     const bf16* sk = s_kv[it & 1][0];
     const bf16* sv = s_kv[it & 1][1];
+    const BT* sb = s_b + (it & 1) * kBlock * kBiasLd;
+    const BT* const brow[2] = {sb + boff[0], sb + boff[1]};
 #pragma unroll
     for (int c0 = 0; c0 < kBlock; c0 += 32) {
       if (j0 + c0 >= J) break;  // a half of the last tile past J
       float s[4][4];
       product_nt(qa, sk, c0, lane, s);
       // s[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
-      mask_scores<HAS_BIAS, HAS_SPAN>(s, bias_bg, N, J, row, j0 + c0, col, mask, uniform);
+      mask_scores<HAS_BIAS, HAS_SPAN>(s, brow, even, J, j0, c0, col, mask, uniform);
       if (!pass2) {
         stats_update<false>(st, s, s);
         continue;
@@ -493,10 +514,14 @@ template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = tc::bf16>
 cudaError_t launch_tc(const Args& a) {
   using tc::bf16;
   auto kernel = tc::attn_fwd_tc<HAS_BIAS, HAS_SPAN, DROP, BT>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  constexpr int smem = static_cast<int>(tc::bias_smem_bytes<HAS_BIAS, BT>());
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.N + tc::kFwdRows - 1) / tc::kFwdRows, a.BG), tc::kFwdThreads, 0,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.N + tc::kFwdRows - 1) / tc::kFwdRows, a.BG), tc::kFwdThreads, smem,
            a.stream>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
                        static_cast<const bf16*>(a.v), static_cast<const BT*>(a.bias),
                        a.span, static_cast<bf16*>(a.out), a.N, a.J, a.keep_prob,

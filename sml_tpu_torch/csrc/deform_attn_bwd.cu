@@ -58,11 +58,21 @@
 // the key tile by ldmatrix.trans; keys kernel, in the transposed layout (keys
 // x rows), dv += (p m)^T dout and dk += ds^T q, with dout and q by
 // ldmatrix.trans.
-// The keys kernel stages its 64 x 64 bias tile through shared memory with
-// coalesced copies: its fragments read the bias down columns.  The keys
-// kernel's q k^T and dout v^T sums run in another order than the rows
-// kernel's, so p and ds of the two kernels may differ in the last bits; the
-// bf16 gradient tolerance covers it.
+// The bias comes through shared memory in all three kernels (bf16 and the
+// forward's too): its 64 x 64 tile rides in the ring beside the streamed
+// operand, copied by 16-byte cp.async at any J (attn_tc.cuh, stage_bias; a
+// row of the bias starts at another 16-byte phase unless J % 8 == 0 in bf16,
+// J % 4 == 0 in f32, and the tile keeps each row's shift), so the next tile's
+// bias is in flight while this one computes.  The keys kernel's fragments
+// read it down columns, the rows kernel's along rows; the rows kernel writes
+// ds over it in place and stores dbias in whole 16-byte segments, element by
+// element only in each row's head and tail segments (store_dbias).  With an
+// f32 bias at the 1-D path's J = 625 these bytes bound the backward: 4 bytes a
+// pair read three times (both passes of the rows kernel, the keys kernel) and
+// 4 of dbias written, against q, k, v, dout and the gradients' 256 bytes a
+// row or key.  The keys kernel's q k^T and dout v^T sums run in another order
+// than the rows kernel's, so p and ds of the two kernels may differ in the
+// last bits; the bf16 gradient tolerance covers it.
 // f32 at dh = 64, the CUDA-core twins: one warp per row in the rows kernel
 // (dq summed in shared memory), one block per 16 keys in the keys kernel,
 // products as f32 fused multiply-adds, and the keys kernel's q . k and
@@ -435,13 +445,14 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace tc {
 
-constexpr int kBiasLd = kBlock + 8;       // keys kernel: padded row of the bias tile
-
 // Rows kernel: block (row tile, bg), warp w owns rows row0 + 16 w .. + 15,
 // lane (g, t) the rows g and g + 8 of them and, in each n8 tile of keys, the
-// columns 2t and 2t + 1.  K and V stream in 64-key tiles through a two-stage
-// cp.async ring, walked twice (pass 1: statistics; pass 2: ds, dbias, dq).
-// BT: the element type of bias and dbias, bf16 or f32.
+// columns 2t and 2t + 1.  K and V, and the bias tile of the same keys, stream
+// in 64-key tiles through a two-stage cp.async ring, walked twice (pass 1:
+// statistics; pass 2: ds, dbias and dq); pass 2 writes ds over the staged bias
+// in place, and each warp stores its rows' dbias from there (store_dbias).
+// BT: the element type of bias and dbias, bf16 or f32.  Dynamic shared
+// memory of bias_smem_bytes<HAS_BIAS, BT>(): the bias stages.
 template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -450,10 +461,12 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ dq, BT* __restrict__ dbias, float* __restrict__ lse,
                  float* __restrict__ delta, int N, int J, float keep_prob, float inv_keep,
                  unsigned long long seed) {
-  __shared__ __align__(128) bf16 s_kv[2][2][kTile];  // [stage][K, V]
+  __shared__ __align__(128) bf16 s_kv[2][2][kTile];         // [stage][K, V]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BT* s_b = reinterpret_cast<BT*>(smem_raw);                  // [stage][kBlock][kBiasLd]
   const int bg = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow0 = blockIdx.x * kBlock + warp * 16;
+  const int row0 = blockIdx.x * kBlock, wrow0 = row0 + warp * 16;
   const int row[2] = {wrow0 + mma::frag_row(lane, 0), wrow0 + mma::frag_row(lane, 2)};
   const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
   const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
@@ -461,10 +474,18 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            HAS_SPAN && mask.uniform(row[1])};
   const bf16* kg = k + (size_t)bg * J * 64;
   const bf16* vg = v + (size_t)bg * J * 64;
+  // the lane's two rows in a staged bias tile, shift included
+  const int boff[2] = {
+      (row[0] - row0) * kBiasLd + bias_shift<BT>(bg * N + row[0], J),
+      (row[1] - row0) * kBiasLd + bias_shift<BT>(bg * N + row[1], J)};
+  const bool even = !(J & 1);
   const int nt = (J + kBlock - 1) / kBlock;
   auto stage = [&](int it) {
-    stage_pair(kg, vg, s_kv[it & 1][0], s_kv[it & 1][1], (it < nt ? it : it - nt) * kBlock,
-               J);
+    bf16* skv = s_kv[it & 1][0];
+    const int j0 = (it < nt ? it : it - nt) * kBlock;
+    stage_pair(kg, vg, skv, skv + kTile, j0, J);
+    if (HAS_BIAS)
+      stage_bias<BT>(bias, s_b + (it & 1) * kBlock * kBiasLd, bg * N + row0, bg * N + N, j0, J);
     mma::cp_async_commit();
   };
   stage(0);
@@ -475,7 +496,6 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma::load_a_global(qa[ks], q + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
     mma::load_a_global(oa[ks], dout + (size_t)bg * N * 64, 64, wrow0, N, 16 * ks, lane);
   }
-  const BT* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
   RowStats st;  // pass 1: lane-local statistics, folded over the lane quad at its end
   float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
   float dq_acc[8][4];
@@ -505,13 +525,15 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     const bf16* sk = s_kv[it & 1][0];
     const bf16* sv = s_kv[it & 1][1];
+    BT* sb = s_b + (it & 1) * kBlock * kBiasLd;
+    BT* const brow[2] = {sb + boff[0], sb + boff[1]};
 #pragma unroll
     for (int c0 = 0; c0 < kBlock; c0 += 32) {
       float s[4][4], dp[4][4];
       product_nt(qa, sk, c0, lane, s);
       product_nt(oa, sv, c0, lane, dp);
       // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
-      mask_scores<HAS_BIAS, HAS_SPAN>(s, bias_bg, N, J, row, j0 + c0, col, mask, uniform);
+      mask_scores<HAS_BIAS, HAS_SPAN>(s, brow, even, J, j0, c0, col, mask, uniform);
       if (DROP) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -527,10 +549,10 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         stats_update<true>(st, s, dp);
         continue;
       }
-      // pass 2: ds (in s), dbias, then dq += ds k
+      // pass 2: ds (in s; over the staged bias, as dbias), then dq += ds k
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int j = j0 + c0 + 8 * i + col;
+        const int jt = c0 + 8 * i + col, j = j0 + jt;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -540,9 +562,7 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     ? exp_f(x - lse_r[h]) * (dp[i][2 * h + w] - delta_r[h])
                     : 0.f;
           }
-          if (HAS_BIAS && j < J && row[h] < N)
-            store_pair(dbias + ((size_t)bg * N + row[h]) * J + j, s[i][2 * h],
-                       s[i][2 * h + 1], j, J);
+          if (HAS_BIAS) put_pair(brow[h] + jt, s[i][2 * h], s[i][2 * h + 1], even);
         }
       }
 #pragma unroll
@@ -551,6 +571,10 @@ attn_bwd_rows_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma::accum_to_a(a, s[2 * kb], s[2 * kb + 1]);
         product_nn(dq_acc, a, sk, c0 + 16 * kb, lane);
       }
+    }
+    if (HAS_BIAS && pass2) {  // this warp's rows of ds, from the tile (its own lanes wrote them)
+      __syncwarp();
+      store_dbias(dbias, sb + 16 * warp * kBiasLd, bg * N + wrow0, bg * N + N, j0, J, lane);
     }
     __syncthreads();  // the stage is consumed before the ring refills it
   }
@@ -575,7 +599,12 @@ constexpr size_t keys_smem_bytes() {
 // keys g and g + 8 and, in each n8 tile of query rows, the rows 2t and 2t + 1.
 // q, dout, lse, delta (and the bias tile) stream in 64-row tiles through a
 // two-stage ring, each tile in four 16-row steps: dv += (p m)^T dout and
-// dk += ds^T q, summed over all rows in this block in row order.
+// dk += ds^T q, summed over all rows in this block in row order.  The bias
+// tile comes by 16-byte cp.async at any J (stage_bias), the fragments reading
+// its columns at each row's shift, and the copy of the next tile is in
+// flight while this one computes.  With an f32 bias at J = 625 the kernel
+// reads 4 bytes of bias a pair from device memory, beside q and dout's 4 (a
+// row's 256 bytes once a 64-key block, which the L2 cache can serve).
 template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, typename BT = bf16>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -598,34 +627,18 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int key[2] = {key_blk + bcol[0], key_blk + bcol[1]};  // bcol: in the bias tile
   const int col = mma::frag_col(lane, 0);  // of element 0 in an n8 tile; element 1 is next
   const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
+  // the shift of the lane's tile rows rs + 8 i + col + w in a staged bias
+  // tile: rs + 8 i and the tile's first row are multiples of 8, so it
+  // depends on w alone
+  const int bshift[2] = {bias_shift<BT>(bg * N + col, J), bias_shift<BT>(bg * N + col + 1, J)};
   const bf16* qg = q + (size_t)bg * N * 64;
   const bf16* dog = dout + (size_t)bg * N * 64;
   const int nr = (N + kBlock - 1) / kBlock;
-  constexpr int kVec = 16 / sizeof(BT);      // bias elements in 16 bytes
-  const bool bias_vec = J % kVec == 0;       // 16-byte row segments of the bias
   auto stage = [&](int it) {
     const int r0 = it * kBlock, buf = it & 1;
     stage_pair(qg, dog, s_q + buf * kTile, s_do + buf * kTile, r0, N);
-    if (HAS_BIAS) {
-      BT* sb = s_b + buf * kBlock * kBiasLd;
-      if (bias_vec) {
-        constexpr int kSegs = kBlock / kVec;   // 16-byte segments of a tile row
-        for (int i = threadIdx.x; i < kBlock * kSegs; i += kThreads) {
-          const int r = i / kSegs, c = kVec * (i % kSegs);
-          const bool ok = r0 + r < N && key_blk + c < J;
-          const BT* src =
-              bias + ((size_t)bg * N + (ok ? r0 + r : 0)) * J + (ok ? key_blk + c : 0);
-          mma::cp_async16(mma::smem_u32(sb + r * kBiasLd + c), src, ok);
-        }
-      } else {
-        for (int i = threadIdx.x; i < kBlock * kBlock; i += kThreads) {
-          const int r = i / kBlock, c = i - r * kBlock;
-          const bool ok = r0 + r < N && key_blk + c < J;
-          sb[r * kBiasLd + c] =
-              ok ? bias[((size_t)bg * N + r0 + r) * J + key_blk + c] : static_cast<BT>(0.f);
-        }
-      }
-    }
+    if (HAS_BIAS)
+      stage_bias<BT>(bias, s_b + buf * kBlock * kBiasLd, bg * N + r0, bg * N + N, key_blk, J);
     mma::cp_async_commit();
     static_assert(kThreads == 2 * kBlock, "one thread per lse and per delta of a tile");
     const int tr = threadIdx.x & (kBlock - 1);
@@ -708,13 +721,14 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int rl = rs + 8 * i + col + w;
           const int r = r0 + rl;
           const bool uni = HAS_SPAN && mask.uniform(r);
+          const BT* brow = sb + rl * kBiasLd + bshift[w];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int j = key[h];
             float pd = 0.f, ds = 0.f;
             if (r < N && j < J) {
               float x = st[i][2 * h + w];
-              if (HAS_BIAS) x += bias_f32(sb[rl * kBiasLd + bcol[h]]);
+              if (HAS_BIAS) x += bias_f32(brow[bcol[h]]);
               const float p = exp_f(mask_score<HAS_SPAN>(x, mask, uni, j) - slse[rl]);
               const float m =
                   !DROP ? 1.f : ((kept >> (4 * h + 2 * i + w)) & 1u ? inv_keep : 0.f);
@@ -1019,10 +1033,15 @@ cudaError_t launch_tc(const Args& a) {
   const BT* bias = static_cast<const BT*>(a.bias);
   const bf16* dout = static_cast<const bf16*>(a.dout);
   auto rows = tc::attn_bwd_rows_tc<HAS_BIAS, HAS_SPAN, DROP, BT>;
-  cudaError_t err = cudaFuncSetAttribute(rows, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                         cudaSharedmemCarveoutMaxShared);
+  constexpr int rows_smem = static_cast<int>(tc::bias_smem_bytes<HAS_BIAS, BT>());
+  cudaError_t err =
+      cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
   if (err != cudaSuccess) return err;
-  rows<<<dim3((a.N + tc::kBlock - 1) / tc::kBlock, a.BG), tc::kThreads, 0, a.stream>>>(
+  err = cudaFuncSetAttribute(rows, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  rows<<<dim3((a.N + tc::kBlock - 1) / tc::kBlock, a.BG), tc::kThreads, rows_smem,
+         a.stream>>>(
       q, k, v, bias, a.span, dout, static_cast<bf16*>(a.dq), static_cast<BT*>(a.dbias),
       a.lse, a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
   err = cudaGetLastError();

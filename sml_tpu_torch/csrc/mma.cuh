@@ -64,13 +64,17 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
   return d;
 }
 
-// 16 bytes from device to shared memory, asynchronously; with !valid the 16
-// shared bytes are zero-filled and nothing is read (src must still be a
-// device address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+// 16 bytes from device to shared memory, asynchronously: the first `bytes`
+// (0..16) read from src (16-byte aligned), the rest zero-filled; with 0
+// nothing is read (src must still be a device address)
+__device__ __forceinline__ void cp_async16n(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
+               "r"(bytes)
                : "memory");
+}
+// the same, all 16 bytes or (!valid) none
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  cp_async16n(dst, src, valid ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -8,6 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import RAGGED, RAGGED_BIAS
 from sml_tpu.ops.pallas.deform_attn import deform_attention_trainable, fused_cpb_bias
 from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_plain, deform_attention_fwd,
                                        deform_attention_fwd_plain, philox_keep_mask)
@@ -117,17 +118,19 @@ def test_cuda_cpb_bias_matches_plain(dtype, bg, h, w, j, dm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bg,n,j", [(4, 100, 144), (4, 100, 20), (4, 100, 72), (4, 100, 37)])
+@pytest.mark.parametrize("bg,n,j",
+                         [(4, 100, 144)] + [(4, n, j) for n, j in RAGGED + RAGGED_BIAS])
 @pytest.mark.parametrize("form", ["bias", "nobias", "span", "span_bias"])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_deform_attention_matches_plain(dtype, keep_prob, form, bg, n, j):
     """Every form (bias or none x span or none x dropout or none) at J = 144
-    and the ragged J = 20 / 72 / 37 (a partial 64-key tile, J not a multiple
-    of 8, J odd) with N = 100 (a partial row tile); the span batch has an
-    interior interval, a whole bag, a bag with no valid row and one with no
-    valid column.  A second launch must return the first one's output bit for
-    bit."""
+    and chip_smoke.py's ragged shapes, J = 20 / 72 / 37 / 38 / 39 / 41 / 42 /
+    43 (a partial 64-key tile; every residue of J mod 8, at which the staged
+    bias tile's rows start at another 16-byte phase) with N = 100 and 65
+    (partial row tiles, one row past a tile); the span batch has an interior interval, a whole bag, a bag
+    with no valid row and one with no valid column.  A second launch must
+    return the first one's output bit for bit."""
     dev = _cuda()
     q, k, v, bias = (torch.from_numpy(a).to(dev, dtype) for a in _attn_inputs(2, bg, n, j))
     bias = bias if form in ("bias", "span_bias") else None

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import RAGGED, RAGGED_BIAS
 from sml_tpu.ops.pallas.deform_attn import (cpb_bias_trainable as j_cpb_bias_trainable,
                                             deform_attention_trainable as j_attn_trainable,
                                             fused_cpb_bias)
@@ -486,14 +487,21 @@ def test_cuda_cpb_bias_bwd_matches_plain(dtype, bg, h, w, j):
         assert torch.equal(g, g2), name
 
 
+# (N, J) where the staged bias tile's rows start at every 16-byte phase: J = 144 and
+# chip_smoke.py's ragged shapes (every residue of J mod 8; N = 100 and N = 65, one row
+# past a 64-row tile)
+RAGGED_SHAPES = [(100, 144), *RAGGED, *RAGGED_BIAS]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,j", RAGGED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
-def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob):
+def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob, n, j):
     dev = _cuda()
     q, k, v, bias, dout = (torch.from_numpy(a).to(dev, dtype)
-                           for a in _attn_inputs(2, 4, 100, 144))
-    keep = None if keep_prob == 1.0 else philox_keep_mask(5, 4, 100, 144, keep_prob,
+                           for a in _attn_inputs(2, 4, n, j))
+    keep = None if keep_prob == 1.0 else philox_keep_mask(5, 4, n, j, keep_prob,
                                                           device=dev)
     got = deform_attention_bwd(q, k, v, bias, dout, keep_prob, 5)
     torch.cuda.synchronize()
@@ -505,7 +513,7 @@ def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,j", [(100, 144), (100, 37), (2501, 625)])
+@pytest.mark.parametrize("n,j", RAGGED_SHAPES + [(2501, 625)])
 def test_cuda_deform_attention_f32_bias_matches_plain(n, j):
     """The f32-bias form (bf16 q, k, v; no span, no dropout) forward and
     backward against their plain versions, one count each of the form, and
