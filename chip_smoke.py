@@ -7,7 +7,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build    nvcc builds of every kernel source, with the compiler's register
-            and spill report (a spill fails the run);
+            and spill report of every kernel, the f32 dh = 64 backward's
+            ``attn_bwd_rows_tf32_64`` / ``attn_bwd_keys_tf32_64`` among them
+            (a spill fails the run);
 3. ragged   the attention forward and backward in all eight forms, and the
             f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
             100 and J = 20 / 72 / 37 (tails of a row tile, a key tile and a
@@ -33,7 +35,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
-            every kernel must repeat bit for bit; the bf16 forwards' largest
+            every kernel must repeat bit for bit (the f32 backward, on the
+            tf32 tensor cores, also gives its bound at 3xTF32); the bf16
+            forwards' largest
             error in bf16 ulps of each element and their share of elements
             equal to the plain version's; then the f32-bias forms at the 1-D
             path's shape (BG = 64, N = 2501, J = 625), dbias at the f32 bound;
@@ -76,6 +80,13 @@ on masked bags):
 10. bucketed ``main.main`` with ``--variable_bags true --bucket_sizes
              1024,2500`` for one epoch and its Val / Test: span launches in both
             directions, every batch's loss and outputs finite.
+10b. f32-train  phase 6 for deformpathomic and phase 9 for TransMIL without
+            ``--compute_dtype`` (the config's default, float32): every
+            attention launch in the f32 dh = 64 form (the backward on the
+            tf32 tensor cores), 2 and 4 backward launches per train step,
+            finite losses, one train step's loss and every gradient through
+            the kernels against the plain versions at TRAIN_TOL["float32"], the
+            train step's time, bags/s and peak memory.
 
 The other deformpathomic configurations and the modes without a kernel:
 
@@ -347,21 +358,36 @@ def _bound(n_bytes: float, flops: float, dtype: torch.dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _attn_bound(n: int, j: int, dtype: torch.dtype, bias_size: int = 0, bwd: bool = False,
-                work=None):
-    """``_bound`` of the dh = DH attention forward (``bwd``: backward) of BG bags
-    of n rows and j keys in ``dtype``: q, k, v (and dout) read once, out (dq,
-    dk, dv) written once, the bias (and dbias) at ``bias_size`` bytes a pair;
-    4 DH FLOP a valid pair forward (+ 7 with a bias), 10 DH backward, and 2
-    DH a key for each uniform row.  ``work``: (valid pairs, uniform rows) of
-    a span batch (``_span_work``); all pairs without."""
-    size = torch.finfo(dtype).bits // 8
+def _attn_work(n: int, j: int, size: int, bias_size: int = 0, bwd: bool = False, work=None):
+    """(bytes, FLOPs) of the dh = DH attention forward (``bwd``: backward) of BG
+    bags of n rows and j keys at ``size`` bytes an element: q, k, v (and dout)
+    read once, out (dq, dk, dv) written once, the bias (and dbias) at
+    ``bias_size`` bytes a pair; 4 DH FLOP a valid pair forward (+ 7 with a
+    bias), 10 DH backward, and 2 DH a key for each uniform row.  ``work``:
+    (valid pairs, uniform rows) of a span batch (``_span_work``); all pairs
+    without."""
     pairs, uniform = (BG * n * j, 0) if work is None else work
     if bwd:
-        return _bound(size * (3 * BG * n * DH + 4 * BG * j * DH) + 2 * bias_size * BG * n * j,
-                      10 * DH * pairs + 2 * DH * j * uniform, dtype)
-    return _bound(size * (2 * BG * n * DH + 2 * BG * j * DH) + bias_size * BG * n * j,
-                  (4 * DH + (7 if bias_size else 0)) * pairs + 2 * DH * j * uniform, dtype)
+        return (size * (3 * BG * n * DH + 4 * BG * j * DH) + 2 * bias_size * BG * n * j,
+                10 * DH * pairs + 2 * DH * j * uniform)
+    return (size * (2 * BG * n * DH + 2 * BG * j * DH) + bias_size * BG * n * j,
+            (4 * DH + (7 if bias_size else 0)) * pairs + 2 * DH * j * uniform)
+
+
+def _attn_bound(n: int, j: int, dtype: torch.dtype, bias_size: int = 0, bwd: bool = False,
+                work=None):
+    """``_bound`` of ``_attn_work`` in ``dtype``."""
+    return _bound(*_attn_work(n, j, torch.finfo(dtype).bits // 8, bias_size, bwd, work), dtype)
+
+
+def _tf32x3(cost, dtype: torch.dtype) -> dict:
+    """An f32 kernel's bound at 3xTF32, three tf32 products for each f32 one at
+    PEAK_TF32 beside the same bytes (ms), as {"bound_3xtf32_ms": ...}; nothing
+    in bf16.  ``cost``: (bytes, FLOPs)."""
+    if dtype != torch.float32:
+        return {}
+    n_bytes, flops = cost
+    return {"bound_3xtf32_ms": max(n_bytes / HBM_BYTES_PER_S, 3 * flops / PEAK_TF32) * 1e3}
 
 
 def phase_device() -> dict:
@@ -436,6 +462,13 @@ def _compare_f32_dbias(got: torch.Tensor, want: torch.Tensor) -> dict:
             "dbias_bf16_control_of_scale": control / scale, "dbias_ok": ok}
 
 
+def _f32_dbias(got, want) -> dict:
+    """``_compare_f32_dbias`` of an f32 dbias (got[3]), nothing otherwise."""
+    if got[3] is None or got[3].dtype != torch.float32:
+        return {}
+    return _compare_f32_dbias(got[3], want[3])
+
+
 def _repeats(fn, got) -> bool:
     """Whether a second launch of ``fn`` returns ``got`` bit for bit (the
     kernels sum in a fixed order, without atomics)."""
@@ -482,7 +515,8 @@ def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
 
 def phase_kernels() -> dict:
     """Every kernel vs its plain version at the main path's shapes; returns
-    the JSON entries of the main shape (S2500, bf16) by name."""
+    the JSON entries of the main shape (S2500, bf16) by name, and the f32
+    backward with dropout there as ``deform_attention_bwd_f32``."""
     from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                            cpb_bias_plain, deform_attention_bwd,
                                            deform_attention_bwd_plain,
@@ -502,23 +536,24 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             w_bytes = size * (DM * DM + 5 * DM + 1)
             table_bytes = 4 * (BG * side * j * 2)            # dx and dy, f32
-            bound_ms, bound_by = _bound(table_bytes + w_bytes + size * pairs,
-                                        pairs * (2 * DM * DM + 6 * DM + 1), dtype)
+            cost = (table_bytes + w_bytes + size * pairs, pairs * (2 * DM * DM + 6 * DM + 1))
+            bound_ms, bound_by = _bound(*cost, dtype)
             plain = cpb_bias_plain(*args)
             rows = [{"name": "cpb_bias", **_compare(bias, plain, KERNEL_TOL[dtype]),
                      **_ulps_bf16(bias, plain),
                      "repeats": _repeats(lambda: (cpb_bias(*args),), (bias,)),
                      "ms": _time_ms(lambda: cpb_bias(*args)),
                      "plain_ms": _time_ms(lambda: cpb_bias_plain(*args), iters=5),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]
+                     "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
+                     "library_ms": None}]
             del plain
 
             dbias = (torch.randn(BG, side, side * j, device="cuda", generator=g)
                      * 1e-3).to(dtype)
             got = cpb_bias_bwd(*args[:8], dbias)
             torch.cuda.synchronize()
-            bound_ms, bound_by = _bound(table_bytes * 2 + w_bytes * 2 + size * pairs,
-                                        pairs * (6 * DM * DM + 16 * DM), dtype)
+            cost = (table_bytes * 2 + w_bytes * 2 + size * pairs, pairs * (6 * DM * DM + 16 * DM))
+            bound_ms, bound_by = _bound(*cost, dtype)
             rows.append({"name": "cpb_bias_bwd",
                          **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
                                           CPB_GRAD_L2, l2=True),
@@ -526,7 +561,8 @@ def phase_kernels() -> dict:
                          "ms": _time_ms(lambda: cpb_bias_bwd(*args[:8], dbias)),
                          "plain_ms": _time_ms(lambda: cpb_bias_bwd_plain(*args[:8], dbias),
                                               iters=slow_iters, warmup=1),
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                         "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
+                         "library_ms": None})
             del got, dbias
 
             q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5).to(dtype)
@@ -534,6 +570,7 @@ def phase_kernels() -> dict:
             v = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
             dout = (torch.randn(BG, n, DH, device="cuda", generator=g) * 1e-2).to(dtype)
             fbias = bias.reshape(BG, n, j)
+            cost = _attn_work(n, j, size, size)
             bound_ms, bound_by = _attn_bound(n, j, dtype, size)
             lib_fwd, lib_bwd = _sdpa_ms(q, k, v, dout, fbias, mask_grad=True)
             out = deform_attention_fwd(q, k, v, fbias)
@@ -546,7 +583,8 @@ def phase_kernels() -> dict:
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias)),
                          "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(q, k, v, fbias),
                                               iters=5),
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_fwd})
+                         "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
+                         "library_ms": lib_fwd})
 
             keep = philox_keep_mask(SEED, BG, n, j, KEEP_PROB, device="cuda")
             share = keep.float().mean().item()
@@ -566,24 +604,26 @@ def phase_kernels() -> dict:
                              q, k, v, fbias, philox_keep_mask(SEED, BG, n, j, KEEP_PROB,
                                                               device="cuda"), KEEP_PROB),
                              iters=5),
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                         "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
+                         "library_ms": None})
 
+            cost = _attn_work(n, j, size, size, bwd=True)
             bound_ms, bound_by = _attn_bound(n, j, dtype, size, bwd=True)
             for keep_prob in (1.0, KEEP_PROB):
                 mask = None if keep_prob == 1.0 else keep
                 got = deform_attention_bwd(q, k, v, fbias, dout, keep_prob, SEED)
                 torch.cuda.synchronize()
+                want = deform_attention_bwd_plain(q, k, v, fbias, dout, mask, keep_prob)
                 rows.append({
                     "name": "deform_attention_bwd", "keep_prob": keep_prob,
-                    **_compare_grads(got, deform_attention_bwd_plain(
-                        q, k, v, fbias, dout, mask, keep_prob), GRAD_RTOL[dtype]),
+                    **_compare_grads(got, want, GRAD_RTOL[dtype]), **_f32_dbias(got, want),
                     "repeats": _repeats(lambda: deform_attention_bwd(
                         q, k, v, fbias, dout, keep_prob, SEED), got),
                     "ms": _time_ms(lambda: deform_attention_bwd(q, k, v, fbias, dout,
                                                                 keep_prob, SEED)),
                     "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
                         q, k, v, fbias, dout, mask, keep_prob), iters=5),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
                     "library_ms": lib_bwd if keep_prob == 1.0 else None})
                 del got
 
@@ -602,15 +642,16 @@ def phase_kernels() -> dict:
                                                                      KEEP_PROB, SEED, span))})
             got = deform_attention_bwd(q, k, v, fbias, dout, KEEP_PROB, SEED, span)
             torch.cuda.synchronize()
+            want = deform_attention_bwd_plain(q, k, v, fbias, dout, keep, KEEP_PROB, span)
             rows.append({"name": "deform_attention_bwd_span_bias_dropout",
-                         **_compare_grads(got, deform_attention_bwd_plain(
-                             q, k, v, fbias, dout, keep, KEEP_PROB, span), GRAD_RTOL[dtype]),
+                         **_compare_grads(got, want, GRAD_RTOL[dtype]), **_f32_dbias(got, want),
                          "repeats": _repeats(lambda: deform_attention_bwd(
                              q, k, v, fbias, dout, KEEP_PROB, SEED, span), got),
                          "ms": _time_ms(lambda: deform_attention_bwd(
                              q, k, v, fbias, dout, KEEP_PROB, SEED, span))})
-            del got
+            del got, want
             for e in rows:
+                e["ok"] &= e.get("dbias_ok", True)
                 e.update(fixdim=fixdim, dtype=str(dtype).split(".")[-1], bg=BG, n=n, j=j)
                 _line("kernels", **e)
                 if not e["ok"] or not e.get("repeats", True):
@@ -618,6 +659,9 @@ def phase_kernels() -> dict:
                 main = fixdim == MAIN_FIXDIM and dtype == torch.bfloat16
                 if main and e.get("keep_prob", KEEP_PROB) == KEEP_PROB:
                     entries[e["name"]] = e
+                if fixdim == MAIN_FIXDIM and dtype == torch.float32 and \
+                        e["name"] == "deform_attention_bwd" and e["keep_prob"] == KEEP_PROB:
+                    entries["deform_attention_bwd_f32"] = e
             del args, bias, q, k, v, dout, out, plain, keep, fbias, span
             torch.cuda.empty_cache()
     for e in _f32_bias_rows():
@@ -749,7 +793,7 @@ def phase_ragged() -> None:
                     want = deform_attention_bwd_plain(q, k, v, b, dout, mask, keep_prob, s)
                     n_out = 4 if b is not None else 3
                     grads = _compare_grads(got[:n_out], want[:n_out], GRAD_RTOL[dtype])
-                    if form == "bias_f32":
+                    if b is not None and b.dtype == torch.float32:   # f32 dbias, unrounded
                         grads.update(_compare_f32_dbias(got[3], want[3]))
                         grads["ok"] &= grads["dbias_ok"]
                     for e in ({"pass": "fwd", **case,
@@ -843,7 +887,8 @@ def _bucketed_spans(fixdim: int, n_pad: int):
 
 def phase_chains() -> dict:
     """The bias-less and span forms at the Nystrom chains of TransMIL; returns
-    the entries of S2500 bf16 by (name, chain)."""
+    the entries of S2500 by (name, chain), the f32 ones' names ending in
+    ``_f32``."""
     from sml_tpu_torch.ops.kernels import (deform_attention_bwd, deform_attention_bwd_plain,
                                            deform_attention_fwd, deform_attention_fwd_plain)
     from sml_tpu_torch.ops.kernels.deform_attn import _span_valid
@@ -873,6 +918,7 @@ def phase_chains() -> dict:
                     out = deform_attention_fwd(q, k, v, span=span)
                     torch.cuda.synchronize()
                     plain = deform_attention_fwd_plain(q, k, v, span=span)
+                    size = torch.finfo(dtype).bits // 8
                     bound_ms, bound_by = _attn_bound(n, j, dtype, work=work)
                     rows.append({"name": f"deform_attention_fwd_{form}",
                                  **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
@@ -883,6 +929,7 @@ def phase_chains() -> dict:
                                  "plain_ms": _time_ms(lambda: deform_attention_fwd_plain(
                                      q, k, v, span=span), iters=5),
                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                 **_tf32x3(_attn_work(n, j, size, work=work), dtype),
                                  "library_ms": lib_fwd})
                     got = deform_attention_bwd(q, k, v, None, dout, span=span)
                     torch.cuda.synchronize()
@@ -897,6 +944,7 @@ def phase_chains() -> dict:
                                  "plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
                                      q, k, v, None, dout, span=span), iters=5),
                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                 **_tf32x3(_attn_work(n, j, size, bwd=True, work=work), dtype),
                                  "library_ms": lib_bwd})
                     if got[3] is not None:
                         failures.append("bias-less backward returned a bias gradient")
@@ -907,8 +955,9 @@ def phase_chains() -> dict:
                     _line("chains", **e)
                     if not e["ok"] or not e.get("repeats", True):
                         failures.append(f"{e['name']} {chain} fixdim={fixdim} {dtype}")
-                    if fixdim == MAIN_FIXDIM and dtype == torch.bfloat16:
-                        entries[(e["name"], chain)] = e
+                    if fixdim == MAIN_FIXDIM:
+                        entries[(e["name"] + ("_f32" if dtype == torch.float32 else ""),
+                                 chain)] = e
                 del q, k, v, dout
                 torch.cuda.empty_cache()
     if failures:
@@ -1035,7 +1084,7 @@ def _lse_fwd_bwd(q, k, v, dout):
     fwd_lib, bwd_lib = _library("deform_attn"), _library("deform_attn_bwd")
     stream = torch.cuda.current_stream().cuda_stream
     work = torch.empty(fwd_lib.deform_attn_fwd_work(bg, n, j, dh), device="cuda")
-    n_bwd = bwd_lib.deform_attn_bwd_work(bg, n, j, dh)
+    n_bwd = bwd_lib.deform_attn_bwd_work(0, bg, n, j, dh)
     bwd_work = torch.empty(n_bwd, device="cuda") if n_bwd else None
     stats = torch.empty(2, bg, n, device="cuda")
     out, grads = torch.empty_like(q), [torch.empty_like(t) for t in (q, k, v)]
@@ -1149,9 +1198,7 @@ def phase_cmta_kernels() -> dict:
                 e.update(ms=_time_ms(run), parts_ms=_parts_ms(run),
                          plain_ms=_time_ms(plain_fn, iters=5), bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms,
-                         # 3xTF32: three tf32 products for each f32 product
-                         bound_3xtf32_ms=max(n_bytes / HBM_BYTES_PER_S,
-                                             3 * 2 * products * dh * pairs / PEAK_TF32) * 1e3)
+                         **_tf32x3((n_bytes, 2 * products * dh * pairs), f32))
         for e in (fwd_e, bwd_e):
             e.update(chain=chain, dtype="float32", dh=dh, bg=BG, n=n, j=j)
             if not (e["ok"] and e["repeats"]):
@@ -1232,6 +1279,11 @@ TRAIN_LAUNCHES = {
     "cmta": {"deform_attention_fwd": 8, "deform_attention_fwd_nobias": 8,
              "deform_attention_fwd_dh32": 8, "deform_attention_bwd": 8,
              "deform_attention_bwd_nobias": 8, "deform_attention_bwd_dh32": 8}}
+# the f32 dh = 64 forms that the default compute dtype (float32) adds to
+# TRAIN_LAUNCHES per train step: every attention launch of deformpathomic and
+# TransMIL, both directions (the backward on the tf32 kernels)
+F32_LAUNCHES = {"deformpathomic": {"deform_attention_fwd_f32": 2, "deform_attention_bwd_f32": 2},
+                "transmil": {"deform_attention_fwd_f32": 4, "deform_attention_bwd_f32": 4}}
 # the span forms that a masked bag adds to TRAIN_LAUNCHES per train step (and,
 # the forward's, to SERVE_LAUNCHES per eval batch): TransMIL's four masked
 # chains; deformpathomic zeroes its masked tokens and passes no span
@@ -1406,12 +1458,14 @@ def _batch_stats(npz_path: str) -> dict:
 
 
 def phase_train(card: dict, path: str = "deformpathomic", extra: dict | None = None,
-                label: str = "") -> dict:
+                label: str = "", default_dtype: bool = False) -> dict:
     """The training path of ``path`` (with the config flags ``extra``) at S2500
     through ``sml_tpu_torch.main``; returns the kernels' launch counts of that
     run.  With a BatchNorm in the model, its running averages in
     ``best_modal.npz`` must have moved and be finite, and ``inference.main
-    --weights`` must reproduce the best epoch's Test metrics."""
+    --weights`` must reproduce the best epoch's Test metrics.  With
+    ``default_dtype`` no ``--compute_dtype`` is passed: the config's default,
+    float32, whose dh = 64 attention launches count in F32_LAUNCHES."""
     import tempfile
 
     import numpy as np
@@ -1425,13 +1479,16 @@ def phase_train(card: dict, path: str = "deformpathomic", extra: dict | None = N
 
     flags = _flags(path, synthetic_size=32 if path == "transmil" else 64,
                    fixdim=MAIN_FIXDIM, epochs=1, **(extra or {}))
+    if default_dtype:
+        del flags["compute_dtype"]
     config = Config(**flags)
     steps = len(Loader(build_datasets(config, "Train"), config.batch_size, drop_last=True))
+    per_step = {**TRAIN_LAUNCHES[path], **(F32_LAUNCHES[path] if default_dtype else {})}
     with tempfile.TemporaryDirectory() as ckpt:
         rc, printed, total, eval_l, wall_s = _train_entry(flags, ckpt)
         train_m, _, test_m = _epoch_metrics(printed)
         train_l = {k: total[k] - eval_l[k] for k in total}
-        want = {k: TRAIN_LAUNCHES[path].get(k, 0) * steps for k in total}
+        want = {k: per_step.get(k, 0) * steps for k in total}
         if rc != 0 or train_l != want:
             raise AssertionError(f"train-step launches {train_l}, expected {want} (rc={rc})")
         if eval_l["cpb_bias_bwd"] or eval_l["deform_attention_bwd"] or \
@@ -1500,6 +1557,17 @@ def phase_train(card: dict, path: str = "deformpathomic", extra: dict | None = N
         raise AssertionError(f"train step through kernels vs plain versions: loss "
                              f"{loss_err}, worst gradient {worst} {rel[worst]}")
     return total
+
+
+def phase_f32_train(card: dict) -> dict:
+    """Phase 6 for deformpathomic and for TransMIL at the default compute dtype
+    (no ``--compute_dtype``: float32), whose attention runs the f32 dh = 64
+    forms: every backward launch (2 and 4 per train step) counted as the f32
+    form of the tf32 kernels, finite losses, one train step's loss and
+    gradients through the kernels against the plain versions at
+    TRAIN_TOL["float32"]; returns the launch counts by path."""
+    return {path: phase_train(card, path, label="f32-train", default_dtype=True)
+            for path in ("deformpathomic", "transmil")}
 
 
 def phase_bucketed(card: dict, path: str = "transmil", label: str = "bucketed") -> dict:
@@ -2684,7 +2752,8 @@ _STEP_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES["deformpathomic"].items()
                   if k != "deform_attention_fwd_dropout"}
 PARALLEL_LAUNCHES = {
     "dp": {k: v * PARALLEL_DP_STEPS for k, v in _STEP_LAUNCHES.items()},
-    "dp_f32": _STEP_LAUNCHES, "seq_deform": _STEP_LAUNCHES,
+    "dp_f32": {**_STEP_LAUNCHES, **F32_LAUNCHES["deformpathomic"]},
+    "seq_deform": _STEP_LAUNCHES,
     "seq_transmil": {"deform_attention_fwd": 4, "deform_attention_fwd_nobias": 4,
                      "deform_attention_bwd": 2, "deform_attention_bwd_nobias": 2},
 }
@@ -3364,6 +3433,8 @@ def main() -> int:
     chains = phase_chains()
     tm_serving = {fixdim: phase_slice(fixdim, card, "transmil") for fixdim in SHAPES}
     runs = {"tm-train": phase_train(card, "transmil"), "bucketed": phase_bucketed(card)}
+    # 10b. f32-train: deformpathomic and TransMIL at the default compute dtype
+    f32_runs = phase_f32_train(card)
     # 11. deform-masked: bucketed bags (J = 64 / 144), then a non-square fixdim
     # (2000 patches padded to 45 x 45, J = 121)
     phase_bucketed(card, "deformpathomic", "deform-masked")
@@ -3422,6 +3493,21 @@ def main() -> int:
                         "design": DESIGN_BF16,
                         "launches_serving_1d": d1_serving.get(count, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16, bias f32"})
+    # the f32 dh = 64 backward (the default compute dtype's): phase 4's bias
+    # form with dropout at S2500, phase 7's f32 chains, the f32-train launches
+    e = entries["deform_attention_bwd_f32"]
+    chain = {c: chains[("deform_attention_bwd_nobias_f32", c)] for c in ("chain3", "chain1")}
+    kernels.append({"name": "deform_attention_bwd_f32", "route": "cuda",
+                    "source": "sml_tpu_torch/csrc/deform_attn_bwd.cu",
+                    "replaces": f"{PALLAS}:1044",
+                    "launches": f32_runs["deformpathomic"]["deform_attention_bwd_f32"],
+                    "launches_run": "f32-train", **{k: e[k] for k in _TIMES},
+                    "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": "3xTF32 mma.sync",
+                    "launches_transmil_f32": f32_runs["transmil"]["deform_attention_bwd_f32"],
+                    "shape": f"f32 dh=64, BG={BG} N={e['n']} J={e['j']}, bias, dropout",
+                    **{c: {"shape": f"f32 dh=64, bias-less, BG={BG} N={x['n']} J={x['j']}",
+                           **{k: x[k] for k in _TIMES + ("bound_3xtf32_ms",)}}
+                       for c, x in chain.items()}})
     for name, source, replaces, count, design in DH32_KERNELS:
         e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -2,8 +2,9 @@
 """Device time of the attention kernels, forward and backward, form by form, on one CUDA card.
 
     python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
-                                        [--dtype bfloat16|float32]
-                                        [--variant nofold|onechain|unrolled]
+                                        [--dtype bfloat16|float32] [--cases REGEX]
+                                        [--variant nofold|onechain|unrolled|rna64|
+                                                   oneblock64|allhalves64|skiprows64]
 
 Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
 the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
@@ -11,7 +12,8 @@ sources and their shared headers, such as another commit's, compares them in
 the same call) into ``build/profile_attn/<tag>/`` and prints, for each kernel
 instantiation of the two builds, its registers and spill stores from the
 ptxas log.  Then, at the main path's shapes (BG=64, in ``--dtype``: bf16, the
-tensor-core kernels, or f32, the CUDA-core twins): for the forward
+tensor-core kernels, or f32, the forward's CUDA-core twin and the backward's
+tf32 kernels): for the forward
 (``"pass": "fwd"``) in every form the main paths run (the bias form without
 and with dropout at S2500 / S4096, the bias-less and span Nystrom chains 1 and
 3 at S2500 / S4096, the span form with bias and dropout at S2500), the largest
@@ -27,7 +29,14 @@ case's bound as ``chip_smoke.py`` counts it (``_attn_bound``; span forms:
 the valid pairs), the plain version's median time over 5 launches, and that
 of one ``F.scaled_dot_product_attention`` call of the same function (the bias
 as its mask in q's dtype, a span as a 0 / -inf mask; none with dropout), as
-``chip_smoke.py`` times it.  In f32 both passes also run CMTA's two chains on the
+``chip_smoke.py`` times it; the f32 backward's lines also its bound at 3xTF32
+(``chip_smoke._tf32x3``), and after every other case the span forms
+(TransMIL's chains 1 and 3 at S2500 and the span form with a bias and
+dropout at S2500), last so that the inputs of the cases before them are
+drawn as a tree without them draws them.  ``--cases`` runs only the forward
+and backward cases whose names it matches (a tree whose backward work query
+takes no dtype, given by ``--csrc``, runs every case but the dh = 32 ones).
+In f32 both passes also run CMTA's two chains on the
 dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), which runs on the tf32
 tensor cores in both directions: the backward's rows, keys and combine
 kernels are timed apart.  In bf16 both passes also run the f32 bias beside
@@ -48,7 +57,13 @@ walk instead of one per tile folded into an f32 sum (``kFoldTiles`` in
 each f32 product in one accumulator instead of the big one apart from the
 two small ones (``mma_3xtf32`` in ``mma.cuh``); ``--variant unrolled``
 unrolls the two 32-key halves of the shared statistics walk (``stats_tile``
-in ``attn_tf32.cuh``), to show its registers and spills.  One line per item, prefixed
+in ``attn_tf32.cuh``), to show its registers and spills.  Four measure the
+dh = 64 kernels' choices: ``rna64`` splits each operand with hi and lo
+rounded (``split_tf32``, five operations) instead of truncated
+(``split_tf32_trunc``, two); ``oneblock64`` drops the two-blocks-an-SM launch
+bound; ``allhalves64`` walks the rows kernel through every 32-key half of
+the last key tile; ``skiprows64`` skips the keys kernel's 16-row steps past
+N.  One line per item, prefixed
 with ``--tag``, so that runs of two trees can be told apart.
 """
 
@@ -70,8 +85,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (RAGGED, RAGGED_BIAS, _attn_bound, _sdpa_ms,  # noqa: E402
-                        _span_work, _time_ms)
+from chip_smoke import (RAGGED, RAGGED_BIAS, _attn_bound, _attn_work,  # noqa: E402
+                        _sdpa_ms, _span_work, _tf32x3, _time_ms)
 from sml_tpu_torch.ops.kernels import (_build, deform_attention_bwd,  # noqa: E402
                                        deform_attention_bwd_plain, deform_attention_fwd,
                                        deform_attention_fwd_plain, philox_keep_mask)
@@ -95,13 +110,21 @@ FWD_CASES = {
     "span_bias_drop_s2500": (2500, 144, "same", 0.9, True),
     "bias_s2000": (2025, 121, "same", 1.0, False),
     "f32bias_d1": (2501, 625, "f32", 1.0, False)}
-# backward, name: (N, J, bias, keep_prob)
-BWD_CASES = {"bias_s2500": (2500, 144, "same", 1.0), "bias_drop_s2500": (2500, 144, "same", 0.9),
-             "bias_s4096": (4096, 256, "same", 1.0), "bias_drop_s4096": (4096, 256, "same", 0.9),
-             "ch3_s2500": (256, 2560, None, 1.0), "ch1_s2500": (2560, 256, None, 1.0),
-             "ch3_s4096": (256, 4352, None, 1.0), "ch1_s4096": (4352, 256, None, 1.0),
-             "bias_s2000": (2025, 121, "same", 1.0), "f32bias_d1": (2501, 625, "f32", 1.0)}
-# the variants of the dh = 32 backward: (file, its text, the variant's)
+# backward, name: (N, J, bias, keep_prob, span)
+BWD_CASES = {"bias_s2500": (2500, 144, "same", 1.0, False),
+             "bias_drop_s2500": (2500, 144, "same", 0.9, False),
+             "bias_s4096": (4096, 256, "same", 1.0, False),
+             "bias_drop_s4096": (4096, 256, "same", 0.9, False),
+             "ch3_s2500": (256, 2560, None, 1.0, False), "ch1_s2500": (2560, 256, None, 1.0, False),
+             "ch3_s4096": (256, 4352, None, 1.0, False), "ch1_s4096": (4352, 256, None, 1.0, False),
+             "bias_s2000": (2025, 121, "same", 1.0, False),
+             "f32bias_d1": (2501, 625, "f32", 1.0, False)}
+# f32 only, after every other backward case: the span forms
+BWD_SPAN_CASES = {"ch3_span_s2500": (256, 2560, None, 1.0, True),
+                  "ch1_span_s2500": (2560, 256, None, 1.0, True),
+                  "span_bias_drop_s2500": (2500, 144, "same", 0.9, True)}
+# the variants of the f32 backward: (file, its text, the variant's); the first
+# three of the dh = 32 kernels, the rest of the dh = 64 ones
 VARIANTS = {
     "nofold": ("attn_tf32.cuh", "constexpr bool kFoldTiles = true;",
                "constexpr bool kFoldTiles = false;"),
@@ -109,6 +132,24 @@ VARIANTS = {
                  "mma_tf32(big, al, bh0, bh1);\n  mma_tf32(big, ah, bl0, bl1);"),
     "unrolled": ("attn_tf32.cuh", "#pragma unroll 1\n  for (int c0 = 0; c0 < kBlock; c0 += 32)",
                  "#pragma unroll\n  for (int c0 = 0; c0 < kBlock; c0 += 32)"),
+    # each dh = 64 operand split as dh = 32 splits it (hi and lo rounded)
+    "rna64": ("mma.cuh", "  hi = __float_as_uint(x) & 0xffffe000u;\n"
+              "  lo = __float_as_uint(x - __uint_as_float(hi));",
+              "  split_tf32(x, hi, lo);"),
+    # the dh = 64 kernels without the two-blocks-an-SM bound (ptxas then
+    # spills some instantiations)
+    "oneblock64": ("deform_attn_bwd.cu", "__launch_bounds__(kThreads, 2)",
+                   "__launch_bounds__(kThreads)"),
+    # the dh = 64 rows kernel walking a key tile's every 32-key half
+    "allhalves64": ("deform_attn_bwd.cu",
+                    "const int c_end = wrow0 < N ? min(kBlock, J - j0) : 0;",
+                    "const int c_end = kBlock;"),
+    # the dh = 64 keys kernel skipping the 16-row steps past N and its warps
+    # past J (a runtime trip count)
+    "skiprows64": ("deform_attn_bwd.cu", "    for (int rs = 0; rs < kBlock; rs += 16) {\n"
+                   "      // st[i][2h + w], dpt[i][2h + w]: key key[h], row r0 + rs",
+                   "    for (int rs = 0; rs < (kw0 < J ? min(kBlock, N - r0) : 0); rs += 16) {\n"
+                   "      // st[i][2h + w], dpt[i][2h + w]: key key[h], row r0 + rs"),
 }
 # f32 only: CMTA's chains on the dh = 32 form, name: (N, J)
 DH32_CASES = {"ch3_dh32_s2500": (128, 2560), "ch1_dh32_s2500": (2560, 128)}
@@ -116,12 +157,19 @@ KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn
                     r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
 TF32 = re.compile(r"(attn_fwd_tf32|attn_bwd_rows_tf32|attn_bwd_keys_tf32|attn_bwd_combine)"
                   r"(?:ILb(\d)ELb(\d)E)?")
+# the f32 dh = 64 backward: (bias, span, dropout[, statistics, gradients])
+TF32_64 = re.compile(r"attn_bwd_(rows|keys)_tf32_64I((?:Lb\dE)+)")
 # device-time roles of the backward's kernels
 ROLE = re.compile(r"attn_bwd_((rows|keys)_(tc|kernel|tf32)|combine)")
 
 
 def _kernel_name(mangled: str) -> str:
-    k, t = KERNEL.search(mangled), TF32.search(mangled)
+    k, t, t64 = KERNEL.search(mangled), TF32.search(mangled), TF32_64.search(mangled)
+    if t64:
+        flags = re.findall(r"Lb(\d)", t64.group(2))
+        names = ("bias", "span", "drop", "stats", "grad")
+        return f"attn_bwd_{t64.group(1)}_tf32_64 f32 dh=64 " + " ".join(
+            f"{n}={f}" for n, f in zip(names, flags))
     if k:
         bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
         dtype = "f32" if k.group(2).startswith("f") else "bf16"
@@ -224,8 +272,10 @@ def _cases(cases: dict, bf: torch.dtype):
     return {name: c for name, c in cases.items() if c[2] != "f32" or bf == torch.bfloat16}
 
 
-def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
+def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype, pick) -> None:
     for name, (n, j, bias_spec, keep_prob, has_span) in _cases(FWD_CASES, bf).items():
+        if not pick(name):
+            continue
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, DH, scale=DH ** -0.5), rn(BG, j, DH), rn(BG, j, DH)
         bias = _bias(bias_spec, n, j, g, bf)
@@ -251,6 +301,8 @@ def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
         del q, k, v, bias, out, again, keep, want
         torch.cuda.empty_cache()
     for name, (n, j) in (DH32_CASES.items() if bf == torch.float32 else ()):
+        if not pick(name):
+            continue
         q = torch.randn(BG, n, 32, device="cuda", generator=g) * 32 ** -0.5
         k, v = torch.randn(2, BG, j, 32, device="cuda", generator=g)
         run = lambda: deform_attention_fwd(q, k, v)
@@ -276,21 +328,25 @@ def _err_of_scale(got, want) -> float:
                for a, b in zip(got, want) if a is not None)
 
 
-def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
-    cases = [(name, n, j, bias_spec, keep_prob, DH)
-             for name, (n, j, bias_spec, keep_prob) in _cases(BWD_CASES, bf).items()]
+def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype, pick) -> None:
+    cases = [(name, n, j, bias_spec, keep_prob, has_span, DH)
+             for name, (n, j, bias_spec, keep_prob, has_span) in _cases(BWD_CASES, bf).items()]
     if bf == torch.float32:
-        cases += [(name, n, j, None, 1.0, 32) for name, (n, j) in DH32_CASES.items()]
-    for name, n, j, bias_spec, keep_prob, dh in cases:
+        cases += [(name, n, j, None, 1.0, False, 32) for name, (n, j) in DH32_CASES.items()]
+        cases += [(name, *c, DH) for name, c in BWD_SPAN_CASES.items()]
+    for name, n, j, bias_spec, keep_prob, has_span, dh in cases:
+        if not pick(name):
+            continue
         rn = lambda *s, scale=1.0: (torch.randn(*s, device="cuda", generator=g) * scale).to(bf)
         q, k, v = rn(BG, n, dh, scale=dh ** -0.5), rn(BG, j, dh), rn(BG, j, dh)
         dout = rn(BG, n, dh, scale=1e-2)
         bias = _bias(bias_spec, n, j, g, bf)
-        run = lambda: deform_attention_bwd(q, k, v, bias, dout, keep_prob, SEED)
+        span = _spans(n, j) if has_span else None
+        run = lambda: deform_attention_bwd(q, k, v, bias, dout, keep_prob, SEED, span)
         got = run()
         keep = (philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
                 if keep_prob < 1 else None)
-        want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob)
+        want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob, span)
         err = _err_of_scale(got, want)
         extra = {}
         if dh == 32:
@@ -299,13 +355,16 @@ def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
                      "plain_err_of_scale_f64": _err_of_scale(want, exact)}
             del exact
         else:
-            bound_ms, bound_by = _attn_bound(n, j, bf, _bias_size(bias_spec, bf), bwd=True)
+            work = None if span is None else _span_work(span, n, j)
+            bias_size = _bias_size(bias_spec, bf)
+            bound_ms, bound_by = _attn_bound(n, j, bf, bias_size, bwd=True, work=work)
             extra = {"plain_ms": _time_ms(lambda: deform_attention_bwd_plain(
                          q, k, v, bias, dout, philox_keep_mask(SEED, BG, n, j, keep_prob,
                                                                device="cuda")
-                         if keep_prob < 1 else None, keep_prob), 5),
-                     "library_ms": _library_ms(q, k, v, bias, None, keep_prob, iters, dout),
+                         if keep_prob < 1 else None, keep_prob, span), 5),
+                     "library_ms": _library_ms(q, k, v, bias, span, keep_prob, iters, dout),
                      "bound_ms": bound_ms, "bound_by": bound_by}
+            extra.update(_tf32x3(_attn_work(n, j, 4, bias_size, True, work), bf))
         again = run()
         repeats = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
         digest = _digest(got)
@@ -326,7 +385,7 @@ def backward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype) -> None:
         print(json.dumps({"tag": tag, "pass": "bwd", "case": name, "max_rel_err": err,
                           **extra, "repeats": repeats, "digest": digest, "ms": ms,
                           "total_ms": round(sum(ms.values()), 4)}), flush=True)
-        del q, k, v, dout, bias, got
+        del q, k, v, dout, bias, span, got
         torch.cuda.empty_cache()
 
 
@@ -357,6 +416,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--variant", choices=tuple(VARIANTS))
+    ap.add_argument("--cases", default="", help="a regex: run only the cases it matches")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_attn_bwd: no CUDA device", file=sys.stderr)
@@ -383,8 +443,9 @@ def main() -> int:
     ptxas(args.tag)
     g = torch.Generator(device="cuda").manual_seed(0)
     dtype = getattr(torch, args.dtype)
-    forward(args.tag, args.iters, g, dtype)
-    backward(args.tag, args.iters, g, dtype)
+    pick = lambda name: re.search(args.cases, name) is not None
+    forward(args.tag, args.iters, g, dtype, pick)
+    backward(args.tag, args.iters, g, dtype, pick)
     if dtype == torch.bfloat16:
         ragged(args.tag, g)
     return 0

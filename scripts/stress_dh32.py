@@ -87,7 +87,7 @@ def main() -> int:
                 poison([q.shape, (fwd_lib.deform_attn_fwd_work(bg, n, j, dh),)])
             out = (deform_attention_fwd(q, k, v),)
             if args.poison:
-                n_work = bwd_lib.deform_attn_bwd_work(bg, n, j, dh)
+                n_work = bwd_lib.deform_attn_bwd_work(0, bg, n, j, dh)
                 poison([q.shape, k.shape, v.shape, (2, bg, n)] + ([(n_work,)] if n_work else []))
             return {"fwd": out, "bwd": deform_attention_bwd(q, k, v, None, dout)[:3]}
 

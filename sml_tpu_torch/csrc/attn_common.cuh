@@ -1,9 +1,9 @@
 // Helpers shared by the attention kernels (deform_attn.cu, deform_attn_bwd.cu):
-// the per-bag span mask and, for the f32 CUDA-core twins (the bf16 kernels'
-// pieces are in attn_tc.cuh), 16-byte vector loads of float rows, warp
-// reductions, the padded shared-memory row stride of K and V, the key tiles
-// that stream K and V through shared memory and the Philox dropout
-// multipliers of a row's key tile.
+// the per-bag span mask and, for the f32 dh = 64 forward's CUDA-core twin
+// (the tensor-core kernels' pieces are in attn_tc.cuh), 16-byte vector loads
+// of float rows, warp reductions, the padded shared-memory row stride of K
+// and V, the key tiles that stream K and V through shared memory and the
+// Philox dropout multipliers of a row's key tile.
 
 #pragma once
 
@@ -52,9 +52,6 @@ template <typename T>
 __host__ __device__ constexpr int row_stride(int dh) {
   return dh + Vec16<T>::N;  // one extra 16-byte unit: an odd count of units per row
 }
-
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 
 // -finfo(f32).max, the fill of masked columns (the Pallas kernel's _NEG_INF)
 constexpr float kNegMax = -3.4028234663852886e38f;

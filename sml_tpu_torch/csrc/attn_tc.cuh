@@ -306,6 +306,29 @@ __device__ __forceinline__ float2 drop_pair(unsigned long long seed, int j, int 
                      philox::keep(philox::word(bits, (j & 3) + 1), keep_prob) ? inv_keep : 0.f);
 }
 
+// The keep bits of a keys kernel's 16-row step from row r0 (a multiple of 8),
+// in the transposed layout: lane (g, t) holds the keys key[h] (h < 2) and the
+// rows r0 + 8 i + col + w (col = 2t).  The lanes lane ^ (s << 2), s < 4, hold
+// the same rows and the same 4-key Philox groups, one word c = (lane >> 2) & 3
+// of each: each lane draws its two groups for one row, e = c (e = 2 i + w),
+// and the four pass the keep bits round; bit 4 h + e of the result is key[h],
+// row e.
+__device__ __forceinline__ uint32_t keys_keep_bits(unsigned long long seed, const int (&key)[2],
+                                                   int r0, int col, int bg, float keep_prob,
+                                                   int lane) {
+  const int c = (lane >> 2) & 3;
+  const int r = r0 + 8 * (c >> 1) + col + (c & 1);
+  const uint32_t own = philox::keep4(philox::bits4(seed, key[0] >> 2, r, bg), keep_prob) |
+                       philox::keep4(philox::bits4(seed, key[1] >> 2, r, bg), keep_prob) << 4;
+  uint32_t kept = 0u;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t from = s ? __shfl_xor_sync(kFull, own, s << 2) : own;
+    kept |= ((from >> c) & 0x11u) << (c ^ s);
+  }
+  return kept;
+}
+
 // A lane's running statistics of its rows row[h] over its own columns: max m,
 // sum l of exp(s - m) and, in the backward, sum d of exp(s - m) dp.
 struct RowStats {

@@ -271,4 +271,207 @@ attn_bwd_combine(const float4* __restrict__ part, int S, size_t n4, int n_out,
   }
 }
 
+// ---- f32 at dh = 64: the backward's rows and keys kernels ------------------
+//
+// At dh = 64 a warp's 16 rows of q and dout as split A fragments would take
+// 128 registers, and unsplit 64, beside dq's 32-register sum and the
+// products' accumulators: with them in registers every instantiation reached
+// the 255-register limit and spilled (PERF.md).  So the block's own operand (q
+// and dout, or k and v) sits in two swizzled 64 x 64 f32 tiles in shared
+// memory beside the two-stage ring of the streamed ones (16 KB a tile,
+// mma::swz64f; 96 KB of dynamic shared memory, two blocks an SM), and each
+// k-step's A fragment is read by ldmatrix and split on use, once for the n8
+// tiles it meets there (product_nt64).  The f32 bias and dbias stay out of
+// shared memory: 36 KB of bias tiles would leave one block an SM.  Each lane
+// reads and writes its own elements of them in the m16n8 layout (a row's
+// keys 2t, 2t + 1 as one 8-byte access, 32 contiguous bytes for the four
+// lanes of a row: whole sectors), issued before the products that hide them.
+
+// The three tf32 products of each k-step go to one tensor-core accumulator
+// (mma::mma_3xtf32 with big = small): the small ones apart, as at dh = 32,
+// would take a second accumulator beside each.  A product's
+// accumulator starts from zero for every 8 k-steps (s, dp: a sum over dh) or
+// every 32 keys or 16 rows (dq, dk, dv), then is folded into an f32 sum.
+
+constexpr int kDH64 = 64;
+constexpr int kTile64 = kBlock * kDH64;  // floats of one swizzled 64 x 64 tile
+
+// Every dh = 64 operand is split by mma::split_tf32_trunc, in two operations
+// instead of split_tf32's five: the kernels are bound by instruction issue
+// (PERF.md, scripts/profile_attn_bwd.py --variant rna64).
+
+// The split A fragment of an m16n8 accumulator c (mma::split_accum's layout)
+__device__ __forceinline__ void split_accum64(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                              const float (&c)[4]) {
+  mma::split_tf32_trunc(c[0], ah[0], al[0]);
+  mma::split_tf32_trunc(c[2], ah[1], al[1]);
+  mma::split_tf32_trunc(c[1], ah[2], al[2]);
+  mma::split_tf32_trunc(c[3], ah[3], al[3]);
+}
+// Dynamic shared-memory bytes of the rows kernel (the K and V ring's two
+// stages, q and dout) and of the keys kernel (the same, and the ring's lse
+// and delta)
+constexpr int kRowsSmem64 = 6 * kTile64 * sizeof(float);
+constexpr int kKeysSmem64 = kRowsSmem64 + 4 * kBlock * sizeof(float);
+
+// Stage rows [r0, r0 + kBlock) of two (n, 64) f32 matrices a and b in the
+// swizzled tiles sa and sb by cp.async, rows >= n zero-filled.
+__device__ __forceinline__ void stage_pair64(const float* a, const float* b, float* sa,
+                                             float* sb, int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 16; i += kThreads) {
+    const int r = i >> 4, c = i & 15;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH64 + 4 * c;
+    const int at = mma::swz64f(r, 4 * c);
+    mma::cp_async16(mma::smem_u32(sa + at), a + off, ok);
+    mma::cp_async16(mma::smem_u32(sb + at), b + off, ok);
+  }
+}
+
+// Each lane's byte offsets in a swizzled 64 x 64 f32 tile (mma::swz64f keeps
+// a row's bits apart from the terms xor adds): the ldmatrix row of its warp's
+// A fragment at k-step ks at a ^ 32 ks (the warp's 16 rows of the block's own
+// tile); of product_nt64's B at k-step pair kp at nt ^ 64 kp; of
+// product_nn64's B, rows 2t + w (w < 2) at column 8 n + g, at nn[w] ^ 32 n.
+struct Offsets64 {
+  uint32_t a, nt, nn[2];
+  __device__ Offsets64(int lane, int warp) {
+    // matrix lane / 8 of the x4 load: rows 0-7 or 8-15, chunk 2 ks or 2 ks + 1
+    a = 4 * mma::swz64f(16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1), 4 * (lane >> 4));
+    nt = 4 * mma::swz64f(lane & 7, 4 * (lane >> 3));
+    nn[0] = 4 * mma::swz64f(2 * (lane & 3), lane >> 2);
+    nn[1] = 4 * mma::swz64f(2 * (lane & 3) + 1, lane >> 2);
+  }
+};
+
+// acc[i] (16 x 8) = A X^T over the rows n0 + 8 i .. + 7 of the swizzled 64 x
+// 64 tile x (the n of the product), i < NI; A the warp's 16 rows of the
+// block's own tile own (16 x 64), each k-step's f32 fragment by ldmatrix,
+// split once for the NI tiles.  B by ldmatrix: the 32-bit word t of row g of
+// a 16-byte chunk is B's (k t, n g); likewise A's a[0..3] = (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4) of the k-step's 8 columns.
+template <int NI>
+__device__ __forceinline__ void product_nt64(const float* own, const float* x, int n0,
+                                             const Offsets64& off, float (&acc)[NI][4]) {
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const uint32_t abase = mma::smem_u32(own);
+  const uint32_t base = mma::smem_u32(x) + 256 * n0;
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t a[4];
+      mma::ldmatrix_x4(a, abase + (off.a ^ (32 * (2 * kp + kk))));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mma::split_tf32_trunc(__uint_as_float(a[e]), ah[kk][e], al[kk][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      uint32_t b[4];  // b0, b1 of k-steps 2 kp and 2 kp + 1
+      mma::ldmatrix_x4(b, base + 2048 * i + (off.nt ^ (64 * kp)));
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t bh0, bl0, bh1, bl1;
+        mma::split_tf32_trunc(__uint_as_float(b[2 * kk]), bh0, bl0);
+        mma::split_tf32_trunc(__uint_as_float(b[2 * kk + 1]), bh1, bl1);
+        mma::mma_3xtf32(acc[i], acc[i], ah[kk], al[kk], bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+}
+
+// Keys j, j + 1 (j even) of an f32 row p (its key 0) in device memory, keys
+// >= J as 0.  EVEN (J even): every row starts 8 bytes aligned, and j < J
+// holds j + 1 < J: one 8-byte load; else element by element.
+__device__ __forceinline__ float2 load_pair64(const float* p, int j, int J, bool even) {
+  if (even) return j < J ? *reinterpret_cast<const float2*>(p + j) : make_float2(0.f, 0.f);
+  return make_float2(j < J ? p[j] : 0.f, j + 1 < J ? p[j + 1] : 0.f);
+}
+// x, y to keys j, j + 1 (j even) of the row p, keys >= J left alone
+__device__ __forceinline__ void store_pair64(float* p, int j, int J, bool even, float x,
+                                             float y) {
+  if (even) {
+    if (j < J) *reinterpret_cast<float2*>(p + j) = make_float2(x, y);
+    return;
+  }
+  if (j < J) p[j] = x;
+  if (j + 1 < J) p[j + 1] = y;
+}
+
+// acc (16 x 32) += A X over the 8 rows k0 .. k0 + 7 of the swizzled 64 x 64
+// tile x (the k of the product), k0 a multiple of 8, and its columns 8 N0 ..
+// 8 N0 + 31 (the n tiles N0 .. N0 + 3); A the split accumulator of the
+// previous product (mma::split_accum), so B's k positions t and t + 4 are
+// rows k0 + 2t and k0 + 2t + 1.
+template <int N0>
+__device__ __forceinline__ void product_nn64(float (&acc)[4][4], const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4], const float* x, int k0,
+                                             const Offsets64& off) {
+  const char* base = reinterpret_cast<const char*>(x + kDH64 * k0);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    uint32_t bh0, bl0, bh1, bl1;
+    const uint32_t at = 32 * (N0 + n);
+    const float b0 = *reinterpret_cast<const float*>(base + (off.nn[0] ^ at));
+    const float b1 = *reinterpret_cast<const float*>(base + (off.nn[1] ^ at));
+    mma::split_tf32_trunc(b0, bh0, bl0);
+    mma::split_tf32_trunc(b1, bh1, bl1);
+    mma::mma_3xtf32(acc[n], acc[n], ah, al, bh0, bh1, bl0, bl1);
+  }
+}
+
+// sum's columns 8 N0 .. 8 N0 + 31 += the product of the split accumulators
+// a[i] (i < NI, 8 rows or keys of the tile x from k0 + 8 i each) and those
+// columns of x, on zeroed accumulators: a sum of NI k-steps on the tensor
+// core, then in f32 registers.
+template <int N0, int NI>
+__device__ __forceinline__ void fold_half64(float (&sum)[8][4], const float (&a)[NI][4],
+                                            const float* x, int k0, const Offsets64& off) {
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    uint32_t ah[4], al[4];
+    split_accum64(ah, al, a[i]);
+    product_nn64<N0>(acc, ah, al, x, k0 + 8 * i, off);
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[N0 + n][e] += acc[n][e];
+}
+
+// sum += the (16 x 64) product of a and x (fold_half64), in two halves of 32
+// columns: a half's accumulators take 16 registers, not the whole product's
+// 32 (the splits of a[i] are made twice).
+template <int NI>
+__device__ __forceinline__ void product_fold64(float (&sum)[8][4], const float (&a)[NI][4],
+                                               const float* x, int k0, const Offsets64& off) {
+  fold_half64<0>(sum, a, x, k0, off);
+  fold_half64<4>(sum, a, x, k0, off);
+}
+
+// The (16 x 64) sum of a warp's rows (or keys) r0 + g, r0 + g + 8 into rows
+// of 64 floats at dst, rows >= n left alone.
+__device__ __forceinline__ void store_rows64(float* dst, const float (&sum)[8][4], int r0,
+                                             int n, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    if (r < n)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<float2*>(dst + (size_t)r * kDH64 + 8 * nt + 2 * (lane & 3)) =
+            make_float2(sum[nt][2 * h], sum[nt][2 * h + 1]);
+  }
+}
+
 }  // namespace tf32

@@ -26,9 +26,9 @@
 //   tiles with an online max and sum and writes each row's lse = max +
 //   log(sum) and delta = sum_j p dp, (BG, N) f32 each; pass 2 walks them
 //   again for p = exp(s - lse), ds, dbias and dq.
-// keys kernel, one block per (bg, 64 keys; 16 in the f32 dh = 64 twin),
-//   looping over the rows in tiles of 64: it recomputes p from lse, dp and m,
-//   then ds = p (dp m - delta), and sums dk and dv for its keys.
+// keys kernel, one block per (bg, 64 keys), looping over the rows in tiles
+//   of 64: it recomputes p from lse, dp and m, then ds = p (dp m - delta),
+//   and sums dk and dv for its keys.
 //
 // What bounds it: about 10 * DH FLOP per pair (five products of 2 * DH each:
 // q k^T, dout v^T, (p m)^T dout, ds k, ds^T q) against q, k, v, dout, dq,
@@ -73,35 +73,46 @@
 // row or key.  The keys kernel's q k^T and dout v^T sums run in another order
 // than the rows kernel's, so p and ds of the two kernels may differ in the
 // last bits; the bf16 gradient tolerance covers it.
-// f32 at dh = 64, the CUDA-core twins: one warp per row in the rows kernel
-// (dq summed in shared memory), one block per 16 keys in the keys kernel,
-// products as f32 fused multiply-adds, and the keys kernel's q . k and
-// dout . v sums in the rows kernel's order, so p and ds are the rows
-// kernel's to the last bit; they are the exact-arithmetic reference of the
-// port on the card.
-//
-// f32 at dh = 32 (no bias, span or dropout: CMTA's Nystrom chains, BG 64,
-// 128 landmarks against 2560 tokens), the tf32 tensor-core kernels
-// (tf32::*_tf32): the layout of the bf16 kernels (four warps, 16 rows or keys
-// each, the streamed operand through a two-stage cp.async ring of swizzled
-// 64 x 32 f32 tiles, the block's own operand as A fragments in registers)
-// and the TPU kernel's algorithm, ds = p (dp - delta) formed for each pair
-// before dq = ds k and dk = ds^T q.  Every product is f32-accurate from
+// f32, the tf32 tensor-core kernels: at dh = 32 (no bias, span or dropout:
+// CMTA's Nystrom chains, BG 64, 128 landmarks against 2560 tokens)
+// tf32::attn_bwd_rows_tf32 / attn_bwd_keys_tf32, at dh = 64 (every form: the
+// deformable attention's bias with dropout, TransMIL's bias-less and span
+// chains, BG 64, 256 landmarks against 2560 or 4352 tokens)
+// tf32::attn_bwd_rows_tf32_64 / attn_bwd_keys_tf32_64.  The layout of the
+// bf16 kernels (four warps, 16 rows or keys each, the streamed operand
+// through a two-stage cp.async ring of swizzled 64 x DH f32 tiles) and the
+// TPU kernel's algorithm, ds = p (dp - delta) formed for each pair before dq
+// = ds k and dk = ds^T q; in f32 neither ds nor p m is rounded.  At dh = 32
+// the block's own operand sits in split A fragments in registers; at dh = 64
+// those would take 128 registers (64 unsplit) beside dq's sum, so the
+// block's own q and dout (or k and v) sit in shared memory beside the ring,
+// each k-step's A fragment read by ldmatrix and split on use (96 KB of
+// dynamic shared memory: two blocks an SM), and the f32 bias and dbias are
+// read and written by each lane in the accumulator layout, without a staged
+// tile (attn_tf32.cuh).  The span mask and dropout are the bf16 kernels' own
+// code on the m16n8 accumulators (attn_tc.cuh: drop_pair, keys_keep_bits),
+// whose layout tf32's m16n8k8 shares.  Every product is f32-accurate from
 // three tf32 mma.sync m16n8k8 (3xTF32, mma.cuh): each operand split as hi +
-// lo, both rounded to tf32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the
-// two small products in one accumulator and the big one in another.  The
+// lo, both rounded to tf32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi: at
+// dh = 32 the two small products in one accumulator and the big one in
+// another; at dh = 64 all three in one (fewer registers), each operand
+// split by truncation in two operations (mma::split_tf32_trunc).  The
 // tensor core truncates the sums it carries, so a long sum is never left to
-// it: each 64-row or 64-key tile's products start from zeroed accumulators,
-// which are then added to an f32 register sum (kFoldTiles), so the tensor
-// core chains at most 8 k-steps of a sum over the long axis.  s, dp, p and
+// it: at dh = 32 each 64-row or 64-key tile's products start from zeroed
+// accumulators, which are then added to an f32 register sum (kFoldTiles), so
+// the tensor core chains at most 8 k-steps of a sum over the long axis; at dh
+// = 64, where a tile's dq, dk and dv accumulators do not fit beside the
+// rest, every 32 keys (rows kernel) or 16 rows (keys kernel), in two halves
+// of 32 columns (tf32::product_fold64).  s, dp, p and
 // ds stay in the accumulator fragments; p and ds become A fragments of the
 // next product without a shuffle (mma::split_accum: a k index is only a
 // position in the sum), B read from the tiles by ldmatrix (s, dp) or by
 // 32-bit loads at each lane's precomputed offsets (dq, dk, dv).  exp is the
-// library's expf.  At CMTA's chains one side is thin (128 landmark rows or
-// keys: 128 blocks of 64 on 132 SMs), so its long axis is cut into segments
-// (tf32::segments, about 1024 blocks a launch): the rows kernel then runs
-// twice, statistics per key segment ((lse, delta) of the segment), then
+// library's expf.  At the Nystrom chains one side is thin (128 or 256
+// landmark rows or keys: 128 or 256 blocks of 64 on 132 SMs; at dh = 64 also
+// the deformable attention's 144 or 256 keys), so its long axis is cut into
+// segments (tf32::segments, about 1024 blocks a launch): the rows kernel then
+// runs twice, statistics per key segment ((lse, delta) of the segment), then
 // gradients per segment after merging the segments' statistics by the max and
 // sum rule in segment order; the keys kernel writes dk and dv per row
 // segment; the partial sums go to an f32 scratch (deform_attn_bwd_work) and
@@ -123,8 +134,8 @@
 //                          keep_prob, inv_keep, seed, device, stream)
 //          -> cudaGetLastError().
 // dtype: 0 = float, 1 = bfloat16 for q, k, v, dout, dq, dk and dv (lse and
-// delta: f32 scratch of (BG, N); work: f32 scratch of deform_attn_bwd_work(BG,
-// N, J, DH) floats, null when that is 0); bias_dtype the same codes for bias and
+// delta: f32 scratch of (BG, N); work: f32 scratch of deform_attn_bwd_work(dtype,
+// BG, N, J, DH) floats, null when that is 0); bias_dtype the same codes for bias and
 // dbias: dtype's, or 0 with dtype 1 in the form without span and dropout (the
 // 1-D deformable attention's f32 bias; any other pair is
 // cudaErrorInvalidValue).  bias / dbias and span may be null.  DH is 64, or 32
@@ -143,303 +154,6 @@
 #include "attn_tf32.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
-
-namespace {
-
-using namespace attn;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;     // rows kernel: query rows per block
-constexpr int kKeys = 16;     // keys kernel: keys per block (4 Philox groups)
-constexpr int kChunk = 64;    // keys kernel: query rows per shared-memory chunk
-constexpr int kQLd = 68;      // padded f32 row of the q / dout chunks (16-byte aligned)
-constexpr int kKLd = 65;      // padded f32 row of the key tile
-
-template <typename T, int DH>
-constexpr size_t rows_smem_bytes() {
-  return (size_t)(2 * kRows + 2 * kTile) * row_stride<T>(DH) * sizeof(T)  // q, dout, K, V
-         + 2 * (size_t)kWarps * kTile * sizeof(float)                     // ds, multipliers
-         + (size_t)kRows * (DH + 3) * sizeof(float);                      // dq, max, sum, delta
-}
-
-template <typename T, int DH, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ bias,
-                     const int* __restrict__ span, const T* __restrict__ dout,
-                     T* __restrict__ dq, T* __restrict__ dbias, float* __restrict__ lse,
-                     float* __restrict__ delta, int N, int J, float keep_prob,
-                     float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64, "each lane owns DH / 32 = 2 columns of dq");
-  constexpr int LD = row_stride<T>(DH);
-  constexpr int NT = kTile / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_q = reinterpret_cast<T*>(smem_raw);
-  T* s_do = s_q + kRows * LD;
-  T* s_k = s_do + kRows * LD;
-  T* s_v = s_k + kTile * LD;
-  float* s_d = reinterpret_cast<float*>(s_v + kTile * LD);  // [kWarps][kTile] ds
-  float* s_mult = s_d + kWarps * kTile;                      // [kWarps][kTile]
-  float* s_acc = s_mult + kWarps * kTile;                    // [kRows][DH] dq
-  float* s_m = s_acc + kRows * DH;   // [kRows] running max, then lse
-  float* s_l = s_m + kRows;          // [kRows] running sum
-  float* s_dl = s_l + kRows;         // [kRows] running sum of e * dp, then delta
-
-  const int bg = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, N - row0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
-  stage_rows<T, DH>(q + ((size_t)bg * N + row0) * DH, s_q, rows);
-  stage_rows<T, DH>(dout + ((size_t)bg * N + row0) * DH, s_do, rows);
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) s_acc[i] = 0.f;
-  if (threadIdx.x < kRows) {
-    s_m[threadIdx.x] = -INFINITY;
-    s_l[threadIdx.x] = 0.f;
-    s_dl[threadIdx.x] = 0.f;
-  }
-  const T* kg = k + (size_t)bg * J * DH;
-  const T* vg = v + (size_t)bg * J * DH;
-  float* d = s_d + warp * kTile;
-  float* mult = s_mult + warp * kTile;
-
-  // the masked scores s[t] and dp[t] = (dout . v_j) * m of keys j0 + lane + 32 t
-  auto scores = [&](int r, int row, bool uniform, int j0, int nt, float (&s)[NT],
-                    float (&dp)[NT]) {
-    if (DROP) drop_mult_tile(mult, seed, j0, J, row, bg, keep_prob, inv_keep, lane);
-    dot_keys<T, DH>(s_q + r * LD, s_k, lane, nt, s);
-    dot_keys<T, DH>(s_do + r * LD, s_v, lane, nt, dp);
-    if (DROP) __syncwarp();  // lanes read multipliers that other lanes drew
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = j0 + lane + 32 * t;
-      if (t < nt && j < J) {
-        if (HAS_BIAS) s[t] += to_f32(bias[((size_t)bg * N + row) * J + j]);
-        s[t] = mask_score<HAS_SPAN>(s[t], mask, uniform, j);
-        if (DROP) dp[t] *= mult[lane + 32 * t];
-      } else {
-        s[t] = -INFINITY;
-        dp[t] = 0.f;
-      }
-    }
-  };
-
-  // pass 1: each row's lse and delta
-  for (int j0 = 0; j0 < J; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (first: q, dout, the state)
-    stage_kv_tile<T, DH>(kg, vg, s_k, s_v, j0, J);
-    __syncthreads();
-    const int nt = (min(kTile, J - j0) + 31) / 32;
-    for (int r = warp; r < rows; r += kWarps) {
-      const int row = row0 + r;
-      const bool uniform = HAS_SPAN && mask.uniform(row);
-      float s[NT], dp[NT];
-      scores(r, row, uniform, j0, nt, s, dp);
-      float tmax = s[0];
-#pragma unroll
-      for (int t = 1; t < NT; ++t) tmax = fmaxf(tmax, s[t]);
-      tmax = warp_max(tmax);
-      const float m_old = s_m[r];
-      const float m_new = fmaxf(m_old, tmax);
-      const float scale = expf(m_old - m_new);
-      float es = 0.f, des = 0.f;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const float e = expf(s[t] - m_new);
-        es += e;
-        des = fmaf(e, dp[t], des);
-      }
-      es = warp_sum(es);
-      des = warp_sum(des);
-      __syncwarp();  // every lane has read s_m[r] and the multipliers
-      if (lane == 0) {
-        s_m[r] = m_new;
-        s_l[r] = s_l[r] * scale + es;
-        s_dl[r] = s_dl[r] * scale + des;
-      }
-      __syncwarp();
-    }
-  }
-  for (int r = warp; r < rows; r += kWarps) {
-    if (lane == 0) {
-      const size_t row = (size_t)bg * N + row0 + r;
-      const float l = s_l[r];
-      s_m[r] = lse[row] = s_m[r] + logf(l);
-      s_dl[r] = delta[row] = s_dl[r] / l;
-    }
-  }
-
-  // pass 2: ds, dbias and dq
-  for (int j0 = 0; j0 < J; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (first: lse and delta are set)
-    stage_kv_tile<T, DH>(kg, vg, s_k, s_v, j0, J);
-    __syncthreads();
-    const int len = min(kTile, J - j0);
-    const int nt = (len + 31) / 32;
-    for (int r = warp; r < rows; r += kWarps) {
-      const int row = row0 + r;
-      const bool uniform = HAS_SPAN && mask.uniform(row);
-      float s[NT], dp[NT];
-      scores(r, row, uniform, j0, nt, s, dp);
-      const float lse_r = s_m[r], delta_r = s_dl[r];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int j = j0 + lane + 32 * t;
-        if (t < nt) {
-          float ds = 0.f;
-          if (j < J && pair_valid<HAS_SPAN>(mask, uniform, j))
-            ds = expf(s[t] - lse_r) * (dp[t] - delta_r);
-          if (HAS_BIAS && j < J) store1(dbias + ((size_t)bg * N + row) * J + j, ds);
-          d[lane + 32 * t] = round_to(ds, T());
-        }
-      }
-      __syncwarp();  // d is written
-
-      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
-      float2 a = *acc;
-      const T* kcol = s_k + 2 * lane;
-#pragma unroll 4
-      for (int jj = 0; jj < len; ++jj) {
-        const float dj = d[jj];
-        const float2 kk = load2(kcol + jj * LD);
-        a.x = fmaf(dj, kk.x, a.x);
-        a.y = fmaf(dj, kk.y, a.y);
-      }
-      *acc = a;
-      __syncwarp();  // the next row rewrites d and the multipliers
-    }
-  }
-  for (int r = warp; r < rows; r += kWarps)
-    store2(dq + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
-           reinterpret_cast<const float2*>(s_acc + r * DH)[lane]);
-}
-
-struct KeysSmem {
-  float k[kKeys][kKLd];
-  float v[kKeys][kKLd];
-  __align__(16) float q[kChunk][kQLd];
-  __align__(16) float dout[kChunk][kQLd];
-  float pd[kChunk][kKeys];
-  float ds[kChunk][kKeys];
-  float lse[kChunk];
-  float delta[kChunk];
-};
-
-template <typename T, int DH, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ bias,
-                     const int* __restrict__ span, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int N, int J,
-                     float keep_prob, float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64 && kKeys * DH == 4 * kThreads, "4 dk and 4 dv per thread");
-  static_assert(kChunk * (kKeys / 4) == kThreads, "one thread per (row, key group)");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  KeysSmem& sm = *reinterpret_cast<KeysSmem*>(smem_raw);
-
-  const int bg = blockIdx.y;
-  const int j0 = blockIdx.x * kKeys;
-  const int t = threadIdx.x;
-  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
-  const T* qg = q + (size_t)bg * N * DH;
-  const T* dog = dout + (size_t)bg * N * DH;
-  for (int i = t; i < kKeys * DH; i += kThreads) {
-    const int jl = i / DH, c = i - jl * DH;
-    const bool ok = j0 + jl < J;
-    const size_t at = ((size_t)bg * J + j0 + jl) * DH + c;
-    sm.k[jl][c] = ok ? to_f32(k[at]) : 0.f;
-    sm.v[jl][c] = ok ? to_f32(v[at]) : 0.f;
-  }
-
-  const int pr = t >> 2;            // pair phase: chunk row
-  const int grp = t & 3;            //             key group (4 keys)
-  const int kl = t >> 4;            // sum phase:  key
-  const int c4 = (t & 15) * 4;      //             4 columns
-  float dk_acc[4] = {0.f, 0.f, 0.f, 0.f}, dv_acc[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int r0 = 0; r0 < N; r0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed (and the keys are staged)
-    for (int i = t; i < kChunk * DH; i += kThreads) {
-      const int rr = i / DH, c = i - rr * DH;
-      const bool ok = r0 + rr < N;
-      sm.q[rr][c] = ok ? to_f32(qg[(size_t)(r0 + rr) * DH + c]) : 0.f;
-      sm.dout[rr][c] = ok ? to_f32(dog[(size_t)(r0 + rr) * DH + c]) : 0.f;
-    }
-    if (t < kChunk) {
-      const bool ok = r0 + t < N;
-      sm.lse[t] = ok ? lse[(size_t)bg * N + r0 + t] : 0.f;
-      sm.delta[t] = ok ? delta[(size_t)bg * N + r0 + t] : 0.f;
-    }
-    __syncthreads();
-
-    {
-      const int row = r0 + pr;
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int c = 0; c < DH; ++c) {
-        const float qv = sm.q[pr][c], ov = sm.dout[pr][c];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          s[jj] = fmaf(qv, sm.k[4 * grp + jj][c], s[jj]);
-          dp[jj] = fmaf(ov, sm.v[4 * grp + jj][c], dp[jj]);
-        }
-      }
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROP) bits = philox::bits4(seed, (j0 >> 2) + grp, row, bg);
-      const bool uniform = HAS_SPAN && mask.uniform(row);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int jl = 4 * grp + jj;
-        const int j = j0 + jl;
-        float pd = 0.f, ds = 0.f;
-        if (row < N && j < J) {
-          float sv = s[jj];
-          if (HAS_BIAS) sv += to_f32(bias[((size_t)bg * N + row) * J + j]);
-          sv = mask_score<HAS_SPAN>(sv, mask, uniform, j);
-          const float pj = expf(sv - sm.lse[pr]);
-          const float m = DROP ? (philox::keep(philox::word(bits, jj), keep_prob)
-                                      ? inv_keep : 0.f)
-                               : 1.f;
-          pd = round_to(pj * m, T());
-          if (pair_valid<HAS_SPAN>(mask, uniform, j))
-            ds = round_to(pj * (dp[jj] * m - sm.delta[pr]), T());
-        }
-        sm.pd[pr][jl] = pd;
-        sm.ds[pr][jl] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float ds = sm.ds[rr][kl], pd = sm.pd[rr][kl];
-      const float4 qv = *reinterpret_cast<const float4*>(&sm.q[rr][c4]);
-      const float4 ov = *reinterpret_cast<const float4*>(&sm.dout[rr][c4]);
-      dk_acc[0] = fmaf(ds, qv.x, dk_acc[0]);
-      dk_acc[1] = fmaf(ds, qv.y, dk_acc[1]);
-      dk_acc[2] = fmaf(ds, qv.z, dk_acc[2]);
-      dk_acc[3] = fmaf(ds, qv.w, dk_acc[3]);
-      dv_acc[0] = fmaf(pd, ov.x, dv_acc[0]);
-      dv_acc[1] = fmaf(pd, ov.y, dv_acc[1]);
-      dv_acc[2] = fmaf(pd, ov.z, dv_acc[2]);
-      dv_acc[3] = fmaf(pd, ov.w, dv_acc[3]);
-    }
-  }
-  const int j = j0 + kl;
-  if (j < J) {
-    const size_t at = ((size_t)bg * J + j) * DH + c4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      store1(dk + at + e, dk_acc[e]);
-      store1(dv + at + e, dv_acc[e]);
-    }
-  }
-}
-
-}  // namespace
 
 // ---- bf16: the tensor-core kernels (shared pieces: attn_tc.cuh) -------------
 
@@ -697,23 +411,9 @@ attn_bwd_keys_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma::mma_bf16(dpt[1], va[ks], b[2], b[3]);
       }
       // st[i][2h + w]: key key[h], row r0 + rs + 8 i + col + w; -> p m and ds.
-      // The lanes lane ^ (s << 2), s < 4, hold the same rows and the same
-      // 4-key Philox groups, one word c = (lane >> 2) & 3 of each: each lane
-      // draws its two groups for one row, e = c (e = 2 i + w), and the four
-      // pass the keep bits round; bit 4 h + e of kept is key[h], row e.
-      uint32_t kept = 0u;
-      if (DROP) {
-        const int c = (lane >> 2) & 3;
-        const int r = r0 + rs + 8 * (c >> 1) + col + (c & 1);
-        const uint32_t own =
-            philox::keep4(philox::bits4(seed, key[0] >> 2, r, bg), keep_prob) |
-            philox::keep4(philox::bits4(seed, key[1] >> 2, r, bg), keep_prob) << 4;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const uint32_t from = s ? __shfl_xor_sync(kFull, own, s << 2) : own;
-          kept |= ((from >> c) & 0x11u) << (c ^ s);
-        }
-      }
+      // Bit 4 h + 2 i + w of kept: that pair's keep decision (keys_keep_bits).
+      const uint32_t kept =
+          DROP ? keys_keep_bits(seed, key, r0 + rs, col, bg, keep_prob, lane) : 0u;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -987,15 +687,315 @@ attn_bwd_keys_tf32(const float* __restrict__ q, const float* __restrict__ k,
   store_rows(dv_out + seg * seg_stride + (size_t)bg * J * kDH, dv_sum, kw0, J, lane);
 }
 
-// The scratch of a dh = 32 launch, in floats: the rows kernel's (lse, delta)
-// and dq partials when it cuts the keys into segments, and the keys kernel's
-// dk and dv partials when it cuts the rows.
+// ---- f32 dh = 64: every form, on the tf32 tensor cores ----------------------
+//
+// Rows kernel: block (row tile, bg, key segment), warp w owns rows row0 + 16 w
+// .. + 15 of the block's q and dout tiles (staged once), lane (g, t) the rows
+// g and g + 8 and, in each n8 tile of keys, the columns 2t and 2t + 1.  K and
+// V stream through a two-stage cp.async ring of swizzled 64-key tiles,
+// walked per 32-key half:
+//   s = mask(q k^T + bias), dp = (dout v^T) * m     (the lane's bias pairs
+//       loaded from device memory before the products; the span mask and
+//       the bf16 rows kernel's drop_pair on the m16n8k8 accumulators)
+//   STATS: fold s (and dp) into each row's running max, sum of exp and sum of
+//     exp * dp; with GRAD (one segment) fold them into lse and delta and walk
+//     the keys again; alone, write the segment's (lse, delta) to part.
+//   GRAD: (alone: merge the segments' (lse, delta) from part, in segment
+//     order; segment 0 writes lse and delta) ds = p (dp - delta) for each
+//     valid pair (p = exp(s - lse)), stored as dbias, then dq += ds k, per
+//     32-key half on zeroed accumulators folded into an f32 register sum; dq
+//     to dq_out + seg * seg_stride.
+// Both dh = 64 kernels are bounded for two blocks an SM, which their shared
+// memory allows: without the minimum, ptxas holds some instantiations to
+// fewer registers and spills (PERF.md; profile_attn_bwd.py --variant
+// oneblock64).
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, bool STATS, bool GRAD>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_bwd_rows_tf32_64(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const int* __restrict__ span, const float* __restrict__ dout,
+                      float* __restrict__ dq_out, size_t seg_stride, float* __restrict__ dbias,
+                      float* __restrict__ lse, float* __restrict__ delta,
+                      float2* __restrict__ part, int N, int J, int seg_tiles, float keep_prob,
+                      float inv_keep, unsigned long long seed) {
+  static_assert(STATS || GRAD, "a pass to run");
+  extern __shared__ __align__(128) float smem64[];
+  float* s_kv = smem64;                    // [stage][K, V][kTile64]
+  float* s_q = smem64 + 4 * kTile64;       // the block's q, then dout
+  const float* s_do = s_q + kTile64;
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kBlock, wrow0 = row0 + warp * 16;
+  const int row[2] = {wrow0 + (lane >> 2), wrow0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile; element 1 is next
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (J + kBlock - 1) / kBlock - t0);
+  constexpr int kPasses = (STATS ? 1 : 0) + (GRAD ? 1 : 0);
+  const attn::SpanMask mask = attn::load_span<HAS_SPAN>(span, bg, J);
+  const bool uniform[2] = {HAS_SPAN && mask.uniform(row[0]), HAS_SPAN && mask.uniform(row[1])};
+  const bool in_bag[2] = {row[0] < N, row[1] < N};
+  const float* kg = k + (size_t)bg * J * kDH64;
+  const float* vg = v + (size_t)bg * J * kDH64;
+  // the lane's two rows of the bias and dbias (a row past the bag: never read)
+  const size_t brow[2] = {((size_t)bg * N + (in_bag[0] ? row[0] : 0)) * J,
+                          ((size_t)bg * N + (in_bag[1] ? row[1] : 0)) * J};
+  const bool even = !(J & 1);
+  stage_pair64(q + (size_t)bg * N * kDH64, dout + (size_t)bg * N * kDH64, s_q, s_q + kTile64,
+               row0, N);
+  auto stage = [&](int it) {
+    const int buf = it & 1, j0 = (t0 + it % nt) * kBlock;
+    stage_pair64(kg, vg, s_kv + 2 * buf * kTile64, s_kv + (2 * buf + 1) * kTile64, j0, J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  const Offsets64 off(lane, warp);
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if (!STATS) {
+    merge_segments<true>(part, N, row, lse_r, delta_r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (seg == 0 && col == 0 && in_bag[h]) {
+        lse[(size_t)bg * N + row[h]] = lse_r[h];
+        delta[(size_t)bg * N + row[h]] = delta_r[h];
+      }
+  }
+  tc::RowStats st;
+  float dq_sum[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_sum[n][e] = 0.f;
+
+  for (int it = 0; it < kPasses * nt; ++it) {
+    if (it + 1 < kPasses * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool grad = GRAD && (!STATS || it >= nt);
+    if (STATS && GRAD && it == nt) {
+      tc::stats_fold<true, true>(st, lse_r, delta_r);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (col == 0 && in_bag[h]) {
+          lse[(size_t)bg * N + row[h]] = lse_r[h];
+          delta[(size_t)bg * N + row[h]] = delta_r[h];
+        }
+    }
+    const int buf = it & 1, j0 = (t0 + it % nt) * kBlock;
+    const float* sk = s_kv + 2 * buf * kTile64;
+    const float* sv = sk + kTile64;
+    // the 32-key halves that hold a key (a half past J adds only zeros), for
+    // a warp that holds a row (rows past N are never stored): the last tile
+    // of J = 144 holds 16 keys (PERF.md; --variant allhalves64)
+    const int c_end = wrow0 < N ? min(kBlock, J - j0) : 0;
+#pragma unroll 1
+    for (int c0 = 0; c0 < c_end; c0 += 32) {
+      // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      float2 b[4][2];
+      if (HAS_BIAS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            b[i][h] = in_bag[h] ? load_pair64(bias + brow[h], j0 + c0 + 8 * i + col, J, even)
+                                : make_float2(0.f, 0.f);
+      }
+      float s[4][4], dp[4][4];
+      product_nt64<4>(s_q, sk, c0, off, s);
+      product_nt64<4>(s_do, sv, c0, off, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, j = j0 + c0 + 8 * i + col + (e & 1);
+          float& x = s[i][e];
+          if (HAS_BIAS) x += (e & 1) ? b[i][h].y : b[i][h].x;
+          x = j < J ? attn::mask_score<HAS_SPAN>(x, mask, uniform[h], j) : attn::kNegMax;
+        }
+      if (DROP) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 m = tc::drop_pair(seed, j0 + c0 + 8 * i + col, row[h], bg, keep_prob,
+                                           inv_keep);
+            dp[i][2 * h] *= m.x;
+            dp[i][2 * h + 1] *= m.y;
+          }
+      }
+      if (!grad) {
+        tc::stats_update<true, true>(st, s, dp);
+        continue;
+      }
+      // ds (in s; stored as dbias), then dq += ds k
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + c0 + 8 * i + col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            float& x = s[i][2 * h + w];
+            x = j + w < J && attn::pair_valid<HAS_SPAN>(mask, uniform[h], j + w)
+                    ? expf(x - lse_r[h]) * (dp[i][2 * h + w] - delta_r[h])
+                    : 0.f;
+          }
+          if (HAS_BIAS && in_bag[h])
+            store_pair64(dbias + brow[h], j, J, even, s[i][2 * h], s[i][2 * h + 1]);
+        }
+      }
+      product_fold64<4>(dq_sum, s, sk, c0, off);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  if (STATS && !GRAD) {
+    tc::stats_fold<true, true>(st, lse_r, delta_r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && in_bag[h])
+        part[((size_t)seg * gridDim.y + bg) * N + row[h]] = make_float2(lse_r[h], delta_r[h]);
+  }
+  if (GRAD)
+    store_rows64(dq_out + seg * seg_stride + (size_t)bg * N * kDH64, dq_sum, wrow0, N, lane);
+}
+
+// Keys kernel: block (key tile, bg, row segment), warp w owns keys key0 + 16 w
+// .. + 15 of the block's k and v tiles (staged once) as the rows of its
+// products (s^T = k q^T, dp^T = v dout^T), lane (g, t) the keys g and g + 8
+// and, in each n8 tile of query rows, the rows 2t and 2t + 1.  q, dout, lse
+// and delta stream in 64-row tiles through a two-stage ring, each tile in
+// four 16-row steps: p = exp(mask(s + bias) - lse) (the lane's bias elements
+// loaded from device memory before the products), m, ds = p (dp m - delta),
+// then dv += (p m)^T dout and dk += ds^T q, each on zeroed accumulators
+// folded into an f32 register sum, over the segment's rows in row order,
+// written to dk_out / dv_out + seg * seg_stride.
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_bwd_keys_tf32_64(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ bias,
+                      const int* __restrict__ span, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk_out, float* __restrict__ dv_out, size_t seg_stride,
+                      int N, int J, int seg_tiles, float keep_prob, float inv_keep,
+                      unsigned long long seed) {
+  extern __shared__ __align__(128) float smem64[];
+  float* s_qo = smem64;                 // [stage][q, dout][kTile64]
+  float* s_k = smem64 + 4 * kTile64;    // the block's k, then v
+  const float* s_v = s_k + kTile64;
+  float* s_ld = s_k + 2 * kTile64;      // [stage][lse, delta][kBlock]
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key_blk = blockIdx.x * kBlock, kw0 = key_blk + warp * 16;
+  const int key[2] = {kw0 + (lane >> 2), kw0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile of rows; element 1 is next
+  const attn::SpanMask mask = attn::load_span<HAS_SPAN>(span, bg, J);
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (N + kBlock - 1) / kBlock - t0);
+  const float* qg = q + (size_t)bg * N * kDH64;
+  const float* dog = dout + (size_t)bg * N * kDH64;
+  const float* bias_bg = HAS_BIAS ? bias + (size_t)bg * N * J : nullptr;
+  stage_pair64(k + (size_t)bg * J * kDH64, v + (size_t)bg * J * kDH64, s_k, s_k + kTile64,
+               key_blk, J);
+  auto stage = [&](int it) {
+    const int r0 = (t0 + it) * kBlock, buf = it & 1;
+    stage_pair64(qg, dog, s_qo + 2 * buf * kTile64, s_qo + (2 * buf + 1) * kTile64, r0, N);
+    mma::cp_async_commit();
+    static_assert(kThreads == 2 * kBlock, "one thread per lse and per delta of a tile");
+    const int tr = threadIdx.x & (kBlock - 1), which = threadIdx.x >> 6;
+    const float* src = which ? delta : lse;
+    s_ld[(2 * buf + which) * kBlock + tr] = r0 + tr < N ? src[(size_t)bg * N + r0 + tr] : 0.f;
+  };
+  stage(0);
+
+  const Offsets64 off(lane, warp);
+  float dk_sum[8][4], dv_sum[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_sum[n][e] = dv_sum[n][e] = 0.f;
+
+  for (int it = 0; it < nt; ++it) {
+    if (it + 1 < nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int r0 = (t0 + it) * kBlock, buf = it & 1;
+    const float* sq = s_qo + 2 * buf * kTile64;
+    const float* sdo = sq + kTile64;
+    const float* slse = s_ld + 2 * buf * kBlock;
+    const float* sdl = slse + kBlock;
+    // every 16-row step, also past N or for a warp past J: skipping them (a
+    // runtime trip count) slowed the Nystrom chains (PERF.md; --variant
+    // skiprows64)
+#pragma unroll 1
+    for (int rs = 0; rs < kBlock; rs += 16) {
+      // st[i][2h + w], dpt[i][2h + w]: key key[h], row r0 + rs + 8 i + col + w
+      float b[2][4];
+      if (HAS_BIAS) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + rs + 8 * i + col + (e & 1), j = key[e >> 1];
+            b[i][e] = r < N && j < J ? bias_bg[(size_t)r * J + j] : 0.f;
+          }
+      }
+      float st[2][4], dpt[2][4];
+      product_nt64<2>(s_k, sq, rs, off, st);
+      product_nt64<2>(s_v, sdo, rs, off, dpt);
+      // -> p m (in st), ds (in dpt); bit 4 h + 2 i + w of kept: that pair's keep
+      const uint32_t kept =
+          DROP ? tc::keys_keep_bits(seed, key, r0 + rs, col, bg, keep_prob, lane) : 0u;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const int rl = rs + 8 * i + col + w;
+          const int r = r0 + rl;
+          const bool uni = HAS_SPAN && mask.uniform(r);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = key[h];
+            float pd = 0.f, ds = 0.f;
+            if (r < N && j < J) {
+              float x = st[i][2 * h + w];
+              if (HAS_BIAS) x += b[i][2 * h + w];
+              const float p = expf(attn::mask_score<HAS_SPAN>(x, mask, uni, j) - slse[rl]);
+              const float m =
+                  !DROP ? 1.f : ((kept >> (4 * h + 2 * i + w)) & 1u ? inv_keep : 0.f);
+              pd = p * m;
+              if (attn::pair_valid<HAS_SPAN>(mask, uni, j))
+                ds = p * (dpt[i][2 * h + w] * m - sdl[rl]);
+            }
+            st[i][2 * h + w] = pd;
+            dpt[i][2 * h + w] = ds;
+          }
+        }
+      product_fold64<2>(dv_sum, st, sdo, rs, off);
+      product_fold64<2>(dk_sum, dpt, sq, rs, off);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  store_rows64(dk_out + seg * seg_stride + (size_t)bg * J * kDH64, dk_sum, kw0, J, lane);
+  store_rows64(dv_out + seg * seg_stride + (size_t)bg * J * kDH64, dv_sum, kw0, J, lane);
+}
+
+// The scratch of an f32 launch (dh = 32 or 64), in floats: the rows kernel's
+// (lse, delta) and dq partials when it cuts the keys into segments, and the
+// keys kernel's dk and dv partials when it cuts the rows.
 struct Work {
   int rows_seg, rows_per, keys_seg, keys_per;
   size_t stats, dq, kv, total;  // offsets and size, in floats
 };
 
-inline Work work_of(int BG, int N, int J) {
+inline Work work_of(int BG, int N, int J, int DH) {
   Work w{};
   const int nti = (N + kBlock - 1) / kBlock, ntj = (J + kBlock - 1) / kBlock;
   w.rows_seg = segments(nti * BG, ntj, w.rows_per);
@@ -1003,8 +1003,8 @@ inline Work work_of(int BG, int N, int J) {
   const size_t rows = (size_t)BG * N, keys = (size_t)BG * J;
   w.stats = 0;
   w.dq = w.rows_seg > 1 ? (2 * w.rows_seg * rows + 3) / 4 * 4 : 0;
-  w.kv = w.dq + (w.rows_seg > 1 ? (size_t)w.rows_seg * rows * kDH : 0);
-  w.total = w.kv + (w.keys_seg > 1 ? (size_t)w.keys_seg * 2 * keys * kDH : 0);
+  w.kv = w.dq + (w.rows_seg > 1 ? (size_t)w.rows_seg * rows * DH : 0);
+  w.total = w.kv + (w.keys_seg > 1 ? (size_t)w.keys_seg * 2 * keys * DH : 0);
   return w;
 }
 
@@ -1065,13 +1065,33 @@ cudaError_t max_shared(K kernel) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// max_shared, and `bytes` of dynamic shared memory allowed
+template <typename K>
+cudaError_t dyn_shared(K kernel, int bytes) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err != cudaSuccess ? err : max_shared(kernel);
+}
+
+// out0 (and out1, n_out 2) = the sums in segment order of S segments' partial
+// sums of n floats each (tf32::attn_bwd_combine)
+cudaError_t combine(const Args& a, const float* part_sums, int S, size_t n, int n_out,
+                    float* out0, float* out1) {
+  const size_t total = n / 4 * n_out;
+  const unsigned blocks = (unsigned)std::min<size_t>((total + 255) / 256, 8 * 132);
+  tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(part_sums), S, n / 4, n_out,
+      reinterpret_cast<float4*>(out0), reinterpret_cast<float4*>(out1));
+  return cudaGetLastError();
+}
+
 // The f32 dh = 32 form on the tf32 tensor cores: rows kernel (one launch, or
 // statistics then gradients over key segments), keys kernel, then the sums
 // of the segments' partials.
 cudaError_t launch_tf32(const Args& a) {
   using tf32::kBlock;
   using tf32::kDH;
-  using tf32::kThreads;  // not the CUDA-core twins' 256
+  using tf32::kThreads;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
@@ -1079,7 +1099,7 @@ cudaError_t launch_tf32(const Args& a) {
   float* dq = static_cast<float*>(a.dq);
   float* dk = static_cast<float*>(a.dk);
   float* dv = static_cast<float*>(a.dv);
-  const tf32::Work w = tf32::work_of(a.BG, a.N, a.J);
+  const tf32::Work w = tf32::work_of(a.BG, a.N, a.J, kDH);
   if (w.total && a.work == nullptr) return cudaErrorInvalidValue;
   const size_t rows = (size_t)a.BG * a.N * kDH, keys = (size_t)a.BG * a.J * kDH;
   const dim3 rows_grid((a.N + kBlock - 1) / kBlock, a.BG, w.rows_seg);
@@ -1109,53 +1129,80 @@ cudaError_t launch_tf32(const Args& a) {
       q, k, v, dout, a.lse, a.delta, keys_part ? a.work + w.kv : dk,
       keys_part ? a.work + w.kv + keys : dv, keys_part ? 2 * keys : 0, a.N, a.J, w.keys_per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto combine = [&](const float* part_sums, int S, size_t n, int n_out, float* out0,
-                     float* out1) {
-    const size_t total = n / 4 * n_out;
-    const unsigned blocks = (unsigned)std::min<size_t>((total + 255) / 256, 8 * 132);
-    tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
-        reinterpret_cast<const float4*>(part_sums), S, n / 4, n_out,
-        reinterpret_cast<float4*>(out0), reinterpret_cast<float4*>(out1));
-    return cudaGetLastError();
-  };
-  if (w.rows_seg > 1 && (err = combine(a.work + w.dq, w.rows_seg, rows, 1, dq, nullptr)) !=
-                            cudaSuccess)
+  if (w.rows_seg > 1 &&
+      (err = combine(a, a.work + w.dq, w.rows_seg, rows, 1, dq, nullptr)) != cudaSuccess)
     return err;
-  if (keys_part) return combine(a.work + w.kv, w.keys_seg, keys, 2, dk, dv);
+  if (keys_part) return combine(a, a.work + w.kv, w.keys_seg, keys, 2, dk, dv);
   return cudaSuccess;
 }
 
-// bf16 to the tensor-core kernels, f32 at dh 64 to the CUDA-core twins
+// The f32 dh = 64 forms on the tf32 tensor cores: as launch_tf32, with the
+// bias (and dbias), the span and dropout
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch_tf32_64(const Args& a) {
+  using tf32::kBlock;
+  using tf32::kDH64;
+  using tf32::kThreads;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* bias = static_cast<const float*>(a.bias);
+  const float* dout = static_cast<const float*>(a.dout);
+  float* dq = static_cast<float*>(a.dq);
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
+  float* dbias = static_cast<float*>(a.dbias);
+  const tf32::Work w = tf32::work_of(a.BG, a.N, a.J, kDH64);
+  if (w.total && a.work == nullptr) return cudaErrorInvalidValue;
+  const size_t rows = (size_t)a.BG * a.N * kDH64, keys = (size_t)a.BG * a.J * kDH64;
+  const dim3 rows_grid((a.N + kBlock - 1) / kBlock, a.BG, w.rows_seg);
+  const dim3 keys_grid((a.J + kBlock - 1) / kBlock, a.BG, w.keys_seg);
+  float2* part = reinterpret_cast<float2*>(a.work + w.stats);
+  constexpr int rows_smem = tf32::kRowsSmem64, keys_smem = tf32::kKeysSmem64;
+  cudaError_t err;
+  if (w.rows_seg == 1) {
+    auto fused = tf32::attn_bwd_rows_tf32_64<HAS_BIAS, HAS_SPAN, DROP, true, true>;
+    if ((err = dyn_shared(fused, rows_smem)) != cudaSuccess) return err;
+    fused<<<rows_grid, kThreads, rows_smem, a.stream>>>(
+        q, k, v, bias, a.span, dout, dq, 0, dbias, a.lse, a.delta, nullptr, a.N, a.J,
+        w.rows_per, a.keep_prob, a.inv_keep, a.seed);
+  } else {
+    auto stats = tf32::attn_bwd_rows_tf32_64<HAS_BIAS, HAS_SPAN, DROP, true, false>;
+    auto grad = tf32::attn_bwd_rows_tf32_64<HAS_BIAS, HAS_SPAN, DROP, false, true>;
+    if ((err = dyn_shared(stats, rows_smem)) != cudaSuccess ||
+        (err = dyn_shared(grad, rows_smem)) != cudaSuccess)
+      return err;
+    stats<<<rows_grid, kThreads, rows_smem, a.stream>>>(
+        q, k, v, bias, a.span, dout, nullptr, 0, nullptr, a.lse, a.delta, part, a.N, a.J,
+        w.rows_per, a.keep_prob, a.inv_keep, a.seed);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    grad<<<rows_grid, kThreads, rows_smem, a.stream>>>(
+        q, k, v, bias, a.span, dout, a.work + w.dq, rows, dbias, a.lse, a.delta, part, a.N,
+        a.J, w.rows_per, a.keep_prob, a.inv_keep, a.seed);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const bool keys_part = w.keys_seg > 1;
+  auto keys_kernel = tf32::attn_bwd_keys_tf32_64<HAS_BIAS, HAS_SPAN, DROP>;
+  if ((err = dyn_shared(keys_kernel, keys_smem)) != cudaSuccess) return err;
+  keys_kernel<<<keys_grid, kThreads, keys_smem, a.stream>>>(
+      q, k, v, bias, a.span, dout, a.lse, a.delta, keys_part ? a.work + w.kv : dk,
+      keys_part ? a.work + w.kv + keys : dv, keys_part ? 2 * keys : 0, a.N, a.J, w.keys_per,
+      a.keep_prob, a.inv_keep, a.seed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (w.rows_seg > 1 &&
+      (err = combine(a, a.work + w.dq, w.rows_seg, rows, 1, dq, nullptr)) != cudaSuccess)
+    return err;
+  if (keys_part) return combine(a, a.work + w.kv, w.keys_seg, keys, 2, dk, dv);
+  return cudaSuccess;
+}
+
+// bf16 to the tensor-core kernels, f32 at dh 64 to the tf32 ones
 template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
 cudaError_t launch(const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
-  } else {
-    constexpr int DH = 64;
-    const T* q = static_cast<const T*>(a.q);
-    const T* k = static_cast<const T*>(a.k);
-    const T* v = static_cast<const T*>(a.v);
-    const T* bias = static_cast<const T*>(a.bias);
-    const T* dout = static_cast<const T*>(a.dout);
-    constexpr size_t rows_smem = rows_smem_bytes<T, DH>();
-    auto rows = attn_bwd_rows_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-    cudaError_t err = cudaFuncSetAttribute(
-        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(rows_smem));
-    if (err != cudaSuccess) return err;
-    rows<<<dim3((a.N + kRows - 1) / kRows, a.BG), kThreads, rows_smem, a.stream>>>(
-        q, k, v, bias, a.span, dout, static_cast<T*>(a.dq), static_cast<T*>(a.dbias), a.lse,
-        a.delta, a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    auto keys = attn_bwd_keys_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-    err = cudaFuncSetAttribute(keys, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(sizeof(KeysSmem)));
-    if (err != cudaSuccess) return err;
-    keys<<<dim3((a.J + kKeys - 1) / kKeys, a.BG), kThreads, sizeof(KeysSmem), a.stream>>>(
-        q, k, v, bias, a.span, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.N, a.J, a.keep_prob, a.inv_keep, a.seed);
-    return cudaGetLastError();
-  }
+  else
+    return launch_tf32_64<HAS_BIAS, HAS_SPAN, DROP>(a);
 }
 
 template <typename T>
@@ -1199,8 +1246,10 @@ extern "C" int deform_attn_bwd(int dtype, int bias_dtype, const void* q, const v
   return cudaErrorInvalidValue;
 }
 
-// Floats of the scratch the dh = 32 form needs beside lse and delta (0 for
-// every other form, and for shapes whose launches cut no axis).
-extern "C" long long deform_attn_bwd_work(int BG, int N, int J, int DH) {
-  return DH == 32 ? static_cast<long long>(tf32::work_of(BG, N, J).total) : 0;
+// Floats of the scratch an f32 launch (dtype 0, dh 32 or 64) needs beside lse
+// and delta: the partial sums of the segments it cuts a thin side's long axis
+// into (0 for bf16, and for shapes whose launches cut no axis).
+extern "C" long long deform_attn_bwd_work(int dtype, int BG, int N, int J, int DH) {
+  if (dtype != 0 || (DH != 32 && DH != 64)) return 0;
+  return static_cast<long long>(tf32::work_of(BG, N, J, DH).total);
 }

@@ -178,6 +178,16 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// x split as hi + lo in two operations: hi is x truncated to tf32 (its low
+// 13 bits cleared), lo the exact rest x - hi as f32, whose low 13 bits the
+// tensor core does not read (a tf32 operand is a 32-bit register with them
+// ignored), so lo is truncated there: |error| <= 2^-20 |x|, against
+// split_tf32's 2^-22 at five operations.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // big + small += a b as three tf32 products: the small ones first (a_lo b_hi,
 // a_hi b_lo) into small, the big one (a_hi b_hi) into big; the caller adds
 // small to big in f32.  The tensor core truncates the sums it carries: apart,
@@ -209,6 +219,14 @@ __device__ __forceinline__ void split_accum(uint32_t (&ah)[4], uint32_t (&al)[4]
 // distinct banks.
 __device__ __forceinline__ int swz32f(int r, int c) {
   return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// The same for f32 rows of 64 (16 chunks): chunk c / 4 of row r stored at
+// chunk (c / 4) ^ (r % 8), the low three bits of the chunk index swizzled.
+// The 8 rows an ldmatrix phase reads at one chunk, and the lanes (g, t)
+// reading rows 2t (or 2t + 1) at column 8 n + g, fall on distinct banks.
+__device__ __forceinline__ int swz64f(int r, int c) {
+  return r * 64 + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
 }
 
 }  // namespace mma

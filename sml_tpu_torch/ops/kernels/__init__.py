@@ -19,10 +19,12 @@ _FORMS = ((deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropo
           (deform_attention_fwd, "span_launches", "deform_attention_fwd_span"),
           (deform_attention_fwd, "f32bias_launches", "deform_attention_fwd_f32bias"),
           (deform_attention_fwd, "dh32_launches", "deform_attention_fwd_dh32"),
+          (deform_attention_fwd, "f32_launches", "deform_attention_fwd_f32"),
           (deform_attention_bwd, "nobias_launches", "deform_attention_bwd_nobias"),
           (deform_attention_bwd, "span_launches", "deform_attention_bwd_span"),
           (deform_attention_bwd, "f32bias_launches", "deform_attention_bwd_f32bias"),
-          (deform_attention_bwd, "dh32_launches", "deform_attention_bwd_dh32"))
+          (deform_attention_bwd, "dh32_launches", "deform_attention_bwd_dh32"),
+          (deform_attention_bwd, "f32_launches", "deform_attention_bwd_f32"))
 
 
 def reset_launch_counts() -> None:
@@ -35,7 +37,8 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """{wrapper name: launches}, and the attention wrappers' launches by form:
     with dropout, without a bias, with a span, with an f32 bias beside bf16
-    q, k, v, at head dim 32."""
+    q, k, v, at head dim 32, in f32 at head dim 64 (the default compute
+    dtype's form)."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({key: getattr(fn, attr) for fn, attr, key in _FORMS})
     return counts

@@ -51,17 +51,18 @@ every product of both runs on the tensor cores (warp-level ``mma.sync``,
 ``csrc/mma.cuh``), and the forward's first pass is the backward rows kernel's
 own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
 checked bit for bit on the card: the forward returns no lse); the f32
-forms at dh = 64 keep CUDA-core twins (the forward one warp per row with an
-online softmax), the exact-arithmetic reference on the card.  The f32 dh =
-32 forward and backward run on the tf32 tensor cores, each f32 product as
-three tf32 products (3xTF32: operands split into hi + lo), each tile's
-tensor-core sums folded into f32 registers, with one statistics walk
-(``csrc/attn_tf32.cuh``), so the forward's log-sum-exp is the backward's bit
-for bit; where one side of the chain is thin (CMTA's 128 landmarks) the long
-axis is cut into segments whose partial sums go to an f32 scratch that this
-wrapper allocates (``deform_attn_fwd_work`` / ``deform_attn_bwd_work`` give
-its size) and are added in segment order, so the result still repeats bit
-for bit.
+forward at dh = 64 keeps a CUDA-core twin (one warp per row with an online
+softmax).  The f32 dh = 32 forward and the f32 backward at both head dims
+(at dh = 64 in every form: the default compute dtype's) run on the tf32
+tensor cores, each f32 product as three tf32 products (3xTF32: operands
+split into hi + lo), the tensor-core sums folded into f32 registers every
+tile (or, at dh = 64, every 32 keys or 16 rows); at dh = 32 with one
+statistics walk (``csrc/attn_tf32.cuh``), so the forward's log-sum-exp is
+the backward's bit for bit; where one side is thin (the Nystrom chains'
+landmarks, the deformable attention's keys) the long axis is cut into
+segments whose partial sums go to an f32 scratch that this wrapper allocates
+(``deform_attn_fwd_work`` / ``deform_attn_bwd_work`` give its size) and are
+added in segment order, so the result still repeats bit for bit.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -99,7 +100,7 @@ def _library(name: str):
                 [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_bwd.restype = ctypes.c_int
-            lib.deform_attn_bwd_work.argtypes = [ctypes.c_int] * 4
+            lib.deform_attn_bwd_work.argtypes = [ctypes.c_int] * 5
             lib.deform_attn_bwd_work.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
@@ -237,6 +238,8 @@ def _count(fn, q, bias, span, keep_prob) -> None:
         fn.dropout_launches += 1
     if q.shape[-1] == DH32:
         fn.dh32_launches += 1
+    elif q.dtype == torch.float32:
+        fn.f32_launches += 1
 
 
 def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
@@ -321,8 +324,8 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
     dbias = None if bias is None else torch.empty_like(bias)
     stats = torch.empty((2, bg, n), dtype=torch.float32, device=q.device)  # lse, delta
     lib = _library("deform_attn_bwd")
-    # the dh = 32 kernels' partial sums over segments of a long axis
-    n_work = lib.deform_attn_bwd_work(bg, n, j, dh)
+    # the f32 kernels' partial sums over segments of a long axis
+    n_work = lib.deform_attn_bwd_work(_DTYPE_CODE[q.dtype], bg, n, j, dh)
     work = torch.empty(n_work, dtype=torch.float32, device=q.device) if n_work else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
@@ -341,7 +344,7 @@ def deform_attention_bwd(q, k, v, bias, dout, keep_prob=1.0, seed=0, span=None):
 
 for _fn in (deform_attention_fwd, deform_attention_bwd):
     _fn.launches = _fn.nobias_launches = _fn.span_launches = _fn.dropout_launches = 0
-    _fn.f32bias_launches = _fn.dh32_launches = 0
+    _fn.f32bias_launches = _fn.dh32_launches = _fn.f32_launches = 0
 
 
 class DeformAttentionTrainable(torch.autograd.Function):

@@ -491,25 +491,53 @@ def test_cuda_cpb_bias_bwd_matches_plain(dtype, bg, h, w, j):
 # chip_smoke.py's ragged shapes (every residue of J mod 8; N = 100 and N = 65, one row
 # past a 64-row tile)
 RAGGED_SHAPES = [(100, 144), *RAGGED, *RAGGED_BIAS]
+# a Nystrom chain's thin side (256 landmark rows or keys, as TransMIL's): at BG = 4
+# the f32 kernels cut the long side into segments, chain 3 the rows kernel's keys,
+# chain 1 the keys kernel's rows
+CHAIN_SHAPES = [(256, 2560), (2560, 256)]
+BWD_FORMS = ("bias", "nobias", "span", "span_bias")
+BWD_CASES = ([(torch.float32, n, j) for n, j in RAGGED_SHAPES + CHAIN_SHAPES]
+             + [(torch.bfloat16, n, j) for n, j in RAGGED_SHAPES])
+
+
+def _spans(seed, bg, n, j):
+    """(bg, 4) int32 [row_start, row_end, col_start, col_end) intervals, the last
+    bag with no valid row."""
+    rng = np.random.default_rng(seed)
+    r0, c0 = rng.integers(0, n // 2, bg), rng.integers(0, j // 2, bg)
+    span = np.stack([r0, r0 + rng.integers(1, n // 2, bg), c0,
+                     c0 + rng.integers(1, j // 2, bg)], axis=1)
+    span[-1, :2] = n
+    return torch.from_numpy(span.astype(np.int32))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,j", RAGGED_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,n,j", BWD_CASES)
+@pytest.mark.parametrize("form", BWD_FORMS)
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
-def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob, n, j):
+def test_cuda_deform_attention_bwd_matches_plain(dtype, keep_prob, form, n, j):
+    """Every form (bias or none x span or none x dropout or none) in f32 and
+    bf16 at the ragged shapes, and in f32 at the thin-side chains too, where
+    the segments' partial sums meet; a second launch bit for bit."""
     dev = _cuda()
     q, k, v, bias, dout = (torch.from_numpy(a).to(dev, dtype)
                            for a in _attn_inputs(2, 4, n, j))
+    bias = bias if "bias" in form else None
+    span = _spans(n + j, 4, n, j).to(dev) if form.startswith("span") else None
     keep = None if keep_prob == 1.0 else philox_keep_mask(5, 4, n, j, keep_prob,
                                                           device=dev)
-    got = deform_attention_bwd(q, k, v, bias, dout, keep_prob, 5)
+    got = deform_attention_bwd(q, k, v, bias, dout, keep_prob, 5, span)
     torch.cuda.synchronize()
-    want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob)
+    want = deform_attention_bwd_plain(q, k, v, bias, dout, keep, keep_prob, span)
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2,
                                                                          atol=2e-2)
+    assert (got[3] is None) == (bias is None)
     for name, g, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
-        torch.testing.assert_close(g.float(), w_.float(), msg=name, **tol)
+        if w_ is not None:
+            torch.testing.assert_close(g.float(), w_.float(), msg=name, **tol)
+    again = deform_attention_bwd(q, k, v, bias, dout, keep_prob, 5, span)
+    for name, g, g2 in zip(("dq", "dk", "dv", "dbias"), got, again):
+        assert (g is None and g2 is None) or torch.equal(g, g2), name
 
 
 @pytest.mark.cuda
