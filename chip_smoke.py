@@ -7,8 +7,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi) and torch's name for it;
 2. build    nvcc builds of every kernel source, with the compiler's register
-            and spill report of every kernel, the f32 dh = 64 backward's
-            ``attn_bwd_rows_tf32_64`` / ``attn_bwd_keys_tf32_64`` among them
+            and spill report of every kernel, the f32 dh = 64 forward's
+            ``attn_fwd_tf32_64`` and backward's ``attn_bwd_rows_tf32_64`` /
+            ``attn_bwd_keys_tf32_64`` among them
             (a spill fails the run);
 3. ragged   the attention forward and backward in all eight forms, and the
             f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
@@ -35,9 +36,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
             and timed beside the plain version, one PyTorch library call where
             there is one, and the least time the card could take for the same
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
-            every kernel must repeat bit for bit (the f32 backward, on the
-            tf32 tensor cores, also gives its bound at 3xTF32); the bf16
-            forwards' largest
+            every kernel must repeat bit for bit (the f32 attention kernels,
+            on the tf32 tensor cores, also give their bound at 3xTF32; each
+            f32 forward its error against float64 beside the plain
+            version's and its lse, which must equal the backward's bit for
+            bit); the bf16 forwards' largest
             error in bf16 ulps of each element and their share of elements
             equal to the plain version's; then the f32-bias forms at the 1-D
             path's shape (BG = 64, N = 2501, J = 625), dbias at the f32 bound;
@@ -65,7 +68,9 @@ on masked bags):
             (n_pad rows x 256 landmark keys) and chain 3 (256 landmark rows x
             n_pad keys) of 2500- and 4096-patch bags (n_pad 2560 / 4352,
             BG = 64), f32 and bf16, against their plain versions, repeated bit
-            for bit and timed as in phase 4; the spans come from bucketed
+            for bit and timed as in phase 4 (the f32 forwards also against
+            float64 and their lse against the backward's); the spans come
+            from bucketed
             masks, with an all-invalid bag, invalid landmark rows and a column
             start past the first key tile.  (Phase 4 also holds the span form
             with a bias and dropout.)
@@ -516,7 +521,8 @@ def _sdpa_ms(q, k, v, dout, mask, mask_grad: bool = False):
 def phase_kernels() -> dict:
     """Every kernel vs its plain version at the main path's shapes; returns
     the JSON entries of the main shape (S2500, bf16) by name, and the f32
-    backward with dropout there as ``deform_attention_bwd_f32``."""
+    forward and backward with dropout there as ``deform_attention_fwd_f32``
+    and ``deform_attention_bwd_f32``."""
     from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                            cpb_bias_plain, deform_attention_bwd,
                                            deform_attention_bwd_plain,
@@ -576,8 +582,10 @@ def phase_kernels() -> dict:
             out = deform_attention_fwd(q, k, v, fbias)
             torch.cuda.synchronize()
             plain = deform_attention_fwd_plain(q, k, v, fbias)
+            f32 = dtype == torch.float32
             rows.append({"name": "deform_attention_fwd",
                          **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                         **(_f32_fwd_checks(out, plain, q, k, v, dout, fbias) if f32 else {}),
                          "repeats": _repeats(lambda: (deform_attention_fwd(q, k, v, fbias),),
                                              (out,)),
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias)),
@@ -595,6 +603,8 @@ def phase_kernels() -> dict:
             cmp = _compare_fwd(out, plain)
             cmp["kept_share"], cmp["kept_share_sigmas"] = share, (share - KEEP_PROB) / sigma
             cmp["ok"] &= abs(share - KEEP_PROB) < 5 * sigma
+            if f32:
+                cmp.update(_f32_fwd_checks(out, plain, q, k, v, dout, fbias, keep, KEEP_PROB))
             rows.append({"name": "deform_attention_fwd_dropout", **cmp, **_ulps_bf16(out, plain),
                          "repeats": _repeats(lambda: (deform_attention_fwd(
                              q, k, v, fbias, KEEP_PROB, SEED),), (out,)),
@@ -636,6 +646,8 @@ def phase_kernels() -> dict:
             plain = deform_attention_fwd_plain(q, k, v, fbias, keep, KEEP_PROB, span)
             rows.append({"name": "deform_attention_fwd_span_bias_dropout",
                          **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                         **(_f32_fwd_checks(out, plain, q, k, v, dout, fbias, keep, KEEP_PROB,
+                                            span) if f32 else {}),
                          "repeats": _repeats(lambda: (deform_attention_fwd(
                              q, k, v, fbias, KEEP_PROB, SEED, span),), (out,)),
                          "ms": _time_ms(lambda: deform_attention_fwd(q, k, v, fbias,
@@ -651,7 +663,7 @@ def phase_kernels() -> dict:
                              q, k, v, fbias, dout, KEEP_PROB, SEED, span))})
             del got, want
             for e in rows:
-                e["ok"] &= e.get("dbias_ok", True)
+                e["ok"] &= e.get("dbias_ok", True) and e.get("lse_equal_bwd", True)
                 e.update(fixdim=fixdim, dtype=str(dtype).split(".")[-1], bg=BG, n=n, j=j)
                 _line("kernels", **e)
                 if not e["ok"] or not e.get("repeats", True):
@@ -659,9 +671,11 @@ def phase_kernels() -> dict:
                 main = fixdim == MAIN_FIXDIM and dtype == torch.bfloat16
                 if main and e.get("keep_prob", KEEP_PROB) == KEEP_PROB:
                     entries[e["name"]] = e
-                if fixdim == MAIN_FIXDIM and dtype == torch.float32 and \
-                        e["name"] == "deform_attention_bwd" and e["keep_prob"] == KEEP_PROB:
+                if fixdim == MAIN_FIXDIM and f32 and e["name"] == "deform_attention_bwd" and \
+                        e["keep_prob"] == KEEP_PROB:
                     entries["deform_attention_bwd_f32"] = e
+                if fixdim == MAIN_FIXDIM and f32 and e["name"] == "deform_attention_fwd_dropout":
+                    entries["deform_attention_fwd_f32"] = e
             del args, bias, q, k, v, dout, out, plain, keep, fbias, span
             torch.cuda.empty_cache()
     for e in _f32_bias_rows():
@@ -920,8 +934,11 @@ def phase_chains() -> dict:
                     plain = deform_attention_fwd_plain(q, k, v, span=span)
                     size = torch.finfo(dtype).bits // 8
                     bound_ms, bound_by = _attn_bound(n, j, dtype, work=work)
+                    f32 = dtype == torch.float32
                     rows.append({"name": f"deform_attention_fwd_{form}",
                                  **_compare_fwd(out, plain), **_ulps_bf16(out, plain),
+                                 **(_f32_fwd_checks(out, plain, q, k, v, dout, span=span)
+                                    if f32 else {}),
                                  "repeats": _repeats(lambda: (deform_attention_fwd(
                                      q, k, v, span=span),), (out,)),
                                  "ms": _time_ms(lambda: deform_attention_fwd(q, k, v,
@@ -952,6 +969,7 @@ def phase_chains() -> dict:
                 for e in rows:
                     e.update(chain=chain, fixdim=fixdim, dtype=str(dtype).split(".")[-1],
                              bg=BG, n=n, j=j)
+                    e["ok"] &= e.get("lse_equal_bwd", True)
                     _line("chains", **e)
                     if not e["ok"] or not e.get("repeats", True):
                         failures.append(f"{e['name']} {chain} fixdim={fixdim} {dtype}")
@@ -1031,11 +1049,22 @@ def _bwd_f64(q, k, v, dout):
             torch.einsum("bnj,bnd->bjd", p, dout))
 
 
-def _fwd_f64(q, k, v):
-    """The bias-less attention without span or dropout in float64."""
-    q, k, v = (t.double() for t in (q, k, v))
-    return torch.einsum("bnj,bjd->bnd", torch.softmax(torch.einsum("bnd,bjd->bnj", q, k),
-                                                      dim=-1), v)
+def _fwd_f64(q, k, v, bias=None, keep=None, keep_prob: float = 1.0, span=None):
+    """The attention forward in float64 (the plain version's masking, the
+    {0, 1} ``keep`` mask at ``keep_prob``): the yardstick of both the kernel
+    and the f32 plain version."""
+    from sml_tpu_torch.ops.kernels.deform_attn import NEG_MAX, _span_valid
+
+    sim = torch.einsum("bnd,bjd->bnj", q.double(), k.double())
+    if bias is not None:
+        sim = sim + bias.double()
+    if span is not None:
+        rv, cv = _span_valid(span, q.shape[1], k.shape[1])
+        sim = torch.where(rv, torch.where(cv, sim, NEG_MAX), 0.0)
+    p = torch.softmax(sim, dim=-1)
+    if keep is not None:
+        p = p * keep.double() / keep_prob
+    return torch.einsum("bnj,bjd->bnd", p, v.double())
 
 
 # the roles of the dh = 32 kernels in a profiler's (demangled) kernel names:
@@ -1073,37 +1102,61 @@ def _parts_ms(fn, iters: int = 10) -> dict:
     return ms
 
 
-def _lse_fwd_bwd(q, k, v, dout):
-    """Each row's lse as the dh = 32 forward leaves it in its scratch and as
-    the backward's rows kernel writes it, by their C entries (the wrappers
-    return neither); (BG, N) f32 each."""
+def _lse_fwd_bwd(q, k, v, dout, bias=None, span=None, keep_prob: float = 1.0):
+    """Each row's lse as the f32 forward (dh = 32 or 64) leaves it in its
+    scratch and as the backward's rows kernel writes it, by their C entries
+    (the wrappers return neither); (BG, N) f32 each."""
     from sml_tpu_torch.ops.kernels.deform_attn import _library
 
     bg, n, dh = q.shape
     j = k.shape[1]
     fwd_lib, bwd_lib = _library("deform_attn"), _library("deform_attn_bwd")
     stream = torch.cuda.current_stream().cuda_stream
-    work = torch.empty(fwd_lib.deform_attn_fwd_work(bg, n, j, dh), device="cuda")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    work = torch.empty(fwd_lib.deform_attn_fwd_work(0, bg, n, j, dh), device="cuda")
     n_bwd = bwd_lib.deform_attn_bwd_work(0, bg, n, j, dh)
     bwd_work = torch.empty(n_bwd, device="cuda") if n_bwd else None
     stats = torch.empty(2, bg, n, device="cuda")
     out, grads = torch.empty_like(q), [torch.empty_like(t) for t in (q, k, v)]
-    rc = [fwd_lib.deform_attn_fwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
-                                  out.data_ptr(), work.data_ptr(), bg, n, j, dh, 1.0, 1.0, 0,
-                                  q.device.index, stream),
-          bwd_lib.deform_attn_bwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
-                                  dout.data_ptr(), *(t.data_ptr() for t in grads), None,
-                                  stats[0].data_ptr(), stats[1].data_ptr(),
-                                  None if bwd_work is None else bwd_work.data_ptr(),
-                                  bg, n, j, dh, 1.0, 1.0, 0, q.device.index, stream)]
+    dbias = None if bias is None else torch.empty_like(bias)
+    rc = [fwd_lib.deform_attn_fwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias),
+                                  ptr(span), out.data_ptr(), work.data_ptr(), bg, n, j, dh,
+                                  keep_prob, 1.0 / keep_prob, SEED, q.device.index, stream),
+          bwd_lib.deform_attn_bwd(0, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bias),
+                                  ptr(span), dout.data_ptr(), *(t.data_ptr() for t in grads),
+                                  ptr(dbias), stats[0].data_ptr(), stats[1].data_ptr(),
+                                  ptr(bwd_work), bg, n, j, dh, keep_prob, 1.0 / keep_prob,
+                                  SEED, q.device.index, stream)]
     if any(rc):
-        raise RuntimeError(f"dh = 32 C entries returned {rc}")
+        raise RuntimeError(f"f32 attention C entries returned {rc}")
     torch.cuda.synchronize()
     return work[:bg * n].view(bg, n), stats[0]
 
 
+def _lse_fields(lse_fwd, lse_bwd) -> dict:
+    """``lse_equal_bwd`` (the same walk, sums and order: equal by
+    construction) and, where they differ, the largest difference in f32 ulps."""
+    e = {"lse_equal_bwd": torch.equal(lse_fwd, lse_bwd)}
+    if not e["lse_equal_bwd"]:
+        e["lse_ulps"] = (lse_fwd.view(torch.int32).long()
+                         - lse_bwd.view(torch.int32).long()).abs().max().item()
+    return e
+
+
+def _f32_fwd_checks(out, plain, q, k, v, dout, bias=None, keep=None,
+                    keep_prob: float = 1.0, span=None) -> dict:
+    """An f32 dh = 64 forward's largest error against float64 beside the
+    plain version's, and its lse against the backward's (``lse_equal_bwd``,
+    which the caller requires)."""
+    exact = _fwd_f64(q, k, v, bias, keep, keep_prob, span)
+    return {"max_err_f64": (out.double() - exact).abs().max().item(),
+            "plain_err_f64": (plain.double() - exact).abs().max().item(),
+            **_lse_fields(*_lse_fwd_bwd(q, k, v, dout, bias, span, keep_prob))}
+
+
 def _tf32_usage() -> list:
-    """Registers and spill stores of the dh = 32 kernels (ptxas)."""
+    """Registers and spill stores of the tf32 kernels (ptxas): dh = 32, and
+    the f32 dh = 64 forward and backward."""
     from sml_tpu_torch.ops.kernels import _build
 
     return [{"kernel": name, "registers": regs, "spill_stores": spill}
@@ -1156,17 +1209,12 @@ def phase_cmta_kernels() -> dict:
         torch.cuda.synchronize()
         plain = deform_attention_fwd_plain(q, k, v)
         exact = _fwd_f64(q, k, v)
-        lse_fwd, lse_bwd = _lse_fwd_bwd(q, k, v, dout)
         fwd_e = {"name": "deform_attention_fwd_dh32", "pass": "fwd",
                  **_compare_fwd(out[0], plain), "repeats": _repeats(fwd, out),
                  "max_err_f64": (out[0].double() - exact).abs().max().item(),
                  "plain_err_f64": (plain.double() - exact).abs().max().item(),
-                 # the same walk, sums and order: equal by construction
-                 "lse_equal_bwd": torch.equal(lse_fwd, lse_bwd)}
-        if not fwd_e["lse_equal_bwd"]:
-            fwd_e["lse_ulps"] = (lse_fwd.view(torch.int32).long()
-                                 - lse_bwd.view(torch.int32).long()).abs().max().item()
-        del exact, lse_fwd, lse_bwd
+                 **_lse_fields(*_lse_fwd_bwd(q, k, v, dout))}
+        del exact
         bwd = lambda: deform_attention_bwd(q, k, v, None, dout)
         got = bwd()
         torch.cuda.synchronize()
@@ -3493,21 +3541,27 @@ def main() -> int:
                         "design": DESIGN_BF16,
                         "launches_serving_1d": d1_serving.get(count, 0),
                         "shape": f"BG={BG} N={e['n']} J={e['j']} bf16, bias f32"})
-    # the f32 dh = 64 backward (the default compute dtype's): phase 4's bias
-    # form with dropout at S2500, phase 7's f32 chains, the f32-train launches
-    e = entries["deform_attention_bwd_f32"]
-    chain = {c: chains[("deform_attention_bwd_nobias_f32", c)] for c in ("chain3", "chain1")}
-    kernels.append({"name": "deform_attention_bwd_f32", "route": "cuda",
-                    "source": "sml_tpu_torch/csrc/deform_attn_bwd.cu",
-                    "replaces": f"{PALLAS}:1044",
-                    "launches": f32_runs["deformpathomic"]["deform_attention_bwd_f32"],
-                    "launches_run": "f32-train", **{k: e[k] for k in _TIMES},
-                    "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": "3xTF32 mma.sync",
-                    "launches_transmil_f32": f32_runs["transmil"]["deform_attention_bwd_f32"],
-                    "shape": f"f32 dh=64, BG={BG} N={e['n']} J={e['j']}, bias, dropout",
-                    **{c: {"shape": f"f32 dh=64, bias-less, BG={BG} N={x['n']} J={x['j']}",
-                           **{k: x[k] for k in _TIMES + ("bound_3xtf32_ms",)}}
-                       for c, x in chain.items()}})
+    # the f32 dh = 64 forward and backward (the default compute dtype's): phase
+    # 4's bias form with dropout at S2500, phase 7's f32 chains, the f32-train
+    # launches
+    for name, source, replaces, extra in (
+            ("deform_attention_fwd_f32", "sml_tpu_torch/csrc/deform_attn.cu",
+             f"{PALLAS}:1016", ("max_err_f64", "plain_err_f64", "lse_equal_bwd")),
+            ("deform_attention_bwd_f32", "sml_tpu_torch/csrc/deform_attn_bwd.cu",
+             f"{PALLAS}:1044", ())):
+        e = entries[name]
+        chain = {c: chains[(name.replace("_f32", "_nobias_f32"), c)]
+                 for c in ("chain3", "chain1")}
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": f32_runs["deformpathomic"][name],
+                        "launches_run": "f32-train", **{k: e[k] for k in _TIMES + extra},
+                        "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": "3xTF32 mma.sync",
+                        "launches_transmil_f32": f32_runs["transmil"][name],
+                        "shape": f"f32 dh=64, BG={BG} N={e['n']} J={e['j']}, bias, dropout",
+                        **{c: {"shape": f"f32 dh=64, bias-less, BG={BG} N={x['n']} J={x['j']}",
+                               **{k: x[k] for k in _TIMES + ("bound_3xtf32_ms",) + extra}}
+                           for c, x in chain.items()}})
     for name, source, replaces, count, design in DH32_KERNELS:
         e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -4,7 +4,8 @@
     python3 scripts/profile_attn_bwd.py [--tag NAME] [--csrc DIR] [--iters 10]
                                         [--dtype bfloat16|float32] [--cases REGEX]
                                         [--variant nofold|onechain|unrolled|rna64|
-                                                   oneblock64|allhalves64|skiprows64]
+                                                   oneblock64|allhalves64|skiprows64|
+                                                   droppair64]
 
 Builds ``deform_attn.cu`` and ``deform_attn_bwd.cu`` from ``--csrc`` (default:
 the package's ``sml_tpu_torch/csrc``; a directory holding variants of the
@@ -12,8 +13,8 @@ sources and their shared headers, such as another commit's, compares them in
 the same call) into ``build/profile_attn/<tag>/`` and prints, for each kernel
 instantiation of the two builds, its registers and spill stores from the
 ptxas log.  Then, at the main path's shapes (BG=64, in ``--dtype``: bf16, the
-tensor-core kernels, or f32, the forward's CUDA-core twin and the backward's
-tf32 kernels): for the forward
+tensor-core kernels, or f32, the forward's and the backward's tf32
+kernels): for the forward
 (``"pass": "fwd"``) in every form the main paths run (the bias form without
 and with dropout at S2500 / S4096, the bias-less and span Nystrom chains 1 and
 3 at S2500 / S4096, the span form with bias and dropout at S2500), the largest
@@ -29,13 +30,15 @@ case's bound as ``chip_smoke.py`` counts it (``_attn_bound``; span forms:
 the valid pairs), the plain version's median time over 5 launches, and that
 of one ``F.scaled_dot_product_attention`` call of the same function (the bias
 as its mask in q's dtype, a span as a 0 / -inf mask; none with dropout), as
-``chip_smoke.py`` times it; the f32 backward's lines also its bound at 3xTF32
-(``chip_smoke._tf32x3``), and after every other case the span forms
+``chip_smoke.py`` times it; the f32 lines also its bound at 3xTF32
+(``chip_smoke._tf32x3``), and after every other backward case the span forms
 (TransMIL's chains 1 and 3 at S2500 and the span form with a bias and
 dropout at S2500), last so that the inputs of the cases before them are
 drawn as a tree without them draws them.  ``--cases`` runs only the forward
 and backward cases whose names it matches (a tree whose backward work query
-takes no dtype, given by ``--csrc``, runs every case but the dh = 32 ones).
+takes no dtype, given by ``--csrc``, runs every case but the dh = 32 ones; one
+whose forward work query takes none, from before the f32 dh = 64 forward's
+tf32 kernel, runs every case, its query called without the dtype).
 In f32 both passes also run CMTA's two chains on the
 dh = 32 form (BG = 64, 128 landmarks, n_pad 2560), which runs on the tf32
 tensor cores in both directions: the backward's rows, keys and combine
@@ -63,13 +66,16 @@ rounded (``split_tf32``, five operations) instead of truncated
 (``split_tf32_trunc``, two); ``oneblock64`` drops the two-blocks-an-SM launch
 bound; ``allhalves64`` walks the rows kernel through every 32-key half of
 the last key tile; ``skiprows64`` skips the keys kernel's 16-row steps past
-N.  One line per item, prefixed
+N; ``droppair64`` draws the forward's dropout multipliers pair by pair
+(``drop_pair``, each 4-key Philox group twice) instead of once for a lane
+pair (``rows_keep_bits``).  One line per item, prefixed
 with ``--tag``, so that runs of two trees can be told apart.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import re
@@ -150,6 +156,15 @@ VARIANTS = {
                    "      // st[i][2h + w], dpt[i][2h + w]: key key[h], row r0 + rs",
                    "    for (int rs = 0; rs < (kw0 < J ? min(kBlock, N - r0) : 0); rs += 16) {\n"
                    "      // st[i][2h + w], dpt[i][2h + w]: key key[h], row r0 + rs"),
+    # the dh = 64 forward drawing each pair's Philox group by drop_pair, as the
+    # backward's rows kernel does, instead of once for a lane pair
+    "droppair64": ("deform_attn.cu",
+                   "          const float m = !DROP ? 1.f : ((kept >> (16 * h + 4 * i + (e & 1))) "
+                   "& 1u ? inv_keep\n"
+                   "                                                                                  : 0.f);",
+                   "          const float2 mp = !DROP ? make_float2(1.f, 1.f) : tc::drop_pair(\n"
+                   "              seed, j0 + c0 + 8 * i + col, row[h], bg, keep_prob, inv_keep);\n"
+                   "          const float m = e & 1 ? mp.y : mp.x;"),
 }
 # f32 only: CMTA's chains on the dh = 32 form, name: (N, J)
 DH32_CASES = {"ch3_dh32_s2500": (128, 2560), "ch1_dh32_s2500": (2560, 128)}
@@ -157,8 +172,8 @@ KERNEL = re.compile(r"(attn_fwd_tc|attn_bwd_rows_tc|attn_bwd_keys_tc|deform_attn
                     r"|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(\w+?)EEv")
 TF32 = re.compile(r"(attn_fwd_tf32|attn_bwd_rows_tf32|attn_bwd_keys_tf32|attn_bwd_combine)"
                   r"(?:ILb(\d)ELb(\d)E)?")
-# the f32 dh = 64 backward: (bias, span, dropout[, statistics, gradients])
-TF32_64 = re.compile(r"attn_bwd_(rows|keys)_tf32_64I((?:Lb\dE)+)")
+# the f32 dh = 64 kernels: (bias, span, dropout[, statistics, gradients or output])
+TF32_64 = re.compile(r"attn_(fwd|bwd_rows|bwd_keys)_tf32_64I((?:Lb\dE)+)")
 # device-time roles of the backward's kernels
 ROLE = re.compile(r"attn_bwd_((rows|keys)_(tc|kernel|tf32)|combine)")
 
@@ -167,8 +182,8 @@ def _kernel_name(mangled: str) -> str:
     k, t, t64 = KERNEL.search(mangled), TF32.search(mangled), TF32_64.search(mangled)
     if t64:
         flags = re.findall(r"Lb(\d)", t64.group(2))
-        names = ("bias", "span", "drop", "stats", "grad")
-        return f"attn_bwd_{t64.group(1)}_tf32_64 f32 dh=64 " + " ".join(
+        names = ("bias", "span", "drop", "stats", "out" if t64.group(1) == "fwd" else "grad")
+        return f"attn_{t64.group(1)}_tf32_64 f32 dh=64 " + " ".join(
             f"{n}={f}" for n, f in zip(names, flags))
     if k:
         bias, span, drop = re.findall(r"Lb(\d)", k.group(2))
@@ -211,7 +226,7 @@ def ptxas(tag: str) -> None:
         for mangled, (regs, spill) in _build.kernel_usage(_build.build_log(src)).items():
             line = {"tag": tag, "kernel": _kernel_name(mangled), "registers": regs,
                     "spill_stores": spill}
-            if TF32.search(mangled) and mangled in sass:
+            if (TF32.search(mangled) or TF32_64.search(mangled)) and mangled in sass:
                 line["sass_instructions"], line["hmma"] = sass[mangled]
             print(json.dumps(line), flush=True)
 
@@ -289,15 +304,18 @@ def forward(tag: str, iters: int, g: torch.Generator, bf: torch.dtype, pick) -> 
         plain = lambda: deform_attention_fwd_plain(  # the dropout form makes its mask
             q, k, v, bias, philox_keep_mask(SEED, BG, n, j, keep_prob, device="cuda")
             if keep_prob < 1 else None, keep_prob, span)
-        bound_ms, bound_by = _attn_bound(n, j, bf, _bias_size(bias_spec, bf),
-                                         work=None if span is None else _span_work(span, n, j))
+        work = None if span is None else _span_work(span, n, j)
+        bias_size = _bias_size(bias_spec, bf)
+        bound_ms, bound_by = _attn_bound(n, j, bf, bias_size, work=work)
         print(json.dumps({"tag": tag, "pass": "fwd", "case": name,
                           "max_abs_err": (out.float() - want).abs().max().item(),
                           "equal_share": (out.float() == want).float().mean().item(),
                           "repeats": torch.equal(out, again), "digest": _digest([out]),
                           "ms": _time_ms(run, iters), "plain_ms": _time_ms(plain, 5),
                           "library_ms": _library_ms(q, k, v, bias, span, keep_prob, iters),
-                          "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          **_tf32x3(_attn_work(n, j, 4, bias_size, work=work), bf)}),
+              flush=True)
         del q, k, v, bias, out, again, keep, want
         torch.cuda.empty_cache()
     for name, (n, j) in (DH32_CASES.items() if bf == torch.float32 else ()):
@@ -409,6 +427,18 @@ def ragged(tag: str, g: torch.Generator) -> None:
                               "repeats": repeats}), flush=True)
 
 
+def _old_fwd_work() -> None:
+    """The forward's work query of a tree from before it took a dtype (its
+    f32 dh = 64 forward took no scratch), behind the wrapper's five-argument
+    call."""
+    from sml_tpu_torch.ops.kernels.deform_attn import _library
+
+    lib = _library("deform_attn")
+    query = lib.deform_attn_fwd_work
+    query.argtypes = [ctypes.c_int] * 4
+    lib.deform_attn_fwd_work = lambda dtype, bg, n, j, dh: query(bg, n, j, dh)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tag", default="tree")
@@ -436,6 +466,8 @@ def main() -> int:
         src.write_text(src.read_text().replace(text, variant))
         _build.CSRC = csrc
     _build.build(SOURCES)
+    if "deform_attn_fwd_work(int BG" in (_build.CSRC / "deform_attn.cu").read_text():
+        _old_fwd_work()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tag": args.tag, "card": card, "csrc": str(_build.CSRC),

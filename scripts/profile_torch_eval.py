@@ -49,7 +49,7 @@ from sml_tpu_torch.train.steps import make_eval_step, make_train_step  # noqa: E
 
 
 # the port's own kernels (sml_tpu_torch/csrc), by name
-PORT_KERNEL = re.compile(r"\b(cpb_bias_\w+|deform_attn_fwd_kernel|attn_(fwd|bwd)_\w+|idct_kernel"
+PORT_KERNEL = re.compile(r"\b(cpb_bias_\w+|attn_(fwd|bwd)_\w+|idct_kernel"
                          r"|colour_kernel)\b")
 
 

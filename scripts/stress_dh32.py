@@ -84,7 +84,7 @@ def main() -> int:
                     torch.mm(big, big)
         with torch.cuda.stream(run):
             if args.poison:
-                poison([q.shape, (fwd_lib.deform_attn_fwd_work(bg, n, j, dh),)])
+                poison([q.shape, (fwd_lib.deform_attn_fwd_work(0, bg, n, j, dh),)])
             out = (deform_attention_fwd(q, k, v),)
             if args.poison:
                 n_work = bwd_lib.deform_attn_bwd_work(0, bg, n, j, dh)

@@ -329,6 +329,26 @@ __device__ __forceinline__ uint32_t keys_keep_bits(unsigned long long seed, cons
   return kept;
 }
 
+// The keep bits of a rows kernel's 32-key half from key j (a multiple of 8)
+// in the accumulator layout: lane (g, t) holds the rows row[h] (h < 2) and
+// the keys j + 8 i + 2t + w.  The lanes t and t ^ 1 hold the same 4-key
+// Philox groups of the same rows, words 2 (t & 1) + w of each: each draws the
+// groups of one row, row[t & 1], and the two swap them, so a group is drawn
+// once, not twice as by drop_pair.  Bit 16 h + 4 i + w of the result is
+// row[h], key j + 8 i + 2t + w.
+__device__ __forceinline__ uint32_t rows_keep_bits(unsigned long long seed, const int (&row)[2],
+                                                   int j, int bg, float keep_prob, int lane) {
+  const int t = lane & 3, mine = t & 1;
+  uint32_t own = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    own |= philox::keep4(philox::bits4(seed, (j >> 2) + 2 * i + (t >> 1), row[mine], bg),
+                         keep_prob) << (4 * i);
+  const uint32_t other = __shfl_xor_sync(kFull, own, 1);
+  const uint32_t r0 = mine ? other : own, r1 = mine ? own : other;
+  return ((r0 >> (2 * mine)) & 0x3333u) | ((r1 >> (2 * mine)) & 0x3333u) << 16;
+}
+
 // A lane's running statistics of its rows row[h] over its own columns: max m,
 // sum l of exp(s - m) and, in the backward, sum d of exp(s - m) dp.
 struct RowStats {

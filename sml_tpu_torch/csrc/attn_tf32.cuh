@@ -20,7 +20,10 @@
 // exp (and, in the backward, of exp * dp) (stats_tile), folded over the lane
 // quad by tc::stats_fold, and the segments' (lse, delta) merged in segment
 // order (merge_segments).  So the forward's lse is the backward's: the same
-// code, the same sums in the same order.
+// code, the same sums in the same order.  At dh = 64 (every form: the bias,
+// the span, dropout) the forward (deform_attn.cu, tf32::attn_fwd_tf32_64) and
+// the backward's rows kernel share the score code of a 32-key half as well
+// (bias_pairs64, mask_scores64) and fold it with tc::stats_update.
 
 #pragma once
 
@@ -271,7 +274,7 @@ attn_bwd_combine(const float4* __restrict__ part, int S, size_t n4, int n_out,
   }
 }
 
-// ---- f32 at dh = 64: the backward's rows and keys kernels ------------------
+// ---- f32 at dh = 64: the forward and the backward's rows and keys kernels ---
 //
 // At dh = 64 a warp's 16 rows of q and dout as split A fragments would take
 // 128 registers, and unsplit 64, beside dq's 32-register sum and the
@@ -401,6 +404,56 @@ __device__ __forceinline__ void store_pair64(float* p, int j, int J, bool even, 
   }
   if (j < J) p[j] = x;
   if (j + 1 < J) p[j + 1] = y;
+}
+
+// The score code of one 32-key half (keys j0c + 8 i + col + w, i < 4, w <
+// 2) of a dh = 64 rows kernel, shared by the forward and the backward's rows
+// kernel, for the lane's rows row[h] (h < 2): brow[h], row[h]'s start in the
+// (BG, N, J) f32 bias (a row past the bag: row 0, never read), in_bag[h]
+// whether it is a row of the bag, uniform[h] whether the span makes it
+// uniform; even: J even.  Both issue the bias loads, then the products (the
+// backward's dp product beside q k^T), then the mask.
+
+// b[i][h]: the bias of row row[h] at keys j0c + 8 i + col and the next,
+// loaded before the products that hide them
+__device__ __forceinline__ void bias_pairs64(float2 (&b)[4][2], const float* bias,
+                                             const size_t (&brow)[2], const bool (&in_bag)[2],
+                                             int j0c, int col, int J, bool even) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      b[i][h] = in_bag[h] ? load_pair64(bias + brow[h], j0c + 8 * i + col, J, even)
+                          : make_float2(0.f, 0.f);
+}
+
+// s[i][2h + w] (row row[h], key j0c + 8 i + col + w) = mask(s + bias), keys
+// >= J at -f32max
+template <bool HAS_BIAS, bool HAS_SPAN>
+__device__ __forceinline__ void mask_scores64(float (&s)[4][4], const float2 (&b)[4][2],
+                                              const attn::SpanMask& mask,
+                                              const bool (&uniform)[2], int j0c, int col,
+                                              int J) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, j = j0c + 8 * i + col + (e & 1);
+      float& x = s[i][e];
+      if (HAS_BIAS) x += (e & 1) ? b[i][h].y : b[i][h].x;
+      x = j < J ? attn::mask_score<HAS_SPAN>(x, mask, uniform[h], j) : attn::kNegMax;
+    }
+}
+
+// Stage rows [r0, r0 + kBlock) of one (n, 64) f32 matrix a in the swizzled
+// tile sa by cp.async, rows >= n zero-filled: stage_pair64 for one matrix.
+__device__ __forceinline__ void stage_tile64(const float* a, float* sa, int r0, int n) {
+  for (int i = threadIdx.x; i < kBlock * 16; i += kThreads) {
+    const int r = i >> 4, c = i & 15;
+    const bool ok = r0 + r < n;
+    const size_t off = (size_t)(ok ? r0 + r : 0) * kDH64 + 4 * c;
+    mma::cp_async16(mma::smem_u32(sa + mma::swz64f(r, 4 * c)), a + off, ok);
+  }
 }
 
 // acc (16 x 32) += A X over the 8 rows k0 .. k0 + 7 of the swizzled 64 x 64

@@ -46,16 +46,25 @@
 // apart, and no check on the card holds them bit for bit.  A 32-key half past
 // J (the last tile of J = 144) is skipped.
 //
-// f32 at dh = 64, the CUDA-core twin deform_attn_fwd_kernel, the
-// exact-arithmetic reference on the card: one block per (bg, tile of kRows
-// query rows), the q rows in shared memory.  K and V stream through shared
-// memory in tiles of kTile keys, so J has no limit.  Each warp owns query
-// rows; per tile and row its lanes take the keys lane + 32 t, reduce the
-// tile's max and sum of exponentials with shuffles, and update the row's
-// running max, running sum and rescaled accumulator (online softmax; the
-// accumulator is f32 in shared memory, two output columns per lane).  A
-// masked column's -f32max keeps a first all-masked tile from poisoning the
-// sum: exp(m_old - m_new) is then 0.  Rows past N are skipped.
+// f32 at dh = 64 (every form: the default compute dtype's; the deformable
+// attention's bias with dropout, TransMIL's bias-less and span chains), the
+// tf32 tensor-core kernel tf32::attn_fwd_tf32_64, on the pieces of the dh =
+// 64 backward (attn_tf32.cuh): four warps of 16 query rows, the block's q in
+// a swizzled 64 x 64 f32 tile in shared memory (16 KB a tile; each k-step's A
+// fragment read by ldmatrix and split on use: as split fragments in
+// registers q would take 128 of them), K and V through the two-stage
+// cp.async ring of swizzled 64 x 64 f32 tiles.  The two steps of the dh = 32
+// form, per 32-key half with the backward rows kernel's score code
+// (bias_pairs64, mask_scores64: the lane's f32 bias pairs read from device
+// memory in the fragment layout before the products, the span mask, the key
+// tail at -f32max) and statistics walk (tc::stats_update), so lse is the
+// backward's bit for bit by construction; then p = exp(s - lse) * m (the Philox
+// multipliers of drop_pair, each group drawn once for a lane pair:
+// rows_keep_bits), split into the A fragments of out += p V, whose
+// tensor-core sums start from zero every 32 keys and are folded into an f32
+// register sum (product_fold64).  A thin side (chain 3: 256 rows
+// against 2560 / 4352 keys, 256 blocks) cuts its keys into segments as the
+// dh = 32 form does.
 //
 // f32 at dh = 32 (no bias, span or dropout: CMTA's Nystrom chains, 8 heads
 // of 32, 128 landmarks against 2560 tokens), the tf32 tensor-core kernel
@@ -80,17 +89,18 @@
 // bits on every run.  bf16 never reaches dh = 32 (the Nystrom gate asks for
 // dh * itemsize >= 128 bytes).
 //
-// What bounds it: at the Nystrom chains (J or N of 2560 / 4352, dh 64, bf16)
+// What bounds it: at the Nystrom chains (J or N of 2560 / 4352, dh 64)
 // about 4 * DH FLOP per pair against q, K, V and out read or written once:
-// operations on the tensor cores (the kernel issues 6 * DH, q k^T twice); at
-// the deformable attention's J = 144, the bias stream, bytes.  Chain 3 has
-// 256 rows per bag: 4 row blocks x BG, about 2 blocks of 4 warps per SM at BG
-// = 64 (the keys are not split yet), so it is latency-bound there.  The
-// dh = 32 form issues 3 x 6 * DH FLOP a pair on the tf32 tensor cores (three
-// tf32 products for each f32 one) against 4 * DH on the CUDA cores; the
-// operand splits and addresses outnumber the mma about 15 to 1 in the out
-// kernel's SASS (12 to 1 in the dh = 32 backward), so instruction issue
-// bounds it, at about 8x its 3xTF32 bound at CMTA's chains.
+// operations on the tensor cores (the kernels issue 6 * DH, q k^T twice); at
+// the deformable attention's J = 144, the bias stream, bytes (bf16).  The f32
+// forms issue 3 x 6 * DH FLOP a pair on the tf32 tensor cores (three tf32
+// products for each f32 one) against 4 * DH on the CUDA cores; the operand
+// splits and addresses outnumber the mma about 15 to 1 in the dh = 32 out
+// kernel's SASS (12 to 1 in the dh = 32 backward, 9 to 15 at dh = 64), so
+// instruction issue bounds them: the splits are the cheap truncating ones
+// at dh = 64 (split_tf32_trunc), each k-step's q fragment is split once for
+// the four n8 tiles of a half, a half past J or a warp past N does no work,
+// and every thin launch is cut into segments that fill the card.
 //
 // C entry: deform_attn_fwd(dtype, bias_dtype, q, k, v, bias, span, out, work,
 //                          BG, N, J, DH, keep_prob, inv_keep, seed, device,
@@ -100,8 +110,8 @@
 // dropout (any other pair is cudaErrorInvalidValue).  bias and span may be
 // null.  DH is 64, or 32 with dtype 0 and no bias, span or dropout (any other
 // dh 32 form is cudaErrorInvalidValue).  work: an f32 scratch of
-// deform_attn_fwd_work(BG, N, J, DH) floats (null when that is 0), whose
-// first BG * N floats receive each row's lse in the dh = 32 form.  The
+// deform_attn_fwd_work(dtype, BG, N, J, DH) floats (null when that is 0:
+// bf16), whose first BG * N floats receive each row's lse in f32.  The
 // library carries its own CUDA runtime, so the entry selects `device` itself.
 
 #include <cuda_bf16.h>
@@ -116,126 +126,6 @@
 #include "attn_tf32.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
-
-namespace {
-
-using namespace attn;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;
-
-template <typename T, int DH>
-constexpr size_t smem_bytes() {
-  return (size_t)(kRows + 2 * kTile) * row_stride<T>(DH) * sizeof(T)  // q rows, K, V
-         + 2 * (size_t)kWarps * kTile * sizeof(float)                 // p, multipliers
-         + (size_t)kRows * (DH + 2) * sizeof(float);                  // acc, max, sum
-}
-
-template <typename T, int DH, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
-__global__ void __launch_bounds__(kThreads)
-deform_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ bias,
-                       const int* __restrict__ span, T* __restrict__ out, int N, int J,
-                       float keep_prob, float inv_keep, unsigned long long seed) {
-  static_assert(DH == 64, "each lane owns DH / 32 = 2 output columns");
-  constexpr int LD = row_stride<T>(DH);
-  constexpr int NT = kTile / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_q = reinterpret_cast<T*>(smem_raw);
-  T* s_k = s_q + kRows * LD;
-  T* s_v = s_k + kTile * LD;
-  float* s_p = reinterpret_cast<float*>(s_v + kTile * LD);  // [kWarps][kTile]
-  float* s_mult = s_p + kWarps * kTile;                      // [kWarps][kTile]
-  float* s_acc = s_mult + kWarps * kTile;                    // [kRows][DH]
-  float* s_m = s_acc + kRows * DH;                           // [kRows] running max
-  float* s_l = s_m + kRows;                                  // [kRows] running sum
-
-  const int bg = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, N - row0);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const SpanMask mask = load_span<HAS_SPAN>(span, bg, J);
-  stage_rows<T, DH>(q + ((size_t)bg * N + row0) * DH, s_q, rows);
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) s_acc[i] = 0.f;
-  if (threadIdx.x < kRows) {
-    s_m[threadIdx.x] = -INFINITY;
-    s_l[threadIdx.x] = 0.f;
-  }
-  const T* kg = k + (size_t)bg * J * DH;
-  const T* vg = v + (size_t)bg * J * DH;
-  float* p = s_p + warp * kTile;
-  float* mult = s_mult + warp * kTile;
-
-  for (int j0 = 0; j0 < J; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (first: q and the state are set)
-    stage_kv_tile<T, DH>(kg, vg, s_k, s_v, j0, J);
-    __syncthreads();
-    const int len = min(kTile, J - j0);
-    const int nt = (len + 31) / 32;
-    for (int r = warp; r < rows; r += kWarps) {
-      const int row = row0 + r;
-      const bool uniform = HAS_SPAN && mask.uniform(row);
-      if (DROP) drop_mult_tile(mult, seed, j0, J, row, bg, keep_prob, inv_keep, lane);
-      float s[NT];
-      dot_keys<T, DH>(s_q + r * LD, s_k, lane, nt, s);
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int j = j0 + lane + 32 * t;
-        if (t < nt && j < J) {
-          if (HAS_BIAS) s[t] += to_f32(bias[((size_t)bg * N + row) * J + j]);
-          s[t] = mask_score<HAS_SPAN>(s[t], mask, uniform, j);
-        } else {
-          s[t] = -INFINITY;
-        }
-        tmax = fmaxf(tmax, s[t]);
-      }
-      tmax = warp_max(tmax);
-      const float m_old = s_m[r];
-      const float m_new = fmaxf(m_old, tmax);
-      const float scale = expf(m_old - m_new);
-      if (DROP) __syncwarp();  // lanes read multipliers that other lanes drew
-      float es = 0.f;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const float e = expf(s[t] - m_new);
-        es += e;
-        if (t < nt) p[lane + 32 * t] = DROP ? e * mult[lane + 32 * t] : e;
-      }
-      es = warp_sum(es);
-      __syncwarp();  // p is written, and every lane has read s_m[r]
-
-      float2* acc = reinterpret_cast<float2*>(s_acc + r * DH) + lane;
-      float2 a = *acc;
-      a.x *= scale;
-      a.y *= scale;
-      const T* vcol = s_v + 2 * lane;
-#pragma unroll 4
-      for (int jj = 0; jj < len; ++jj) {
-        const float pj = p[jj];
-        const float2 vv = load2(vcol + jj * LD);
-        a.x = fmaf(pj, vv.x, a.x);
-        a.y = fmaf(pj, vv.y, a.y);
-      }
-      *acc = a;
-      if (lane == 0) {
-        s_m[r] = m_new;
-        s_l[r] = s_l[r] * scale + es;
-      }
-      __syncwarp();  // the next row rewrites p and the multipliers
-    }
-  }
-  for (int r = warp; r < rows; r += kWarps) {
-    const float2 a = reinterpret_cast<const float2*>(s_acc + r * DH)[lane];
-    const float inv = 1.f / s_l[r];
-    store2(out + ((size_t)bg * N + row0 + r) * DH + 2 * lane,
-           make_float2(a.x * inv, a.y * inv));
-  }
-}
-
-}  // namespace
 
 // ---- bf16: the tensor-core kernel --------------------------------------------
 
@@ -476,22 +366,165 @@ attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The scratch of a dh = 32 launch, in floats: each row's lse, then, when the
-// keys are cut into segments, the segments' lse (float2, as the backward's
-// (lse, delta)) and their partial outputs.
+// ---- f32 dh = 64: the tf32 tensor-core kernel (3xTF32, attn_tf32.cuh) -------
+
+// Block (row tile, bg, key segment), warp w owns rows row0 + 16 w .. + 15 of
+// the block's q tile (staged once in shared memory, each k-step's A fragment
+// by ldmatrix, split on use), lane (g, t) the rows g and g + 8 and, in each n8
+// tile of keys, the columns 2t and 2t + 1; in the output, the columns 8 n +
+// 2t, 8 n + 2t + 1 of n8 tile n.  K (and V) stream through a two-stage
+// cp.async ring of swizzled 64 x 64 f32 tiles, walked per 32-key half with
+// the backward rows kernel's score code (bias_pairs64, mask_scores64: s =
+// mask(q k^T + bias), the lane's bias pairs read from device memory before
+// the products):
+//   STATS: fold s into each row's running max and sum of exp (the backward
+//     rows kernel's statistics walk, without delta); with OUT (one segment)
+//     fold them into lse, write it, and walk K and V again; alone, write the
+//     segment's lse to part.
+//   OUT: (alone: merge the segments' lse from part in segment order; segment
+//     0 writes lse) p = exp(s - lse) * m (m: the Philox multipliers of
+//     tc::rows_keep_bits, each 4-key group drawn once for a lane pair), then
+//     out += p V per 32-key half on zeroed accumulators folded into an f32
+//     register sum (product_fold64), written to out + seg * seg_stride.
+// A half that holds no key (past J, the last tile of J = 144) and a warp
+// whose rows all lie past N are skipped.  A statistics-only launch reads K
+// alone: three tiles of shared memory, four blocks an SM; the others five,
+// two blocks an SM.  Naming the blocks keeps ptxas from capping registers
+// below need.
+template <bool STATS, bool OUT>
+constexpr int fwd_tiles64() { return STATS && !OUT ? 3 : 5; }
+
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, bool STATS, bool OUT>
+__global__ void __launch_bounds__(kThreads, STATS && !OUT ? 4 : 2)
+attn_fwd_tf32_64(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ bias,
+                 const int* __restrict__ span, float* __restrict__ out, size_t seg_stride,
+                 float* __restrict__ lse, float2* __restrict__ part, int N, int J,
+                 int seg_tiles, float keep_prob, float inv_keep, unsigned long long seed) {
+  static_assert(STATS || OUT, "a pass to run");
+  extern __shared__ __align__(128) float smem64[];
+  float* s_q = smem64;                // the block's q
+  float* s_k = smem64 + kTile64;      // [stage][kTile64]
+  float* s_v = s_k + 2 * kTile64;     // [stage][kTile64], not with STATS alone
+  const int bg = blockIdx.y, seg = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kBlock, wrow0 = row0 + warp * 16;
+  const int row[2] = {wrow0 + (lane >> 2), wrow0 + (lane >> 2) + 8};
+  const int col = 2 * (lane & 3);  // of element 0 in an n8 tile; element 1 is next
+  const int t0 = seg * seg_tiles;
+  const int nt = min(seg_tiles, (J + kBlock - 1) / kBlock - t0);
+  constexpr int kPasses = (STATS ? 1 : 0) + (OUT ? 1 : 0);
+  const attn::SpanMask mask = attn::load_span<HAS_SPAN>(span, bg, J);
+  const bool uniform[2] = {HAS_SPAN && mask.uniform(row[0]), HAS_SPAN && mask.uniform(row[1])};
+  const bool in_bag[2] = {row[0] < N, row[1] < N};
+  // the lane's two rows of the bias (a row past the bag: never read)
+  const size_t brow[2] = {((size_t)bg * N + (in_bag[0] ? row[0] : 0)) * J,
+                          ((size_t)bg * N + (in_bag[1] ? row[1] : 0)) * J};
+  const bool even = !(J & 1);
+  const float* kg = k + (size_t)bg * J * kDH64;
+  const float* vg = v + (size_t)bg * J * kDH64;
+  stage_tile64(q + (size_t)bg * N * kDH64, s_q, row0, N);
+  auto stage = [&](int it) {  // the statistics read K only, the output K and V
+    const int buf = it & 1, j0 = (t0 + it % nt) * kBlock;
+    if (STATS && it < nt)
+      stage_tile64(kg, s_k + buf * kTile64, j0, J);
+    else
+      stage_pair64(kg, vg, s_k + buf * kTile64, s_v + buf * kTile64, j0, J);
+    mma::cp_async_commit();
+  };
+  stage(0);
+
+  const Offsets64 off(lane, warp);
+  float lse_r[2] = {0.f, 0.f}, no_delta[2] = {0.f, 0.f};
+  auto write_lse = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && in_bag[h]) lse[(size_t)bg * N + row[h]] = lse_r[h];
+  };
+  if (!STATS) {
+    merge_segments<false>(part, N, row, lse_r, no_delta);
+    if (seg == 0) write_lse();
+  }
+  tc::RowStats st;
+  float o_sum[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_sum[n][e] = 0.f;
+
+  for (int it = 0; it < kPasses * nt; ++it) {
+    if (it + 1 < kPasses * nt) {
+      stage(it + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bool out_pass = OUT && (!STATS || it >= nt);
+    if (STATS && OUT && it == nt) {
+      tc::stats_fold<false, true>(st, lse_r, no_delta);
+      write_lse();
+    }
+    const int buf = it & 1, j0 = (t0 + it % nt) * kBlock;
+    const float* sk = s_k + buf * kTile64;
+    const float* sv = s_v + buf * kTile64;
+    // the 32-key halves that hold a key, for a warp that holds a row
+    const int c_end = wrow0 < N ? min(kBlock, J - j0) : 0;
+#pragma unroll 1
+    for (int c0 = 0; c0 < c_end; c0 += 32) {
+      // s[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      float2 b[4][2];
+      if (HAS_BIAS) bias_pairs64(b, bias, brow, in_bag, j0 + c0, col, J, even);
+      float s[4][4];
+      product_nt64<4>(s_q, sk, c0, off, s);
+      mask_scores64<HAS_BIAS, HAS_SPAN>(s, b, mask, uniform, j0 + c0, col, J);
+      if (!out_pass) {
+        tc::stats_update<false, true>(st, s, s);
+        continue;
+      }
+      // p m (in s; a masked key's -f32max gives 0), then out += p V
+      const uint32_t kept =
+          DROP ? tc::rows_keep_bits(seed, row, j0 + c0, bg, keep_prob, lane) : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float m = !DROP ? 1.f : ((kept >> (16 * h + 4 * i + (e & 1))) & 1u ? inv_keep
+                                                                                  : 0.f);
+          s[i][e] = expf(s[i][e] - lse_r[h]) * m;
+        }
+      product_fold64<4>(o_sum, s, sv, c0, off);
+    }
+    __syncthreads();  // the stage is consumed before the ring refills it
+  }
+  if (STATS && !OUT) {
+    tc::stats_fold<false, true>(st, lse_r, no_delta);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (col == 0 && in_bag[h])
+        part[((size_t)seg * gridDim.y + bg) * N + row[h]] = make_float2(lse_r[h], 0.f);
+  }
+  if (OUT)
+    store_rows64(out + seg * seg_stride + (size_t)bg * N * kDH64, o_sum, wrow0, N, lane);
+}
+
+// The scratch of an f32 launch (dh = 32 or 64), in floats: each row's lse,
+// then, when the keys are cut into segments, the segments' lse (float2, as
+// the backward's (lse, delta)) and their partial outputs.
 struct FwdWork {
   int seg, per;
   size_t part, out, total;  // offsets and size, in floats
 };
 
-inline FwdWork fwd_work_of(int BG, int N, int J) {
+inline FwdWork fwd_work_of(int BG, int N, int J, int DH) {
   FwdWork w{};
   const int nti = (N + kBlock - 1) / kBlock, ntj = (J + kBlock - 1) / kBlock;
   w.seg = segments(nti * BG, ntj, w.per);
   const size_t rows = (size_t)BG * N;
   w.part = (rows + 3) / 4 * 4;
   w.out = w.part + (w.seg > 1 ? (2 * w.seg * rows + 3) / 4 * 4 : 0);
-  w.total = w.out + (w.seg > 1 ? (size_t)w.seg * rows * kDH : 0);
+  w.total = w.out + (w.seg > 1 ? (size_t)w.seg * rows * DH : 0);
   return w;
 }
 
@@ -535,17 +568,27 @@ cudaError_t max_shared(K kernel) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
+// out (n floats) = the sums in segment order of S segments' partial outputs
+// (tf32::attn_bwd_combine)
+cudaError_t combine(const Args& a, const float* part_sums, int S, size_t n, float* out) {
+  const unsigned blocks = (unsigned)std::min<size_t>((n / 4 + 255) / 256, 8 * 132);
+  tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(part_sums), S, n / 4, 1,
+      reinterpret_cast<float4*>(out), nullptr);
+  return cudaGetLastError();
+}
+
 // The f32 dh = 32 form on the tf32 tensor cores: both passes in one launch
 // (one key segment), or statistics, outputs per segment and their sum.
 cudaError_t launch_tf32(const Args& a) {
   using tf32::kBlock;
   using tf32::kDH;
-  using tf32::kThreads;  // not the CUDA-core twin's 256
+  using tf32::kThreads;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   float* out = static_cast<float*>(a.out);
-  const tf32::FwdWork w = tf32::fwd_work_of(a.BG, a.N, a.J);
+  const tf32::FwdWork w = tf32::fwd_work_of(a.BG, a.N, a.J, kDH);
   if (a.work == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((a.N + kBlock - 1) / kBlock, a.BG, w.seg);
   float2* part = reinterpret_cast<float2*>(a.work + w.part);
@@ -566,32 +609,70 @@ cudaError_t launch_tf32(const Args& a) {
   outs<<<grid, kThreads, 0, a.stream>>>(q, k, v, a.work + w.out, n, a.work, part, a.N, a.J,
                                         w.per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)std::min<size_t>((n / 4 + 255) / 256, 8 * 132);
-  tf32::attn_bwd_combine<<<blocks, 256, 0, a.stream>>>(
-      reinterpret_cast<const float4*>(a.work + w.out), w.seg, n / 4, 1,
-      reinterpret_cast<float4*>(out), nullptr);
-  return cudaGetLastError();
+  return combine(a, a.work + w.out, w.seg, n, out);
 }
 
-// bf16 to the tensor-core kernel, f32 at dh 64 to the CUDA-core twin
-template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
-cudaError_t launch(const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
-  } else {
-    constexpr int DH = 64;
-    constexpr size_t smem = smem_bytes<T, DH>();
-    auto kernel = deform_attn_fwd_kernel<T, DH, HAS_BIAS, HAS_SPAN, DROP>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.N + kRows - 1) / kRows, a.BG);
-    kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.bias), a.span, static_cast<T*>(a.out), a.N, a.J,
-        a.keep_prob, a.inv_keep, a.seed);
+// max_shared, and the dynamic shared memory of the dh = 64 kernel's passes
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP, bool STATS, bool OUT>
+cudaError_t prepare64() {
+  auto kernel = tf32::attn_fwd_tf32_64<HAS_BIAS, HAS_SPAN, DROP, STATS, OUT>;
+  constexpr int smem = tf32::fwd_tiles64<STATS, OUT>() * tf32::kTile64 * sizeof(float);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return err != cudaSuccess ? err : max_shared(kernel);
+}
+
+// The f32 dh = 64 forms on the tf32 tensor cores: as launch_tf32, with the
+// bias, the span and dropout
+template <bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch_tf32_64(const Args& a) {
+  using tf32::kBlock;
+  using tf32::kDH64;
+  using tf32::kThreads;
+  using tf32::kTile64;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* bias = static_cast<const float*>(a.bias);
+  float* out = static_cast<float*>(a.out);
+  const tf32::FwdWork w = tf32::fwd_work_of(a.BG, a.N, a.J, kDH64);
+  if (a.work == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((a.N + kBlock - 1) / kBlock, a.BG, w.seg);
+  float2* part = reinterpret_cast<float2*>(a.work + w.part);
+  constexpr int kBytes = sizeof(float) * kTile64;
+  cudaError_t err;
+  if (w.seg == 1) {
+    if ((err = prepare64<HAS_BIAS, HAS_SPAN, DROP, true, true>()) != cudaSuccess) return err;
+    tf32::attn_fwd_tf32_64<HAS_BIAS, HAS_SPAN, DROP, true, true>
+        <<<grid, kThreads, tf32::fwd_tiles64<true, true>() * kBytes, a.stream>>>(
+            q, k, v, bias, a.span, out, 0, a.work, nullptr, a.N, a.J, w.per, a.keep_prob,
+            a.inv_keep, a.seed);
     return cudaGetLastError();
   }
+  if ((err = prepare64<HAS_BIAS, HAS_SPAN, DROP, true, false>()) != cudaSuccess ||
+      (err = prepare64<HAS_BIAS, HAS_SPAN, DROP, false, true>()) != cudaSuccess)
+    return err;
+  const size_t n = (size_t)a.BG * a.N * kDH64;
+  tf32::attn_fwd_tf32_64<HAS_BIAS, HAS_SPAN, DROP, true, false>
+      <<<grid, kThreads, tf32::fwd_tiles64<true, false>() * kBytes, a.stream>>>(
+          q, k, v, bias, a.span, nullptr, 0, a.work, part, a.N, a.J, w.per, a.keep_prob,
+          a.inv_keep, a.seed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  tf32::attn_fwd_tf32_64<HAS_BIAS, HAS_SPAN, DROP, false, true>
+      <<<grid, kThreads, tf32::fwd_tiles64<false, true>() * kBytes, a.stream>>>(
+          q, k, v, bias, a.span, a.work + w.out, n, a.work, part, a.N, a.J, w.per,
+          a.keep_prob, a.inv_keep, a.seed);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return combine(a, a.work + w.out, w.seg, n, out);
+}
+
+// bf16 to the tensor-core kernel, f32 at dh 64 to the tf32 one
+template <typename T, bool HAS_BIAS, bool HAS_SPAN, bool DROP>
+cudaError_t launch(const Args& a) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_tc<HAS_BIAS, HAS_SPAN, DROP>(a);
+  else
+    return launch_tf32_64<HAS_BIAS, HAS_SPAN, DROP>(a);
 }
 
 template <typename T>
@@ -632,7 +713,10 @@ extern "C" int deform_attn_fwd(int dtype, int bias_dtype, const void* q, const v
   return cudaErrorInvalidValue;
 }
 
-// Floats of the scratch the dh = 32 form needs (0 for every other form).
-extern "C" long long deform_attn_fwd_work(int BG, int N, int J, int DH) {
-  return DH == 32 ? static_cast<long long>(tf32::fwd_work_of(BG, N, J).total) : 0;
+// Floats of the scratch an f32 launch (dtype 0, dh 32 or 64) needs: each
+// row's lse, and the partial sums of the key segments it cuts the keys into
+// (0 for bf16).
+extern "C" long long deform_attn_fwd_work(int dtype, int BG, int N, int J, int DH) {
+  if (dtype != 0 || (DH != 32 && DH != 64)) return 0;
+  return static_cast<long long>(tf32::fwd_work_of(BG, N, J, DH).total);
 }

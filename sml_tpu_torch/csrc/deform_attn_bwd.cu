@@ -794,28 +794,14 @@ attn_bwd_rows_tf32_64(const float* __restrict__ q, const float* __restrict__ k,
     const int c_end = wrow0 < N ? min(kBlock, J - j0) : 0;
 #pragma unroll 1
     for (int c0 = 0; c0 < c_end; c0 += 32) {
-      // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w
+      // s[i][2h + w], dp[i][2h + w]: row row[h], key j0 + c0 + 8 i + col + w;
+      // the forward's score code, with dp's product before the mask
       float2 b[4][2];
-      if (HAS_BIAS) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            b[i][h] = in_bag[h] ? load_pair64(bias + brow[h], j0 + c0 + 8 * i + col, J, even)
-                                : make_float2(0.f, 0.f);
-      }
+      if (HAS_BIAS) bias_pairs64(b, bias, brow, in_bag, j0 + c0, col, J, even);
       float s[4][4], dp[4][4];
       product_nt64<4>(s_q, sk, c0, off, s);
       product_nt64<4>(s_do, sv, c0, off, dp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1, j = j0 + c0 + 8 * i + col + (e & 1);
-          float& x = s[i][e];
-          if (HAS_BIAS) x += (e & 1) ? b[i][h].y : b[i][h].x;
-          x = j < J ? attn::mask_score<HAS_SPAN>(x, mask, uniform[h], j) : attn::kNegMax;
-        }
+      mask_scores64<HAS_BIAS, HAS_SPAN>(s, b, mask, uniform, j0 + c0, col, J);
       if (DROP) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)

@@ -50,19 +50,19 @@ source notes).  Ragged row and key tiles are masked in the kernels.  In bf16
 every product of both runs on the tensor cores (warp-level ``mma.sync``,
 ``csrc/mma.cuh``), and the forward's first pass is the backward rows kernel's
 own code (``csrc/attn_tc.cuh``), meant to give the same log-sum-exp (not
-checked bit for bit on the card: the forward returns no lse); the f32
-forward at dh = 64 keeps a CUDA-core twin (one warp per row with an online
-softmax).  The f32 dh = 32 forward and the f32 backward at both head dims
-(at dh = 64 in every form: the default compute dtype's) run on the tf32
-tensor cores, each f32 product as three tf32 products (3xTF32: operands
-split into hi + lo), the tensor-core sums folded into f32 registers every
-tile (or, at dh = 64, every 32 keys or 16 rows); at dh = 32 with one
-statistics walk (``csrc/attn_tf32.cuh``), so the forward's log-sum-exp is
-the backward's bit for bit; where one side is thin (the Nystrom chains'
-landmarks, the deformable attention's keys) the long axis is cut into
-segments whose partial sums go to an f32 scratch that this wrapper allocates
-(``deform_attn_fwd_work`` / ``deform_attn_bwd_work`` give its size) and are
-added in segment order, so the result still repeats bit for bit.
+checked bit for bit on the card: the forward returns no lse).  Every f32
+form, forward and backward, at both head dims (at dh = 64 in every form: the
+default compute dtype's) runs on the tf32 tensor cores, each f32 product as
+three tf32 products (3xTF32: operands split into hi + lo), the tensor-core
+sums folded into f32 registers every tile (or, at dh = 64, every 32 keys or
+16 rows), with one statistics walk for the forward and the backward's rows
+kernel (``csrc/attn_tf32.cuh``), so the forward's log-sum-exp, which it
+leaves in its scratch, is the backward's bit for bit; where one side is thin
+(the Nystrom chains' landmarks, the deformable attention's keys) the long
+axis is cut into segments whose partial sums go to an f32 scratch that this
+wrapper allocates (``deform_attn_fwd_work`` / ``deform_attn_bwd_work`` give
+its size) and are added in segment order, so the result still repeats bit
+for bit.
 
 On CPU tensors the wrappers take the plain versions; on CUDA tensors they
 launch their kernels or raise.
@@ -93,7 +93,7 @@ def _library(name: str):
                 [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                 + [ctypes.c_float] * 2 + [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p])
             lib.deform_attn_fwd.restype = ctypes.c_int
-            lib.deform_attn_fwd_work.argtypes = [ctypes.c_int] * 4
+            lib.deform_attn_fwd_work.argtypes = [ctypes.c_int] * 5
             lib.deform_attn_fwd_work.restype = ctypes.c_longlong
         else:
             lib.deform_attn_bwd.argtypes = (
@@ -262,8 +262,8 @@ def deform_attention_fwd(q, k, v, bias=None, keep_prob=1.0, seed=0, span=None):
     _check_kernel("deform_attention_fwd", q, bias, span, keep_prob, (q, k, v, bias, span))
     out = torch.empty_like(q)
     lib = _library("deform_attn")
-    # the dh = 32 kernel's lse and its partial sums over segments of the keys
-    n_work = lib.deform_attn_fwd_work(bg, n, j, dh)
+    # the f32 kernels' lse and their partial sums over segments of the keys
+    n_work = lib.deform_attn_fwd_work(_DTYPE_CODE[q.dtype], bg, n, j, dh)
     work = torch.empty(n_work, dtype=torch.float32, device=q.device) if n_work else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):

@@ -119,7 +119,8 @@ def test_cuda_cpb_bias_matches_plain(dtype, bg, h, w, j, dm):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bg,n,j",
-                         [(4, 100, 144)] + [(4, n, j) for n, j in RAGGED + RAGGED_BIAS])
+                         [(4, 100, 144)] + [(4, n, j) for n, j in RAGGED + RAGGED_BIAS]
+                         + [(4, 256, 2560)])
 @pytest.mark.parametrize("form", ["bias", "nobias", "span", "span_bias"])
 @pytest.mark.parametrize("keep_prob", [1.0, 0.9])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -128,9 +129,12 @@ def test_cuda_deform_attention_matches_plain(dtype, keep_prob, form, bg, n, j):
     and chip_smoke.py's ragged shapes, J = 20 / 72 / 37 / 38 / 39 / 41 / 42 /
     43 (a partial 64-key tile; every residue of J mod 8, at which the staged
     bias tile's rows start at another 16-byte phase) with N = 100 and 65
-    (partial row tiles, one row past a tile); the span batch has an interior interval, a whole bag, a bag
-    with no valid row and one with no valid column.  A second launch must
-    return the first one's output bit for bit."""
+    (partial row tiles, one row past a tile), and a thin row side, 256 rows
+    against 2560 keys at BG 4, which the f32 kernel cuts into key segments
+    (statistics, outputs per segment, their sum); the span batch has an
+    interior interval, a whole bag, a bag with no valid row and one with no
+    valid column.  A second launch must return the first one's output bit
+    for bit."""
     dev = _cuda()
     q, k, v, bias = (torch.from_numpy(a).to(dev, dtype) for a in _attn_inputs(2, bg, n, j))
     bias = bias if form in ("bias", "span_bias") else None
