@@ -9,7 +9,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build    nvcc builds of every kernel source, with the compiler's register
             and spill report of every kernel, the f32 dh = 64 forward's
             ``attn_fwd_tf32_64`` and backward's ``attn_bwd_rows_tf32_64`` /
-            ``attn_bwd_keys_tf32_64`` among them
+            ``attn_bwd_keys_tf32_64`` and the f32 CPB backward's
+            ``cpb_bias_bwd_tf32`` among them
             (a spill fails the run);
 3. ragged   the attention forward and backward in all eight forms, and the
             f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
@@ -40,7 +41,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
             on the tf32 tensor cores, also give their bound at 3xTF32; each
             f32 forward its error against float64 beside the plain
             version's and its lse, which must equal the backward's bit for
-            bit); the bf16 forwards' largest
+            bit; the f32 CPB backward each gradient's relative L2 error
+            against float64 beside the plain version's); the bf16 forwards' largest
             error in bf16 ulps of each element and their share of elements
             equal to the plain version's; then the f32-bias forms at the 1-D
             path's shape (BG = 64, N = 2501, J = 625), dbias at the f32 bound;
@@ -89,6 +91,8 @@ on masked bags):
             ``--compute_dtype`` (the config's default, float32): every
             attention launch in the f32 dh = 64 form (the backward on the
             tf32 tensor cores), 2 and 4 backward launches per train step,
+            and deformpathomic's CPB launches in f32 (the backward on the
+            tf32 tensor cores), 2 each per train step,
             finite losses, one train step's loss and every gradient through
             the kernels against the plain versions at TRAIN_TOL["float32"], the
             train step's time, bags/s and peak memory.
@@ -450,6 +454,63 @@ def _compare_grads(got, want, rtol: float, l2: bool = False) -> dict:
             "metric": "l2" if l2 else "of_scale", "ok": ok}
 
 
+CPB_GRADS = ("d_dx", "d_dy", "dw0x", "dw0y", "db0", "dw1", "db1", "dw2", "db2")
+# the f32 CPB backward's former CUDA-core twin (replaced by
+# the tf32 kernel): its largest relative L2 error of a gradient against the
+# plain version at S2500 / S4096 in phase 4 (PERF.md's kernel table), printed
+# beside the kernel's own for comparison, not as a pass rule
+CPB_BWD_TWIN_L2 = {2500: 4.5e-4, 4096: 4.8e-4}
+
+
+def _cpb_bwd_f64(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
+    """The CPB backward's formulas (``cpb_bias_bwd_plain``'s, f32 weights) in
+    float64, rows in chunks so the (BG, rows, W, J, dm) activations stay under
+    2**25 elements: the exact yardstick of the f32 kernel and the plain f32
+    version."""
+    from sml_tpu_torch.ops.kernels.cpb_bias import _layer1
+
+    dx, dy, w0x, w0y, b0, w1, b1, w2, dbias = (
+        t.double() for t in (dx, dy, w0x, w0y, b0, w1, b1, w2, dbias))
+    bg, wj = dx.shape
+    _, h, j = dy.shape
+    w, dm = wj // j, w1.shape[0]
+    ddx, ddy = dx.new_zeros(bg, w, j), dx.new_empty(bg, h, j)
+    acc = [dx.new_zeros(s) for s in (dm, dm, dm, (dm, dm), dm, dm, 1)]
+    rows = max(1, (1 << 25) // (bg * wj * dm))
+    for y0 in range(0, h, rows):
+        a = _layer1(dx, dy, w0x, w0y, b0, y0, rows)                 # (BG, r, W, J, dm)
+        h1 = torch.relu(a)
+        z2 = h1 @ w1 + b1
+        g = dbias[:, y0:y0 + rows].reshape(bg, -1, w, j)
+        dz2 = torch.where(z2 > 0, w2[:, 0] * g[..., None], 0.0)
+        dz1 = torch.where(a > 0, dz2 @ w1.T, 0.0)
+        ddx += (dz1 @ w0x).sum(dim=1)
+        ddy[:, y0:y0 + rows] = (dz1 @ w0y).sum(dim=2)
+        for i, part in enumerate((
+                torch.einsum("brxjk,bxj->k", dz1, dx.reshape(bg, w, j)),
+                torch.einsum("brxjk,brxj->k", dz1, dy[:, y0:y0 + rows, None, :].expand_as(g)),
+                dz1.sum(dim=(0, 1, 2, 3)), torch.einsum("brxjk,brxjm->km", h1, dz2),
+                dz2.sum(dim=(0, 1, 2, 3)), torch.einsum("brxjm,brxj->m", torch.relu(z2), g),
+                g.sum().reshape(1))):
+            acc[i] += part
+        del a, h1, z2, g, dz2, dz1
+    return (ddx.reshape(bg, wj), ddy, *acc[:5], acc[5].reshape(dm, 1), acc[6])
+
+
+def _cpb_bwd_f64_errors(got, want, args, dbias, fixdim: int) -> dict:
+    """Each gradient's relative L2 error against ``_cpb_bwd_f64``, for the f32
+    kernel (``rel_l2_f64``) and the plain f32 version (``plain_rel_l2_f64``),
+    beside the twin's figure against the plain version (CPB_BWD_TWIN_L2)."""
+    exact = _cpb_bwd_f64(*args, dbias)
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+    return {"rel_l2_f64": {n: rel(a, b) for n, a, b in zip(CPB_GRADS, got, exact)},
+            "plain_rel_l2_f64": {n: rel(a, b) for n, a, b in zip(CPB_GRADS, want, exact)},
+            "twin_rel_l2_plain": CPB_BWD_TWIN_L2.get(fixdim)}
+
+
 def _compare_f32_dbias(got: torch.Tensor, want: torch.Tensor) -> dict:
     """The f32-bias form's dbias on its own, at the f32 gradient bound:
     max|kernel - plain| <= GRAD_RTOL[float32] * max|plain| (its other three
@@ -560,16 +621,18 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             cost = (table_bytes * 2 + w_bytes * 2 + size * pairs, pairs * (6 * DM * DM + 16 * DM))
             bound_ms, bound_by = _bound(*cost, dtype)
+            want = cpb_bias_bwd_plain(*args[:8], dbias)
             rows.append({"name": "cpb_bias_bwd",
-                         **_compare_grads(got, cpb_bias_bwd_plain(*args[:8], dbias),
-                                          CPB_GRAD_L2, l2=True),
+                         **_compare_grads(got, want, CPB_GRAD_L2, l2=True),
+                         **(_cpb_bwd_f64_errors(got, want, args[:8], dbias, fixdim)
+                            if dtype == torch.float32 else {}),
                          "repeats": _repeats(lambda: cpb_bias_bwd(*args[:8], dbias), got),
                          "ms": _time_ms(lambda: cpb_bias_bwd(*args[:8], dbias)),
                          "plain_ms": _time_ms(lambda: cpb_bias_bwd_plain(*args[:8], dbias),
                                               iters=slow_iters, warmup=1),
                          "bound_ms": bound_ms, "bound_by": bound_by, **_tf32x3(cost, dtype),
                          "library_ms": None})
-            del got, dbias
+            del got, want, dbias
 
             q = (torch.randn(BG, n, DH, device="cuda", generator=g) * DH ** -0.5).to(dtype)
             k = torch.randn(BG, j, DH, device="cuda", generator=g).to(dtype)
@@ -676,6 +739,8 @@ def phase_kernels() -> dict:
                     entries["deform_attention_bwd_f32"] = e
                 if fixdim == MAIN_FIXDIM and f32 and e["name"] == "deform_attention_fwd_dropout":
                     entries["deform_attention_fwd_f32"] = e
+                if fixdim == MAIN_FIXDIM and f32 and e["name"] in ("cpb_bias", "cpb_bias_bwd"):
+                    entries[e["name"] + "_f32"] = e
             del args, bias, q, k, v, dout, out, plain, keep, fbias, span
             torch.cuda.empty_cache()
     for e in _f32_bias_rows():
@@ -832,9 +897,9 @@ CPB_RAGGED = ((8, 8, 4), (9, 7, 20), (6, 11, 37), (5, 9, 72))
 
 def phase_cpb_ragged() -> None:
     """The CPB forward and backward at ragged shapes, dm 8 / 16 / 32, f32 (the
-    CUDA-core twins) and bf16 (the tensor-core kernels), against their plain
-    versions (the forward at KERNEL_TOL, the backward at CPB_GRAD_L2), and two
-    launches bit for bit."""
+    forward's CUDA-core twin, the backward's tf32 tensor-core kernel) and bf16
+    (the tensor-core kernels), against their plain versions (the forward at
+    KERNEL_TOL, the backward at CPB_GRAD_L2), and two launches bit for bit."""
     from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                            cpb_bias_plain)
 
@@ -1327,10 +1392,13 @@ TRAIN_LAUNCHES = {
     "cmta": {"deform_attention_fwd": 8, "deform_attention_fwd_nobias": 8,
              "deform_attention_fwd_dh32": 8, "deform_attention_bwd": 8,
              "deform_attention_bwd_nobias": 8, "deform_attention_bwd_dh32": 8}}
-# the f32 dh = 64 forms that the default compute dtype (float32) adds to
+# the f32 forms that the default compute dtype (float32) adds to
 # TRAIN_LAUNCHES per train step: every attention launch of deformpathomic and
-# TransMIL, both directions (the backward on the tf32 kernels)
-F32_LAUNCHES = {"deformpathomic": {"deform_attention_fwd_f32": 2, "deform_attention_bwd_f32": 2},
+# TransMIL in the f32 dh = 64 form, both directions, and every CPB launch of
+# deformpathomic in f32 (the backward on the tf32 kernel, the forward on its
+# CUDA-core twin)
+F32_LAUNCHES = {"deformpathomic": {"deform_attention_fwd_f32": 2, "deform_attention_bwd_f32": 2,
+                                   "cpb_bias_f32": 2, "cpb_bias_bwd_f32": 2},
                 "transmil": {"deform_attention_fwd_f32": 4, "deform_attention_bwd_f32": 4}}
 # the span forms that a masked bag adds to TRAIN_LAUNCHES per train step (and,
 # the forward's, to SERVE_LAUNCHES per eval batch): TransMIL's four masked
@@ -1611,7 +1679,9 @@ def phase_f32_train(card: dict) -> dict:
     """Phase 6 for deformpathomic and for TransMIL at the default compute dtype
     (no ``--compute_dtype``: float32), whose attention runs the f32 dh = 64
     forms: every backward launch (2 and 4 per train step) counted as the f32
-    form of the tf32 kernels, finite losses, one train step's loss and
+    form of the tf32 kernels, and deformpathomic's CPB forward and backward
+    launches (2 each) as their f32 forms (``cpb_bias_f32``,
+    ``cpb_bias_bwd_f32``), finite losses, one train step's loss and
     gradients through the kernels against the plain versions at
     TRAIN_TOL["float32"]; returns the launch counts by path."""
     return {path: phase_train(card, path, label="f32-train", default_dtype=True)
@@ -3562,6 +3632,19 @@ def main() -> int:
                         **{c: {"shape": f"f32 dh=64, bias-less, BG={BG} N={x['n']} J={x['j']}",
                                **{k: x[k] for k in _TIMES + ("bound_3xtf32_ms",) + extra}}
                            for c, x in chain.items()}})
+    # the f32 CPB forward and backward (the default compute dtype's): phase 4 at
+    # S2500, the f32-train launches
+    for name, source, replaces, _ in JSON_KERNELS[:2]:
+        e = entries[name + "_f32"]
+        design = "3xTF32 mma.sync" if name == "cpb_bias_bwd" else "CUDA cores"
+        kernels.append({"name": name + "_f32", "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": f32_runs["deformpathomic"][name + "_f32"],
+                        "launches_run": "f32-train", **{k: e[k] for k in _TIMES},
+                        "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": design,
+                        **{k: e[k] for k in ("max_rel_l2_err", "rel_l2_f64",
+                                             "plain_rel_l2_f64") if k in e},
+                        "shape": f"f32, BG={BG} N={e['n']} J={e['j']} dm={DM}"})
     for name, source, replaces, count, design in DH32_KERNELS:
         e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -3,27 +3,42 @@
 on one CUDA card.
 
     python3 scripts/profile_cpb_bwd.py [--tag NAME] [--csrc DIR] [--iters 20]
+                                       [--variant threeblocks|rna|onetile|nodw1]
 
 Builds ``cpb_bias.cu`` and ``cpb_bias_bwd.cu`` from ``--csrc`` (default: the
 package's ``sml_tpu_torch/csrc``; a directory holding variants of the sources
 and their shared headers, such as another commit's, compares them in the same
 call) into ``build/profile_cpb/<tag>/``, prints each kernel instantiation's
-registers and spill stores from the ptxas logs, then, at the main path's
+registers and spill stores from the ptxas logs, with its SASS instructions
+and the ``HMMA`` among them (``cuobjdump``, where the toolkit has it), then,
+at the main path's
 shapes (BG = 64, dm = 32; S2500: 50 x 50 queries, J = 144; S4096: 64 x 64, J =
 256), f32 and bf16, for the forward (``"pass": "fwd"``) and the backward
 (``"bwd"``): the largest error against the plain version (the forward's
 largest absolute error, the backward's largest relative L2 error of a
-gradient), whether a second launch repeats the first bit for bit, and the
-median device time of one launch over ``--iters`` CUDA-event timings.  One
-JSON line per item, prefixed with ``--tag``, so that runs of two sources can
-be told apart.
+gradient), whether a second launch repeats the first bit for bit, a digest
+of the output's bits (equal digests of two trees: equal results, the inputs
+being drawn in the same order), and the median device time of one launch
+over ``--iters`` CUDA-event timings.  One JSON line per item, prefixed with
+``--tag``, so that runs of two sources can be told apart.
+
+``--variant`` builds the f32 backward (``tf32::cpb_bias_bwd_tf32``) from a
+copy of the sources with one design choice changed (several, comma-separated,
+apply together): ``threeblocks`` names three blocks an SM in its launch bound
+instead of two (ptxas then gives each thread at most 168 registers), ``rna``
+splits dw1's staged operand g h1 to nearest (``mma::split_tf32``) instead of
+truncating it, ``onetile`` takes one m16 tile of pairs a warp step instead of
+two; and ``nodw1``, a timing ablation whose gradients are wrong, leaves dw1's
+products out.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -38,8 +53,18 @@ from sml_tpu_torch.ops.kernels import (_build, cpb_bias, cpb_bias_bwd,  # noqa: 
                                        cpb_bias_bwd_plain, cpb_bias_plain)
 
 SOURCES = ("cpb_bias", "cpb_bias_bwd")
-KERNEL = re.compile(r"(cpb_bias_fwd_tc|cpb_bias_bwd_tc|cpb_bias_bwd_kernel|cpb_bias_kernel)"
+KERNEL = re.compile(r"(cpb_bias_fwd_tc|cpb_bias_bwd_tc|cpb_bias_bwd_tf32|cpb_bias_kernel)"
                     r"I(\w*?)Li(\d+)E")
+# the variants of the f32 backward: ((file, its text, the variant's), ...)
+VARIANTS = {
+    "threeblocks": (("cpb_bias_bwd.cu", "constexpr int kBlocksPerSM = 2;",
+                     "constexpr int kBlocksPerSM = 3;"),),
+    "rna": (("cpb_bias_bwd.cu", "mma::split_tf32_trunc(", "mma::split_tf32("),),
+    "onetile": (("cpb_bias_bwd.cu", "constexpr int kTiles = 2;", "constexpr int kTiles = 1;"),),
+    # a timing ablation, whose gradients are wrong: dw1's products left out
+    "nodw1": (("cpb_bias_bwd.cu", "            mma::mma_tf32(acc_w1[mt][n], al, b.x, b.y);\n"
+               "            mma::mma_tf32(acc_w1[mt][n], ah, b.x, b.y);\n", ""),),
+}
 
 BG, DM = 64, 32
 SHAPES = {2500: (50, 144), 4096: (64, 256)}       # fixdim -> (query side, J)
@@ -59,23 +84,46 @@ def _time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def ptxas(tag: str) -> None:
-    """Registers and spill stores of every kernel instantiation."""
-    name = None
-    for line in "\n".join(_build.build_log(s) for s in SOURCES).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+def _sass_counts(lib: Path) -> dict:
+    """{mangled kernel: (SASS instructions, HMMA among them)} of a library,
+    by cuobjdump (the CUDA toolkit's); {} without it."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            k = KERNEL.search(m.group(1))
+            kernel = m.group(1)
+            counts[kernel] = [0, 0]
+        elif kernel and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[kernel][0] += 1
+            counts[kernel][1] += "HMMA" in line
+    return counts
+
+
+def ptxas(tag: str) -> None:
+    """Registers, spill stores, SASS instructions and HMMA of every kernel
+    instantiation."""
+    for src in SOURCES:
+        sass = _sass_counts(_build.library_path(src))
+        for mangled, (regs, spill) in _build.kernel_usage(_build.build_log(src)).items():
+            k = KERNEL.search(mangled)
             name = (f"{k.group(1)}{'<' + k.group(2) + '>' if k.group(2) else ''} "
-                    f"dm={k.group(3)}" if k else m.group(1))
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            print(json.dumps({"tag": tag, "kernel": name, "registers": int(m.group(1)),
-                              "spill_stores": spill}), flush=True)
-            name = None
+                    f"dm={k.group(3)}" if k else mangled)
+            line = {"tag": tag, "kernel": name, "registers": regs, "spill_stores": spill}
+            if mangled in sass:
+                line["sass_instructions"], line["hmma"] = sass[mangled]
+            print(json.dumps(line), flush=True)
+
+
+def _digest(tensors) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bits."""
+    return hashlib.sha256(b"".join(
+        a.contiguous().view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32)
+        .cpu().numpy().tobytes() for a in tensors)).hexdigest()[:16]
 
 
 def main() -> int:
@@ -83,6 +131,8 @@ def main() -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--csrc", default=str(_build.CSRC))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--variant", help=f"one or more of {', '.join(VARIANTS)}, "
+                    "comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_cpb_bwd: no CUDA device", file=sys.stderr)
@@ -90,6 +140,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.CSRC = Path(args.csrc).resolve()
     _build.BUILD_DIR = ROOT / "build" / "profile_cpb" / args.tag
+    if args.variant:
+        csrc = _build.BUILD_DIR / "csrc"
+        shutil.rmtree(csrc, ignore_errors=True)
+        shutil.copytree(_build.CSRC, csrc)
+        for name, text, variant in (c for v in args.variant.split(",") for c in VARIANTS[v]):
+            src = csrc / name
+            if text not in src.read_text():
+                print(f"profile_cpb_bwd: {name} lacks the text of --variant {args.variant}",
+                      file=sys.stderr)
+                return 1
+            src.write_text(src.read_text().replace(text, variant))
+        _build.CSRC = csrc
     _build.build(SOURCES)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -112,6 +174,7 @@ def main() -> int:
                               "max_abs_err": (bias.float() - cpb_bias_plain(*inputs, b2).float()
                                               ).abs().max().item(),
                               "repeats": torch.equal(bias, again),
+                              "digest": _digest([bias]),
                               "ms": _time_ms(lambda: cpb_bias(*inputs, b2), args.iters)}),
                   flush=True)
             del bias, again
@@ -125,6 +188,7 @@ def main() -> int:
                               "dtype": str(dtype).split(".")[-1],
                               "max_rel_l2_err": rel,
                               "repeats": all(torch.equal(a, b) for a, b in zip(got, again)),
+                              "digest": _digest(got),
                               "ms": _time_ms(lambda: cpb_bias_bwd(*inputs, dbias), args.iters)}),
                   flush=True)
             del got, again, want, inputs, dbias

@@ -13,8 +13,10 @@ from sml_tpu_torch.ops.kernels.jpeg import jpeg_pixels, jpeg_pixels_plain
 from sml_tpu_torch.ops.kernels.philox import philox_keep_mask
 
 KERNELS = (cpb_bias, cpb_bias_bwd, deform_attention_fwd, deform_attention_bwd, jpeg_pixels)
-# the per-form counts of the attention wrappers: (wrapper, attribute, key)
-_FORMS = ((deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropout"),
+# the per-form counts of the wrappers: (wrapper, attribute, key)
+_FORMS = ((cpb_bias, "f32_launches", "cpb_bias_f32"),
+          (cpb_bias_bwd, "f32_launches", "cpb_bias_bwd_f32"),
+          (deform_attention_fwd, "dropout_launches", "deform_attention_fwd_dropout"),
           (deform_attention_fwd, "nobias_launches", "deform_attention_fwd_nobias"),
           (deform_attention_fwd, "span_launches", "deform_attention_fwd_span"),
           (deform_attention_fwd, "f32bias_launches", "deform_attention_fwd_f32bias"),
@@ -35,10 +37,11 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches}, and the attention wrappers' launches by form:
-    with dropout, without a bias, with a span, with an f32 bias beside bf16
-    q, k, v, at head dim 32, in f32 at head dim 64 (the default compute
-    dtype's form)."""
+    """{wrapper name: launches}, the CPB wrappers' f32 launches (the default
+    compute dtype's), and the attention wrappers' launches by form: with
+    dropout, without a bias, with a span, with an f32 bias beside bf16 q, k,
+    v, at head dim 32, in f32 at head dim 64 (the default compute dtype's
+    form)."""
     counts = {fn.__name__: fn.launches for fn in KERNELS}
     counts.update({key: getattr(fn, attr) for fn, attr, key in _FORMS})
     return counts

@@ -28,12 +28,15 @@ FLOP, and most of the instructions) in f32 on the CUDA cores.  The backward
 runs one block per (bg, tile of 512 lanes) over all rows: d_dx stays on chip,
 d_dy and the weight gradients leave as small per-block partials that the
 wrapper sums, in a fixed order with no atomics, so it repeats bit for bit.
-Its bf16 form runs the three dm x dm products per pair on the tensor cores.
-Both bf16 forms compute layers 1 and 2 with one piece of code
-(``csrc/cpb_common.cuh``), so the backward's recomputed z2, and its layer-2
-ReLU mask, are the forward's bit for bit.  The f32 forms are CUDA-core twins
-that run the per-pair MLP in f32 registers (see the source notes).  ``wgmma``
-is later work.
+Its bf16 form runs the three dm x dm products per pair on the tensor cores,
+its f32 form (``tf32::cpb_bias_bwd_tf32``) on the tf32 tensor cores as
+3xTF32 (three tf32 products for each f32 one).  Both bf16 forms compute
+layers 1 and 2 with one piece of code (``csrc/cpb_common.cuh``), so the
+backward's recomputed z2, and its layer-2 ReLU mask, are the forward's bit for
+bit; the f32 backward's layers 1 and 2 are that header's ``cpb::tf32`` code,
+written for the f32 forward too, which is still a CUDA-core twin running the
+per-pair MLP in f32 registers (see the source notes).  ``wgmma`` is later
+work.
 
 Rounding points of the bf16 forms, each one where the Pallas kernels round
 too: h1 to bf16 before layer 2 (forward and backward), dz2 to bf16 before its
@@ -148,7 +151,7 @@ def cpb_bias(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
     tables; w0x, w0y, b0, b1 (dm,), w1 (dm, dm), w2 (dm, 1), b2 (1,) share the
     compute dtype (float32 or bfloat16).  CPU tensors take the plain version;
     CUDA tensors launch the kernel (bf16: the tensor-core kernel; f32: its
-    CUDA-core twin).
+    CUDA-core twin, counted apart in ``f32_launches`` too).
     """
     weights = (w0x, w0y, b0, w1, b1, w2, b2)
     bg, h, w, j, dm = _check(dx, dy, weights)
@@ -169,10 +172,12 @@ def cpb_bias(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
                               bg, h, w, j, dm, dx.device.index, stream)
     _build.check(rc, "cpb_bias")
     cpb_bias.launches += 1
+    if w1.dtype == torch.float32:
+        cpb_bias.f32_launches += 1
     return out
 
 
-cpb_bias.launches = 0
+cpb_bias.launches = cpb_bias.f32_launches = 0
 
 
 def cpb_bias_bwd_plain(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
@@ -226,8 +231,9 @@ def cpb_bias_bwd(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     weights' dtype: (d_dx (BG, W*J) f32, d_dy (BG, H, J) f32, dw0x, dw0y, db0,
     dw1, db1, dw2, db2 in the weights' dtype), recomputed from the inputs.
     CPU tensors take the plain version; CUDA tensors launch the kernel (bf16:
-    the tensor-core kernel; f32: its CUDA-core twin), whose per-block partials
-    of d_dy and the weight gradients are summed here."""
+    the tensor-core kernel; f32: the 3xTF32 kernel on the tf32 tensor cores,
+    counted apart in ``f32_launches`` too), whose per-block partials of d_dy
+    and the weight gradients are summed here."""
     weights = (w0x, w0y, b0, w1, b1, w2)
     bg, h, w, j, dm = _check(dx, dy, weights + (w2.new_zeros(1),))
     if tuple(dbias.shape) != (bg, h, w * j) or dbias.dtype != w1.dtype:
@@ -255,6 +261,8 @@ def cpb_bias_bwd(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
                               bg, h, w, j, dm, dx.device.index, stream)
     _build.check(rc, "cpb_bias_bwd")
     cpb_bias_bwd.launches += 1
+    if w1.dtype == torch.float32:
+        cpb_bias_bwd.f32_launches += 1
     wsum = wpart.sum(dim=(0, 1)).to(w1.dtype)
     dw1, rest = wsum[:dm * dm].reshape(dm, dm), wsum[dm * dm:]
     dw0x, dw0y, db0, db1, dw2 = rest[:5 * dm].reshape(5, dm)
@@ -262,7 +270,7 @@ def cpb_bias_bwd(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
             rest[5 * dm:])
 
 
-cpb_bias_bwd.launches = 0
+cpb_bias_bwd.launches = cpb_bias_bwd.f32_launches = 0
 
 
 class CPBBiasTrainable(torch.autograd.Function):

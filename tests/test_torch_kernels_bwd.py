@@ -309,6 +309,24 @@ def test_cpb_bias_trainable_on_cpu_is_the_plain_backward():
     assert (cpb_bias.launches, cpb_bias_bwd.launches) == before
 
 
+def test_launch_counts_carry_the_f32_cpb_forms():
+    """The CPB wrappers count their f32 launches (the default compute dtype's)
+    apart: ``launch_counts()`` reports them, ``reset_launch_counts()`` zeroes
+    them with the rest, and a CPU call (the plain version) counts nothing."""
+    from sml_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    counts = launch_counts()
+    assert counts["cpb_bias_f32"] == counts["cpb_bias_bwd_f32"] == 0
+    cpb_bias.f32_launches, cpb_bias_bwd.f32_launches = 3, 5
+    counts = launch_counts()
+    assert (counts["cpb_bias_f32"], counts["cpb_bias_bwd_f32"]) == (3, 5)
+    reset_launch_counts()
+    args = _t(_cpb_inputs(5, 2, 3, 4, 6, 8))
+    cpb_bias_bwd(*args[:8], cpb_bias(*args))
+    assert not any(launch_counts().values())
+
+
 @pytest.mark.parametrize("keep_prob", [1.0, 0.8])
 def test_deform_attention_trainable_on_cpu_is_the_plain_backward(keep_prob):
     q, k, v, bias, dout = _t(_attn_inputs(4, 2, 36, 12))
@@ -473,10 +491,11 @@ def test_cuda_cpb_bias_bwd_matches_plain(dtype, bg, h, w, j):
     args = [torch.from_numpy(a).to(dev) for a in _cpb_inputs(1, bg, h, w, j, 32)]
     args[2:] = [a.to(dtype) for a in args[2:]]
     dbias = torch.randn(bg, h, w * j, device=dev).to(dtype)
-    before = cpb_bias_bwd.launches
+    before = (cpb_bias_bwd.launches, cpb_bias_bwd.f32_launches)
     got = cpb_bias_bwd(*args[:8], dbias)
     torch.cuda.synchronize()
-    assert cpb_bias_bwd.launches == before + 1
+    assert (cpb_bias_bwd.launches, cpb_bias_bwd.f32_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
     # relative L2: the kernel's fused multiply-adds and the plain version's separate
     # operations can take different ReLU-derivative decisions at a ~ 0 (chip_smoke.py)
     for name, g, w_ in zip(CPB_GRADS, got, cpb_bias_bwd_plain(*args[:8], dbias)):
