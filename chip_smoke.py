@@ -9,8 +9,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build    nvcc builds of every kernel source, with the compiler's register
             and spill report of every kernel, the f32 dh = 64 forward's
             ``attn_fwd_tf32_64`` and backward's ``attn_bwd_rows_tf32_64`` /
-            ``attn_bwd_keys_tf32_64`` and the f32 CPB backward's
-            ``cpb_bias_bwd_tf32`` among them
+            ``attn_bwd_keys_tf32_64`` and the f32 CPB forward's
+            ``cpb_bias_fwd_tf32`` and backward's ``cpb_bias_bwd_tf32`` among
+            them
             (a spill fails the run);
 3. ragged   the attention forward and backward in all eight forms, and the
             f32 bias beside bf16 q, k, v (its dbias at the f32 bound), at N =
@@ -27,7 +28,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
             not a multiple of 16; a J split across two backward tiles), dm 8
             / 16 / 32, f32 and bf16, against their plain versions (the
             forward at KERNEL_TOL, the backward at CPB_GRAD_L2), and two
-            launches bit for bit;
+            launches bit for bit; then the f32 forward's and backward's
+            layer-2 ReLU decisions, counted per column of z2 at each shape
+            and dm on random inputs and on inputs that put a class of pairs
+            at z2's rounding boundary, must be equal (``cpb_mask_counts``);
 4. kernels  each CUDA kernel (CPB forward and backward, attention forward
             without and with Philox dropout at keep 0.9, attention backward
             without and with dropout) at the main path's shapes (BG = 8 bags x
@@ -39,10 +43,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
             work; the dropout mask's kept share must be within 5 sigma of 0.9;
             every kernel must repeat bit for bit (the f32 attention kernels,
             on the tf32 tensor cores, also give their bound at 3xTF32; each
-            f32 forward its error against float64 beside the plain
-            version's and its lse, which must equal the backward's bit for
-            bit; the f32 CPB backward each gradient's relative L2 error
-            against float64 beside the plain version's); the bf16 forwards' largest
+            f32 attention forward its error against float64 beside the
+            plain version's and its lse, which must equal the backward's bit
+            for bit; the f32 CPB forward its largest and relative L2 error
+            against float64, the backward each gradient's relative L2 error
+            against float64, beside the plain version's); the bf16 forwards' largest
             error in bf16 ulps of each element and their share of elements
             equal to the plain version's; then the f32-bias forms at the 1-D
             path's shape (BG = 64, N = 2501, J = 625), dbias at the f32 bound;
@@ -91,8 +96,8 @@ on masked bags):
             ``--compute_dtype`` (the config's default, float32): every
             attention launch in the f32 dh = 64 form (the backward on the
             tf32 tensor cores), 2 and 4 backward launches per train step,
-            and deformpathomic's CPB launches in f32 (the backward on the
-            tf32 tensor cores), 2 each per train step,
+            and deformpathomic's CPB launches in f32 (both on the tf32
+            tensor cores), 2 each per train step,
             finite losses, one train step's loss and every gradient through
             the kernels against the plain versions at TRAIN_TOL["float32"], the
             train step's time, bags/s and peak memory.
@@ -497,6 +502,50 @@ def _cpb_bwd_f64(dx, dy, w0x, w0y, b0, w1, b1, w2, dbias):
     return (ddx.reshape(bg, wj), ddy, *acc[:5], acc[5].reshape(dm, 1), acc[6])
 
 
+# the f32 CPB forward's former CUDA-core twin (replaced by the tf32 kernel):
+# its largest absolute error against the plain version at S2500 / S4096 in
+# phase 4 (PERF.md's kernel table), printed beside the kernel's own for
+# comparison, not as a pass rule
+CPB_FWD_TWIN_ERR = {2500: 6.6e-7, 4096: 9.5e-7}
+
+
+def _cpb_fwd_f64(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
+    """The CPB forward's formulas (``cpb_bias_plain``'s, f32 weights) in
+    float64, rows in chunks so the (BG, rows, W, J, dm) activations stay under
+    2**25 elements: the exact yardstick of the f32 kernel and the plain f32
+    version."""
+    from sml_tpu_torch.ops.kernels.cpb_bias import _layer1
+
+    dx, dy, w0x, w0y, b0, w1, b1, w2, b2 = (
+        t.double() for t in (dx, dy, w0x, w0y, b0, w1, b1, w2, b2))
+    bg, wj = dx.shape
+    _, h, j = dy.shape
+    out = dx.new_empty(bg, h, wj)
+    rows = max(1, (1 << 25) // (bg * wj * w1.shape[0]))
+    for y0 in range(0, h, rows):
+        h1 = torch.relu(_layer1(dx, dy, w0x, w0y, b0, y0, rows))
+        bias = (torch.relu(h1 @ w1 + b1) @ w2)[..., 0] + b2           # (BG, r, W, J)
+        out[:, y0:y0 + rows] = bias.reshape(bg, -1, wj)
+        del h1, bias
+    return out
+
+
+def _cpb_fwd_f64_errors(bias, plain, args, fixdim: int) -> dict:
+    """The largest absolute and the relative L2 error against
+    ``_cpb_fwd_f64``, for the f32 kernel (``max_abs_err_f64``,
+    ``rel_l2_f64``) and the plain f32 version (``plain_...``), beside the
+    twin's figure against the plain version (CPB_FWD_TWIN_ERR)."""
+    exact = _cpb_fwd_f64(*args)
+
+    def errs(a):
+        d = a.double() - exact
+        return d.abs().max().item(), (d.norm() / exact.norm().clamp_min(1e-300)).item()
+
+    (k_max, k_l2), (p_max, p_l2) = errs(bias), errs(plain)
+    return {"max_abs_err_f64": k_max, "rel_l2_f64": k_l2, "plain_max_abs_err_f64": p_max,
+            "plain_rel_l2_f64": p_l2, "twin_max_abs_err_plain": CPB_FWD_TWIN_ERR.get(fixdim)}
+
+
 def _cpb_bwd_f64_errors(got, want, args, dbias, fixdim: int) -> dict:
     """Each gradient's relative L2 error against ``_cpb_bwd_f64``, for the f32
     kernel (``rel_l2_f64``) and the plain f32 version (``plain_rel_l2_f64``),
@@ -608,6 +657,8 @@ def phase_kernels() -> dict:
             plain = cpb_bias_plain(*args)
             rows = [{"name": "cpb_bias", **_compare(bias, plain, KERNEL_TOL[dtype]),
                      **_ulps_bf16(bias, plain),
+                     **(_cpb_fwd_f64_errors(bias, plain, args, fixdim)
+                        if dtype == torch.float32 else {}),
                      "repeats": _repeats(lambda: (cpb_bias(*args),), (bias,)),
                      "ms": _time_ms(lambda: cpb_bias(*args)),
                      "plain_ms": _time_ms(lambda: cpb_bias_plain(*args), iters=5),
@@ -895,11 +946,78 @@ def phase_ragged() -> None:
 CPB_RAGGED = ((8, 8, 4), (9, 7, 20), (6, 11, 37), (5, 9, 72))
 
 
+# the layer-2 mask check's boundary inputs: dx and dy take these values (a
+# class of pairs is one (dx, dy) of them), w0x and w0y lie on the grid 1/16 and
+# b0 on 1/64, so that layer 1 is exact in f32 in any order of its operations
+MASK_DX = (-1.5, -0.5, 0.25, 1.0)
+MASK_DY = (-1.0, -0.25, 0.5, 1.25)
+
+
+def cpb_mask_inputs(h: int, w: int, j: int, dm: int, seed: int, boundary: bool = False,
+                    device: str = "cuda", bg: int = BG) -> list:
+    """f32 inputs (dx, dy, w0x, w0y, b0, w1, b1, w2, b2) of the layer-2 mask
+    check, w2 and b2 zero (``cpb_mask_counts`` sets w2's column), drawn with
+    numpy from ``seed``: as ``_cpb_inputs`` draws them or, with ``boundary``,
+    dx and dy from MASK_DX and MASK_DY, w0x, w0y and b0 on their grids, and
+    b1 = -(h1 w1) of the class (MASK_DX[0], MASK_DY[0]) evaluated in float64
+    and rounded to f32: that class's z2 lies within the rounding of a sum of
+    0 in every column, where another order of the sums may change its sign."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w1 = rng.normal(size=(dm, dm)) * dm ** -0.5
+    if boundary:
+        dx, dy = rng.choice(MASK_DX, size=(bg, w * j)), rng.choice(MASK_DY, size=(bg, h, j))
+        w0x, w0y = rng.integers(-16, 17, size=(2, dm)) / 16
+        b0 = rng.integers(-16, 17, size=dm) / 64
+        h1 = np.maximum(w0x * MASK_DX[0] + w0y * MASK_DY[0] + b0, 0.0)     # exact
+        b1 = -(h1 @ w1.astype(np.float32).astype(np.float64))
+    else:
+        dx, dy = rng.normal(size=(bg, w * j)) * 0.7, rng.normal(size=(bg, h, j)) * 0.7
+        w0x, w0y = rng.normal(size=(2, dm)) * 0.7
+        b0, b1 = rng.normal(size=(2, dm)) * 0.1
+    return [torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+            for a in (dx, dy, w0x, w0y, b0, w1, b1, np.zeros((dm, 1)), np.zeros(1))]
+
+
+def cpb_mask_counts(args: list, c: int) -> tuple:
+    """(pairs with bias > 0, db1[c] from dbias = 1) of the CPB forward and
+    backward (the kernels on CUDA tensors, the plain versions on CPU ones) on
+    ``cpb_mask_inputs`` with w2 = e_c and b2 = 0.  Then each bias is exactly
+    relu(z2[c]) (every other term of layer 3 is 0), and db1[c] = w2[c] sum
+    [z2[c] > 0] g sums ones: both count the pairs whose z2[c] > 0, exactly in
+    f32 below 2**24 pairs, the first by the forward's z2 and the second by the
+    backward's."""
+    from sml_tpu_torch.ops.kernels import cpb_bias, cpb_bias_bwd
+
+    w2 = torch.zeros_like(args[7])
+    w2[c, 0] = 1.0
+    bias = cpb_bias(*args[:7], w2, args[8])
+    db1 = cpb_bias_bwd(*args[:7], w2, torch.ones_like(bias))[6]
+    return int((bias > 0).sum().item()), db1[c].item()
+
+
+def cpb_mask_check(h: int, w: int, j: int, dm: int, boundary: bool) -> dict:
+    """The mask check at one shape and dm on the card: ``cpb_mask_counts`` of
+    every column on ``cpb_mask_inputs`` (seeded by dm and J), both counts of
+    each column, the columns where they differ, and ``ok`` if none does."""
+    args = cpb_mask_inputs(h, w, j, dm, seed=100 * dm + j, boundary=boundary)
+    counts = [cpb_mask_counts(args, c) for c in range(dm)]
+    bad = [c for c, (f, b) in enumerate(counts) if f != b]
+    return {"pass": "mask", "h": h, "w": w, "j": j, "dm": dm, "bg": BG, "boundary": boundary,
+            "fwd_counts": [f for f, _ in counts], "bwd_counts": [b for _, b in counts],
+            "columns_unequal": bad, "pairs_unequal": sum(abs(f - b) for f, b in counts),
+            "ok": not bad}
+
+
 def phase_cpb_ragged() -> None:
     """The CPB forward and backward at ragged shapes, dm 8 / 16 / 32, f32 (the
-    forward's CUDA-core twin, the backward's tf32 tensor-core kernel) and bf16
-    (the tensor-core kernels), against their plain versions (the forward at
-    KERNEL_TOL, the backward at CPB_GRAD_L2), and two launches bit for bit."""
+    tf32 tensor-core kernels) and bf16 (the tensor-core kernels), against
+    their plain versions (the forward at KERNEL_TOL, the backward at
+    CPB_GRAD_L2), and two launches bit for bit; then, in f32, the layer-2
+    mask check at each shape and dm for every column, on random and on
+    boundary inputs (``cpb_mask_inputs``): the forward's and the backward's
+    counts of z2 > 0 (``cpb_mask_counts``) must be equal."""
     from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plain,
                                            cpb_bias_plain)
 
@@ -929,6 +1047,12 @@ def phase_cpb_ragged() -> None:
                     _line("cpb-ragged", **e)
                     if not (e["ok"] and e["repeats"]):
                         failures.append(f"{e['pass']} H={h} W={w} J={j} dm={dm} {dtype}")
+            for boundary in (False, True):
+                e = cpb_mask_check(h, w, j, dm, boundary)
+                _line("cpb-ragged", **e)
+                if not e["ok"]:
+                    failures.append(f"mask H={h} W={w} J={j} dm={dm} boundary={boundary} "
+                                    f"columns {e['columns_unequal']}")
     if failures:
         raise AssertionError(f"CPB kernels at ragged shapes: {failures}")
 
@@ -1395,8 +1519,7 @@ TRAIN_LAUNCHES = {
 # the f32 forms that the default compute dtype (float32) adds to
 # TRAIN_LAUNCHES per train step: every attention launch of deformpathomic and
 # TransMIL in the f32 dh = 64 form, both directions, and every CPB launch of
-# deformpathomic in f32 (the backward on the tf32 kernel, the forward on its
-# CUDA-core twin)
+# deformpathomic in f32 (both directions on the tf32 kernels)
 F32_LAUNCHES = {"deformpathomic": {"deform_attention_fwd_f32": 2, "deform_attention_bwd_f32": 2,
                                    "cpb_bias_f32": 2, "cpb_bias_bwd_f32": 2},
                 "transmil": {"deform_attention_fwd_f32": 4, "deform_attention_bwd_f32": 4}}
@@ -3636,14 +3759,14 @@ def main() -> int:
     # S2500, the f32-train launches
     for name, source, replaces, _ in JSON_KERNELS[:2]:
         e = entries[name + "_f32"]
-        design = "3xTF32 mma.sync" if name == "cpb_bias_bwd" else "CUDA cores"
         kernels.append({"name": name + "_f32", "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": f32_runs["deformpathomic"][name + "_f32"],
                         "launches_run": "f32-train", **{k: e[k] for k in _TIMES},
-                        "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": design,
-                        **{k: e[k] for k in ("max_rel_l2_err", "rel_l2_f64",
-                                             "plain_rel_l2_f64") if k in e},
+                        "bound_3xtf32_ms": e["bound_3xtf32_ms"], "design": "3xTF32 mma.sync",
+                        **{k: e[k] for k in ("max_rel_l2_err", "rel_l2_f64", "plain_rel_l2_f64",
+                                             "max_abs_err_f64", "plain_max_abs_err_f64")
+                           if k in e},
                         "shape": f"f32, BG={BG} N={e['n']} J={e['j']} dm={DM}"})
     for name, source, replaces, count, design in DH32_KERNELS:
         e, e1 = dh32[(name, "chain3")], dh32[(name, "chain1")]

@@ -3,15 +3,20 @@
 on one CUDA card.
 
     python3 scripts/profile_cpb_bwd.py [--tag NAME] [--csrc DIR] [--iters 20]
-                                       [--variant threeblocks|rna|onetile|nodw1]
+                                       [--variant threeblocks|rna|onetile|nodw1|
+                                                  fwdonetile|fwdfiveblocks]
 
 Builds ``cpb_bias.cu`` and ``cpb_bias_bwd.cu`` from ``--csrc`` (default: the
 package's ``sml_tpu_torch/csrc``; a directory holding variants of the sources
 and their shared headers, such as another commit's, compares them in the same
 call) into ``build/profile_cpb/<tag>/``, prints each kernel instantiation's
 registers and spill stores from the ptxas logs, with its SASS instructions
-and the ``HMMA`` among them (``cuobjdump``, where the toolkit has it), then,
-at the main path's
+and the ``HMMA`` among them (``cuobjdump``, where the toolkit has it), and
+those of its step loop (the innermost loop holding the most ``HMMA``: the
+body of a backward branch), then the layer-2 mask check of ``chip_smoke.py``
+(``cpb_mask_check``: the f32 forward's and backward's counts of z2 > 0 per
+column, at its ragged shapes, dm 8 / 16 / 32, on random and boundary
+inputs; ``"pass": "mask"``), then, at the main path's
 shapes (BG = 64, dm = 32; S2500: 50 x 50 queries, J = 144; S4096: 64 x 64, J =
 256), f32 and bf16, for the forward (``"pass": "fwd"``) and the backward
 (``"bwd"``): the largest error against the plain version (the forward's
@@ -22,14 +27,17 @@ being drawn in the same order), and the median device time of one launch
 over ``--iters`` CUDA-event timings.  One JSON line per item, prefixed with
 ``--tag``, so that runs of two sources can be told apart.
 
-``--variant`` builds the f32 backward (``tf32::cpb_bias_bwd_tf32``) from a
-copy of the sources with one design choice changed (several, comma-separated,
-apply together): ``threeblocks`` names three blocks an SM in its launch bound
-instead of two (ptxas then gives each thread at most 168 registers), ``rna``
-splits dw1's staged operand g h1 to nearest (``mma::split_tf32``) instead of
-truncating it, ``onetile`` takes one m16 tile of pairs a warp step instead of
-two; and ``nodw1``, a timing ablation whose gradients are wrong, leaves dw1's
-products out.
+``--variant`` builds the f32 kernels from a copy of the sources with one
+design choice changed (several, comma-separated, apply together).  Of the
+backward (``tf32::cpb_bias_bwd_tf32``): ``threeblocks`` names three blocks an
+SM in its launch bound instead of two (ptxas then gives each thread at most
+168 registers), ``rna`` splits dw1's staged operand g h1 to nearest
+(``mma::split_tf32``) instead of truncating it, ``onetile`` takes one m16
+tile of pairs a warp step instead of two; and ``nodw1``, a timing ablation
+whose gradients are wrong, leaves dw1's products out.  Of the forward
+(``tf32::cpb_bias_fwd_tf32``): ``fwdonetile`` takes one m16 tile of pairs a
+warp step instead of two, ``fwdfiveblocks`` names five blocks an SM in its
+launch bound instead of four (at most 102 registers a thread).
 """
 
 from __future__ import annotations
@@ -49,11 +57,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import CPB_RAGGED, cpb_mask_check  # noqa: E402
 from sml_tpu_torch.ops.kernels import (_build, cpb_bias, cpb_bias_bwd,  # noqa: E402
                                        cpb_bias_bwd_plain, cpb_bias_plain)
 
 SOURCES = ("cpb_bias", "cpb_bias_bwd")
-KERNEL = re.compile(r"(cpb_bias_fwd_tc|cpb_bias_bwd_tc|cpb_bias_bwd_tf32|cpb_bias_kernel)"
+KERNEL = re.compile(r"(cpb_bias_fwd_tc|cpb_bias_bwd_tc|cpb_bias_fwd_tf32|cpb_bias_bwd_tf32)"
                     r"I(\w*?)Li(\d+)E")
 # the variants of the f32 backward: ((file, its text, the variant's), ...)
 VARIANTS = {
@@ -64,6 +73,9 @@ VARIANTS = {
     # a timing ablation, whose gradients are wrong: dw1's products left out
     "nodw1": (("cpb_bias_bwd.cu", "            mma::mma_tf32(acc_w1[mt][n], al, b.x, b.y);\n"
                "            mma::mma_tf32(acc_w1[mt][n], ah, b.x, b.y);\n", ""),),
+    "fwdonetile": (("cpb_bias.cu", "constexpr int kTiles = 2;", "constexpr int kTiles = 1;"),),
+    "fwdfiveblocks": (("cpb_bias.cu", "constexpr int kBlocksPerSM = 4;",
+                       "constexpr int kBlocksPerSM = 5;"),),
 }
 
 BG, DM = 64, 32
@@ -84,24 +96,43 @@ def _time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def _step_loop(code: list) -> tuple:
+    """(SASS instructions, HMMA) of the innermost loop holding the most HMMA
+    in a kernel's ``code`` [(address, instruction), ...]: of the bodies from
+    a backward branch's target to the branch, those with the most HMMA, the
+    shortest; (0, 0) without one."""
+    loops = []
+    for addr, text in code:
+        m = re.search(r"\bBRA\S*\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            body = [x for a, x in code if int(m.group(1), 16) <= a <= addr]
+            loops.append((sum("HMMA" in x for x in body), -len(body)))
+    if not loops:
+        return 0, 0
+    hmma, neg_len = max(loops)
+    return -neg_len, hmma
+
+
 def _sass_counts(lib: Path) -> dict:
-    """{mangled kernel: (SASS instructions, HMMA among them)} of a library,
-    by cuobjdump (the CUDA toolkit's); {} without it."""
+    """{mangled kernel: (SASS instructions, HMMA among them, and the same of
+    its step loop)} of a library, by cuobjdump (the CUDA toolkit's); {}
+    without it."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True).stdout
-    counts, kernel = {}, None
+    code, kernel = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = m.group(1)
-            counts[kernel] = [0, 0]
-        elif kernel and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[kernel][0] += 1
-            counts[kernel][1] += "HMMA" in line
-    return counts
+            code[kernel] = []
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(\S.*?)\s*;", line)
+        if kernel and m:
+            code[kernel].append((int(m.group(1), 16), m.group(2)))
+    return {k: (len(c), sum("HMMA" in x for _, x in c), *_step_loop(c))
+            for k, c in code.items()}
 
 
 def ptxas(tag: str) -> None:
@@ -115,7 +146,8 @@ def ptxas(tag: str) -> None:
                     f"dm={k.group(3)}" if k else mangled)
             line = {"tag": tag, "kernel": name, "registers": regs, "spill_stores": spill}
             if mangled in sass:
-                line["sass_instructions"], line["hmma"] = sass[mangled]
+                (line["sass_instructions"], line["hmma"], line["loop_sass_instructions"],
+                 line["loop_hmma"]) = sass[mangled]
             print(json.dumps(line), flush=True)
 
 
@@ -157,6 +189,12 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"tag": args.tag, "card": smi, "csrc": str(_build.CSRC)}), flush=True)
     ptxas(args.tag)
+    for h, w, j in CPB_RAGGED:
+        for dm in (8, 16, 32):
+            for boundary in (False, True):
+                e = cpb_mask_check(h, w, j, dm, boundary)
+                print(json.dumps({"tag": args.tag, **{k: v for k, v in e.items()
+                                                      if k != "bwd_counts"}}), flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     for fixdim, (side, j) in SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):

@@ -16,9 +16,10 @@
 // (BG, N, J, dm) activations never reach device memory.
 //
 // What bounds it on the H100: operations.  2*dm^2 + 6*dm + 1 = 2241 FLOP per
-// pair at dm = 32 against 2 bytes of bf16 bias written: 51.6 GFLOP and 46 MB
-// at 2500 patches.  Layer 2 (2*dm^2 = 2048 of them) is a matrix product;
-// layers 1 and 3 (6*dm + 1 = 193, 9%) are not.
+// pair at dm = 32 against 2 bytes of bf16 bias written (4 of f32): 51.6 GFLOP
+// and 46 MB (92 MB) at 2500 patches.  Layer 2 (2*dm^2 = 2048 of them) is a
+// matrix product; layers 1 and 3 (6*dm + 1 = 193, 9%) are not.  In f32 each
+// of layer 2's products is three tf32 ones (3xTF32).
 //
 // bf16, tc::cpb_bias_fwd_tc: layer 2 on the tensor cores as warp-level
 // mma.sync m16n8k16 (8 per 16-pair step at dm = 32), bf16 operands and f32
@@ -56,11 +57,44 @@
 // rounded once.  A 16-pair step past W*J computes zeros and stores nothing
 // there; dm = 8 pads the k16 step with zero columns.
 //
-// f32, cpb_bias_kernel, the CUDA-core twin and the exact-arithmetic reference
-// on the card: each thread runs the whole per-pair MLP in f32 registers for
-// kPairs lanes at once (w1 transposed in shared memory, so a row of it is one
-// float4-loadable run), so every broadcast weight load feeds kPairs FMAs; h1
-// is never rounded.
+// f32, tf32::cpb_bias_fwd_tf32: the bf16 kernel's grid, block and loop, layer
+// 2 on the tf32 tensor cores as mma.sync m16n8k8 (mma.cuh), f32 throughout
+// with no bf16 rounding; a warp takes kTiles = 2 m16 tiles of pairs (32
+// consecutive lanes of the row) a step:
+//   - layers 1 and 2 are cpb_common.cuh's cpb::tf32 code, called as the f32
+//     backward's recompute (cpb_bias_bwd.cu, tf32::cpb_bias_bwd_tf32) calls
+//     it, on weights staged by the same cpb::tf32::stage_params and w1 split
+//     by the same cpb::tf32::stage_b<DM, false> into shared memory in
+//     fragment order: layer 1 as fmaf(w0x, dx, fmaf(w0y, dy, b0)), h1 split
+//     to nearest, z2 = h1 w1 + b1 as 3xTF32 in one chain a tile from b1 (48
+//     mma per 16 pairs at dm = 32).  An m16n8k8 row of z2 depends only on its
+//     own A row, so the forward's (bg, y) grid and the backward's (bg, lane
+//     tile) grid give each pair the same z2, and the two kernels take the
+//     same layer-2 ReLU decisions bit for bit, as the bf16 pair does;
+//   - layer 3 in f32 on the CUDA cores as in the bf16 kernel (w2 relu(z2)
+//     over the lane's columns from cpb::b1_w2, then the quad's sum in a fixed
+//     order, xor 1, then xor 2); with two tiles the two shuffles of xor 1
+//     leave each lane one pair of each tile and the one of xor 2 one pair in
+//     all (three shuffles, not four), so lane t ends with pair g + 8 (t & 1)
+//     of tile t >> 1 and the warp's 32 lanes store the step's 32 consecutive
+//     outputs, 128 bytes in whole 32-byte sectors, straight from registers:
+//     at 4 bytes a pair (0.028 ms of 92 MB at 2500 patches) the store is not
+//     what bounds the kernel.  The sum is the same tree with one tile (lanes
+//     t < 2 store), so kTiles does not change the bits;
+//   - j advanced by the conditional subtract and dx loaded a step ahead, as
+//     in the bf16 kernel; the loop is not unrolled (two tiles give the step
+//     its independent chains, and registers are the scarce resource: the
+//     split h1 of both tiles is 64 a thread at dm = 32 beside z2's 32);
+//   - __launch_bounds__ names kBlocksPerSM blocks an SM, so ptxas sizes the
+//     registers for them; shared memory (7 dm + 2 dm^2 + J floats) is small.
+// A 16-pair tile past W*J computes with dx = 0 and stores nothing there;
+// dm = 8 is one k8 step and needs no padding.  The step loop is 494
+// instructions per lane at dm = 32, 96 of them mma (5.1 per mma; 111
+// registers, no spill): 0.785 ms at 2500 patches, about 3.0 SM cycles per mma
+// (the backward's 4.4), against the CUDA-core twin's 1.466, on an H100 80GB
+// HBM3 at 700 W (scripts/profile_cpb_bwd.py).  With the mma count fixed, the
+// time followed the other instructions: one tile a step (10% more per pair)
+// ran 6% slower, five blocks an SM (96 registers, 7% more) 4% slower.
 //
 // C entry: cpb_bias_fwd(dtype, dx, dy, w0x, w0y, b0, w1, b1, w2, b2, out,
 //                       BG, H, W, J, dm, device, stream) -> cudaGetLastError().
@@ -75,96 +109,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------------------
-// f32: the CUDA-core twin
-
-constexpr int kThreads = 256;
-constexpr int kPairs = 2;
-
-template <int DM>
-__global__ void __launch_bounds__(kThreads)
-cpb_bias_kernel(const float* __restrict__ dx, const float* __restrict__ dy,
-                const float* __restrict__ w0x, const float* __restrict__ w0y,
-                const float* __restrict__ b0, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, float* __restrict__ out, int H, int W, int J) {
-  static_assert(DM % 4 == 0, "w1 rows are read as float4");
-  extern __shared__ __align__(16) float smem[];
-  float* s_w1t = smem;              // [DM][DM]: s_w1t[m * DM + k] = w1[k][m]
-  float* s_w0x = s_w1t + DM * DM;
-  float* s_w0y = s_w0x + DM;
-  float* s_b0 = s_w0y + DM;
-  float* s_b1 = s_b0 + DM;
-  float* s_w2 = s_b1 + DM;
-  float* s_dy = s_w2 + DM;          // [J]: dy of this query row
-
-  const int bg = blockIdx.x / H;
-  const int y = blockIdx.x - bg * H;
-  for (int i = threadIdx.x; i < DM * DM; i += kThreads) {
-    const int k = i / DM;
-    const int m = i - k * DM;
-    s_w1t[m * DM + k] = w1[i];
-  }
-  for (int i = threadIdx.x; i < DM; i += kThreads) {
-    s_w0x[i] = w0x[i];
-    s_w0y[i] = w0y[i];
-    s_b0[i] = b0[i];
-    s_b1[i] = b1[i];
-    s_w2[i] = w2[i];
-  }
-  const float* dy_row = dy + ((size_t)bg * H + y) * J;
-  for (int i = threadIdx.x; i < J; i += kThreads) s_dy[i] = dy_row[i];
-  __syncthreads();
-
-  const float bias2 = b2[0];
-  const int WJ = W * J;
-  const float* dx_row = dx + (size_t)bg * WJ;
-  float* out_row = out + ((size_t)bg * H + y) * WJ;
-
-  for (int base = threadIdx.x; base < WJ; base += kThreads * kPairs) {
-    float h1[kPairs][DM];
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      const int l = base + p * kThreads;
-      const bool ok = l < WJ;
-      const float dxv = ok ? dx_row[l] : 0.f;
-      const float dyv = ok ? s_dy[l % J] : 0.f;
-#pragma unroll
-      for (int k = 0; k < DM; ++k)
-        h1[p][k] = fmaxf(fmaf(s_w0x[k], dxv, fmaf(s_w0y[k], dyv, s_b0[k])), 0.f);
-    }
-    float acc[kPairs];
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) acc[p] = bias2;
-#pragma unroll 4
-    for (int m = 0; m < DM; ++m) {
-      const float4* wrow = reinterpret_cast<const float4*>(s_w1t + m * DM);
-      float z[kPairs];
-#pragma unroll
-      for (int p = 0; p < kPairs; ++p) z[p] = s_b1[m];
-#pragma unroll
-      for (int k4 = 0; k4 < DM / 4; ++k4) {
-        const float4 w = wrow[k4];
-#pragma unroll
-        for (int p = 0; p < kPairs; ++p) {
-          z[p] = fmaf(w.x, h1[p][4 * k4 + 0], z[p]);
-          z[p] = fmaf(w.y, h1[p][4 * k4 + 1], z[p]);
-          z[p] = fmaf(w.z, h1[p][4 * k4 + 2], z[p]);
-          z[p] = fmaf(w.w, h1[p][4 * k4 + 3], z[p]);
-        }
-      }
-      const float w2m = s_w2[m];
-#pragma unroll
-      for (int p = 0; p < kPairs; ++p) acc[p] = fmaf(w2m, fmaxf(z[p], 0.f), acc[p]);
-    }
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      const int l = base + p * kThreads;
-      if (l < WJ) out_row[l] = acc[p];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
@@ -261,14 +205,153 @@ cpb_bias_fwd_tc(const float* __restrict__ dx, const float* __restrict__ dy,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// f32: the tf32 tensor-core kernel (3xTF32)
+
+namespace tf32 {
+
+// the bf16 kernel's block: 4 warps over the row
+using tc::kThreads;
+using tc::kWarps;
+// m16 tiles of pairs a warp takes per step: each split B fragment of w1
+// loaded from shared memory feeds kTiles products, and the tiles' product
+// chains are independent (scripts/profile_cpb_bwd.py --variant fwdonetile
+// takes one)
+constexpr int kTiles = 2;
+constexpr int kStride = 16 * kTiles * kWarps;   // lanes from one of a warp's steps to its next
+// blocks an SM holds: named in __launch_bounds__ so that ptxas gives each
+// thread the registers that many blocks leave it, 128 (without a count it may
+// cap them lower and spill); 111 at dm = 32 hold four blocks an SM, and so
+// would a bound of three.  Shared memory (9.7 KB a block at dm = 32, J = 144)
+// would allow more (--variant fwdfiveblocks names one more: 4% slower)
+constexpr int kBlocksPerSM = 4;
+
+// floats of shared memory: the weights, w1's split B fragments, the row's dy
+template <int DM>
+__host__ __device__ constexpr int smem_floats(int J) {
+  return cpb::tf32::par_floats<DM>() + cpb::tf32::b_floats<DM>() + J;
+}
 
 template <int DM>
-cudaError_t launch_f32(const void* dx, const void* dy, const void* w0x, const void* w0y,
-                       const void* b0, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* out, int BG, int H, int W, int J,
-                       cudaStream_t stream) {
-  const size_t smem = (size_t)(DM * DM + 5 * DM + J) * sizeof(float);
-  cpb_bias_kernel<DM><<<BG * H, kThreads, smem, stream>>>(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+cpb_bias_fwd_tf32(const float* __restrict__ dx, const float* __restrict__ dy,
+                  const float* __restrict__ w0x, const float* __restrict__ w0y,
+                  const float* __restrict__ b0, const float* __restrict__ w1,
+                  const float* __restrict__ b1, const float* __restrict__ w2,
+                  const float* __restrict__ b2, float* __restrict__ out, int H, int W, int J) {
+  constexpr int NT = cpb::tf32::Frags<DM>::NT;
+  constexpr int T = kTiles;
+  static_assert(T == 1 || T == 2, "a warp step stores one or two tiles");
+  extern __shared__ __align__(16) float smem[];
+  float* s_par = smem;                 // the weights in f32 (cpb::tf32::stage_params)
+  uint4* s_wz = reinterpret_cast<uint4*>(s_par + cpb::tf32::par_floats<DM>());  // w1: z2 = h1 w1
+  float* s_dy = reinterpret_cast<float*>(s_wz + NT * NT * 32);  // [J]: dy of this query row
+
+  const int bg = blockIdx.x / H;
+  const int y = blockIdx.x - bg * H;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  cpb::tf32::stage_params<DM>(s_par, w0x, w0y, b0, b1, w2, threadIdx.x, kThreads);
+  cpb::tf32::stage_b<DM, false>(s_wz, w1, nullptr, threadIdx.x, kThreads);
+  const float* dy_row = dy + ((size_t)bg * H + y) * J;
+  for (int i = threadIdx.x; i < J; i += kThreads) s_dy[i] = dy_row[i];
+  const float bias2 = b2[0];
+  __syncthreads();
+
+  const int WJ = W * J;
+  const float* dx_row = dx + (size_t)bg * WJ;
+  float* out_row = out + ((size_t)bg * H + y) * WJ;
+  // the lane's pairs i0 + 16i + g + 8r of the step (tile i, row g + 8r):
+  // their j, and their dx a step ahead
+  const int jstep = kStride % J;
+  int i0 = 16 * T * warp;
+  int jv[T][2];
+  float xn[T][2];
+  const float* xp = dx_row + i0 + g;
+  // the lane's output after the quad's sum: pair g + 8(t & 1) of tile t >> 1
+  // (T = 2; lanes t < 2 with T = 1), so the warp stores i0 + g + 8t, whole
+  // consecutive 32-byte sectors
+  float* op = out_row + i0 + g + 8 * t;
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = i0 + 16 * i + g + 8 * r;
+      jv[i][r] = p % J;
+      xn[i][r] = p < WJ ? xp[16 * i + 8 * r] : 0.f;
+    }
+#pragma unroll 1
+  for (; i0 < WJ; i0 += kStride) {
+    float xv[T][2], yv[T][2];
+    xp += kStride;
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xv[i][r] = xn[i][r];
+        yv[i][r] = s_dy[jv[i][r]];
+        const int p = i0 + kStride + 16 * i + g + 8 * r;
+        xn[i][r] = p < WJ ? xp[16 * i + 8 * r] : 0.f;
+        jv[i][r] += jstep;
+        if (jv[i][r] >= J) jv[i][r] -= J;
+      }
+
+    // layers 1 and 2: the backward's recompute (cpb_common.cuh), so z2 and its
+    // ReLU mask are the backward's bit for bit
+    float z[T][NT][4];
+    {
+      float h1[T][NT][4];
+      cpb::tf32::layer1<DM, T>(h1, s_par, xv, yv, t);
+      cpb::tf32::layer2<DM, T>(z, h1, s_wz, s_par, lane, t);
+    }
+
+    // layer 3: w2 . relu(z2) over the lane's columns for pairs g and g + 8 of
+    // each tile
+    float acc[T][2];
+#pragma unroll
+    for (int i = 0; i < T; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 bw = cpb::b1_w2<DM>(s_par, n, t);
+#pragma unroll
+      for (int i = 0; i < T; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e >> 1] = fmaf((e & 1) ? bw.w : bw.z, fmaxf(z[i][n][e], 0.f), acc[i][e >> 1]);
+    }
+    // over the quad: xor 1, lane t keeps pair g + 8 (t & 1) of each tile; xor
+    // 2, it keeps tile t >> 1 and adds the lanes t ^ 2's sum of it
+    const bool odd = t & 1;
+    float s[T];
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+      s[i] = (odd ? acc[i][1] : acc[i][0]) +
+             __shfl_xor_sync(0xffffffffu, odd ? acc[i][0] : acc[i][1], 1);
+    const int i = i0 + g + 8 * t;
+    if constexpr (T == 2) {
+      const bool upper = t & 2;
+      const float v = (upper ? s[1] : s[0]) + __shfl_xor_sync(0xffffffffu, upper ? s[0] : s[1], 2);
+      if (i < WJ) *op = v + bias2;
+    } else {
+      const float v = s[0] + __shfl_xor_sync(0xffffffffu, s[0], 2);
+      if (t < 2 && i < WJ) *op = v + bias2;
+    }
+    op += kStride;
+  }
+}
+
+}  // namespace tf32
+
+// ---------------------------------------------------------------------------
+
+template <int DM>
+cudaError_t launch_tf32(const void* dx, const void* dy, const void* w0x, const void* w0y,
+                        const void* b0, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* out, int BG, int H, int W, int J,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)tf32::smem_floats<DM>(J) * sizeof(float);
+  tf32::cpb_bias_fwd_tf32<DM><<<BG * H, tf32::kThreads, smem, stream>>>(
       static_cast<const float*>(dx), static_cast<const float*>(dy),
       static_cast<const float*>(w0x), static_cast<const float*>(w0y),
       static_cast<const float*>(b0), static_cast<const float*>(w1),
@@ -297,7 +380,7 @@ cudaError_t launch(int dtype, const void* dx, const void* dy, const void* w0x,
                    const void* w0y, const void* b0, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, int BG, int H, int W, int J,
                    cudaStream_t s) {
-  if (dtype == 0) return launch_f32<DM>(dx, dy, w0x, w0y, b0, w1, b1, w2, b2, out, BG, H, W, J, s);
+  if (dtype == 0) return launch_tf32<DM>(dx, dy, w0x, w0y, b0, w1, b1, w2, b2, out, BG, H, W, J, s);
   if (dtype == 1) return launch_tc<DM>(dx, dy, w0x, w0y, b0, w1, b1, w2, b2, out, BG, H, W, J, s);
   return cudaErrorInvalidValue;
 }

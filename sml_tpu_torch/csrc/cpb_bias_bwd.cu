@@ -70,11 +70,11 @@
 //     three tf32 products for one f32 one), h1's A fragments split to nearest
 //     in mma::split_accum's permutation: k positions t and t + 4 are the
 //     lane's columns 2t and 2t + 1, so h1, z2 and dh1 share each lane's
-//     columns and no value moves between lanes.  The f32 forward is still the
-//     CUDA-core twin cpb_bias_kernel, whose z2 is an fmaf chain, so a pair
-//     with z2 within a few ulps of 0 may take the other layer-2 branch here
-//     (as the Pallas backward, which recomputes z2 apart from its forward,
-//     may); once the forward calls cpb::tf32 too the masks agree;
+//     columns and no value moves between lanes.  The f32 forward
+//     (cpb_bias.cu, tf32::cpb_bias_fwd_tf32) calls the same code on the same
+//     staged weights, so z2 and its mask are the forward's bit for bit (the
+//     Pallas backward, which recomputes z2 apart from its forward, may take
+//     the other branch at z2 within a few ulps of 0);
 //   - dz2 = g [z2 > 0] w2 is never formed: with the mask exact in tf32 (1 or
 //     0), dh1 = dz2 w1^T = g ([z2 > 0] (w2 w1^T)) and dw1 = h1^T dz2 = ((g
 //     h1)^T [z2 > 0]) w2 per column, and db1 = w2 sum [z2 > 0] g, so each of

@@ -14,14 +14,11 @@
 // and 32 fill it.
 //
 // cpb::tf32 holds the same two layers in f32 for the f32 forms, on the tf32
-// tensor cores as 3xTF32 (mma.cuh): written for the f32 backward's recompute
-// (cpb_bias_bwd.cu, tf32::cpb_bias_bwd_tf32) and for the f32 forward to call
-// as well, so that once it does both take the same layer-2 ReLU decisions bit
-// for bit, as the bf16 pair does.  Until then the f32 forward is the CUDA-core
-// twin cpb_bias_kernel, whose z2 is an fmaf chain: a pair whose z2 lies within
-// a few ulps of 0 may take the other branch in the two kernels, as it may
-// between the Pallas forward and its recomputing backward.  Layer 1 is the
-// twin's fmaf order, so the layer-1 mask a > 0 is the forward's already.
+// tensor cores as 3xTF32 (mma.cuh), shared in the same way by the f32 forward
+// (cpb_bias.cu, tf32::cpb_bias_fwd_tf32) and the f32 backward's recompute
+// (cpb_bias_bwd.cu, tf32::cpb_bias_bwd_tf32): both stage the weights with
+// tf32::stage_params and w1 with tf32::stage_b<DM, false>, so they compute the
+// same z2 bit for bit and take the same layer-1 and layer-2 ReLU decisions.
 
 #pragma once
 

@@ -24,19 +24,19 @@ thin dx / dy displacement tables.  The forward runs one block per (bg, query
 row) with the weights and the row's dy in shared memory.  Its bf16 form
 (``tc::cpb_bias_fwd_tc``) runs layer 2 on the tensor cores (``mma.sync``,
 ``csrc/mma.cuh``), 16 pairs per warp step, with layers 1 and 3 (9% of the
-FLOP, and most of the instructions) in f32 on the CUDA cores.  The backward
+FLOP, and most of the instructions) in f32 on the CUDA cores; its f32 form
+(``tf32::cpb_bias_fwd_tf32``) on the tf32 tensor cores as 3xTF32, 32 pairs per
+warp step.  The backward
 runs one block per (bg, tile of 512 lanes) over all rows: d_dx stays on chip,
 d_dy and the weight gradients leave as small per-block partials that the
 wrapper sums, in a fixed order with no atomics, so it repeats bit for bit.
 Its bf16 form runs the three dm x dm products per pair on the tensor cores,
 its f32 form (``tf32::cpb_bias_bwd_tf32``) on the tf32 tensor cores as
-3xTF32 (three tf32 products for each f32 one).  Both bf16 forms compute
-layers 1 and 2 with one piece of code (``csrc/cpb_common.cuh``), so the
+3xTF32 (three tf32 products for each f32 one).  In each dtype the forward
+and the backward compute layers 1 and 2 with one piece of code
+(``csrc/cpb_common.cuh``: ``cpb`` in bf16, ``cpb::tf32`` in f32), so the
 backward's recomputed z2, and its layer-2 ReLU mask, are the forward's bit for
-bit; the f32 backward's layers 1 and 2 are that header's ``cpb::tf32`` code,
-written for the f32 forward too, which is still a CUDA-core twin running the
-per-pair MLP in f32 registers (see the source notes).  ``wgmma`` is later
-work.
+bit.  ``wgmma`` is later work.
 
 Rounding points of the bf16 forms, each one where the Pallas kernels round
 too: h1 to bf16 before layer 2 (forward and backward), dz2 to bf16 before its
@@ -150,8 +150,9 @@ def cpb_bias(dx, dy, w0x, w0y, b0, w1, b1, w2, b2):
     dx (BG, W*J) f32 and dy (BG, H, J) f32 are the signed-log displacement
     tables; w0x, w0y, b0, b1 (dm,), w1 (dm, dm), w2 (dm, 1), b2 (1,) share the
     compute dtype (float32 or bfloat16).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (bf16: the tensor-core kernel; f32: its
-    CUDA-core twin, counted apart in ``f32_launches`` too).
+    CUDA tensors launch the kernel (bf16: the tensor-core kernel; f32: the
+    3xTF32 kernel on the tf32 tensor cores, counted apart in ``f32_launches``
+    too).
     """
     weights = (w0x, w0y, b0, w1, b1, w2, b2)
     bg, h, w, j, dm = _check(dx, dy, weights)

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RAGGED, RAGGED_BIAS
+from chip_smoke import (MASK_DX, MASK_DY, RAGGED, RAGGED_BIAS, cpb_mask_counts,
+                         cpb_mask_inputs)
 from sml_tpu.ops.pallas.deform_attn import (cpb_bias_trainable as j_cpb_bias_trainable,
                                             deform_attention_trainable as j_attn_trainable,
                                             fused_cpb_bias)
@@ -29,6 +30,7 @@ from sml_tpu_torch.ops.kernels import (cpb_bias, cpb_bias_bwd, cpb_bias_bwd_plai
                                        deform_attention_bwd, deform_attention_bwd_plain,
                                        deform_attention_fwd, deform_attention_fwd_plain,
                                        deform_attention_trainable, philox_keep_mask)
+from sml_tpu_torch.ops.kernels.cpb_bias import _layer1
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 WTOL = dict(rtol=1e-4, atol=1e-5)
@@ -307,6 +309,32 @@ def test_cpb_bias_trainable_on_cpu_is_the_plain_backward():
     for name, g, w_ in zip(CPB_GRADS, got, want):
         torch.testing.assert_close(g, w_.reshape(g.shape), rtol=0, atol=0, msg=name)
     assert (cpb_bias.launches, cpb_bias_bwd.launches) == before
+
+
+@pytest.mark.parametrize("boundary", [False, True])
+def test_cpb_layer2_mask_counts_agree_on_the_plain_versions(boundary):
+    """chip_smoke.py's layer-2 mask check on CPU tensors (the plain versions):
+    with w2 = e_c and b2 = 0 the forward's count of bias > 0 and the
+    backward's db1[c] from dbias = 1 both equal the number of pairs whose
+    z2[c] > 0, in every column.  On boundary inputs the class (MASK_DX[0],
+    MASK_DY[0]) has an exact layer 1 and a z2 within half an f32 ulp of its
+    sum h1 w1 of 0 in float64, so another order of the sums may flip it."""
+    bg, h, w, j, dm = 2, 5, 6, 7, 8
+    args = cpb_mask_inputs(h, w, j, dm, seed=4, boundary=boundary, device="cpu", bg=bg)
+    dx, dy, w0x, w0y, b0, w1, b1 = args[:7]
+    h1 = torch.relu(_layer1(dx, dy, w0x, w0y, b0, 0, h))        # (BG, H, W, J, dm)
+    z2 = h1 @ w1 + b1
+    for c in range(dm):
+        fwd, bwd = cpb_mask_counts(args, c)
+        assert fwd == bwd == int((z2[..., c] > 0).sum()), c
+    if boundary:
+        cls = (dx.reshape(bg, 1, w, j) == MASK_DX[0]) & (dy[:, :, None, :] == MASK_DY[0])
+        assert cls.any()
+        h1c = h1[cls].double()
+        total = h1c @ w1.double()
+        assert torch.equal(h1c, (torch.relu(w0x.double() * MASK_DX[0] + w0y.double()
+                                            * MASK_DY[0] + b0.double())).expand_as(h1c))
+        assert bool(((total + b1.double()).abs() <= 2.0 ** -24 * total.abs()).all())
 
 
 def test_launch_counts_carry_the_f32_cpb_forms():
